@@ -1,0 +1,111 @@
+"""Eval-mode ray samplers: spaced sampling, inverse-CDF resampling and the
+proposal sampling loop.
+
+Counterpart of ``samnerf_tpu/ops/samplers.py`` without jitter (serving
+is deterministic per ray); the stratified training paths wait.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Sequence, Tuple
+
+import torch
+
+from samnerf_tpu_torch.core.rays import RayBundle, RaySamples
+
+
+def spacing_piecewise(x: torch.Tensor) -> torch.Tensor:
+    """UniformLinDispPiecewise: first half uniform, second linear in
+    disparity."""
+    return torch.where(x < 1.0, x / 2.0, 1.0 - 1.0 / (2.0 * x))
+
+
+def spacing_piecewise_inv(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x < 0.5, 2.0 * x, 1.0 / (2.0 - 2.0 * x))
+
+
+def spacing_to_euclidean(s, s_near, s_far):
+    return spacing_piecewise_inv(s * s_far + (1.0 - s) * s_near)
+
+
+def _make_ray_samples(ray_bundle: RayBundle, euclid_bins, spacing_bins,
+                      s_near, s_far) -> RaySamples:
+    """Bin edges [R, S+1] -> RaySamples [R, S]."""
+    return RaySamples(
+        origins=ray_bundle.origins, directions=ray_bundle.directions,
+        starts=euclid_bins[..., :-1, None], ends=euclid_bins[..., 1:, None],
+        spacing_starts=spacing_bins[..., :-1, None],
+        spacing_ends=spacing_bins[..., 1:, None], s_near=s_near, s_far=s_far)
+
+
+def initial_samples(ray_bundle: RayBundle, num_samples: int) -> RaySamples:
+    """Evenly spaced bins in the piecewise spacing."""
+    num_rays = ray_bundle.origins.shape[0]
+    bins = torch.linspace(0.0, 1.0, num_samples + 1,
+                          device=ray_bundle.origins.device)
+    bins = bins[None, :].expand(num_rays, num_samples + 1)
+    s_near = spacing_piecewise(ray_bundle.nears)
+    s_far = spacing_piecewise(ray_bundle.fars)
+    return _make_ray_samples(ray_bundle, spacing_to_euclidean(bins, s_near, s_far),
+                             bins, s_near, s_far)
+
+
+def searchsorted_right(sorted_seq: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """Batched insertion indices, side='right': the count of entries of
+    ``sorted_seq`` [..., B] that are <= each of ``values`` [..., U]."""
+    return torch.searchsorted(sorted_seq.contiguous(), values.contiguous(),
+                              right=True)
+
+
+def pdf_samples(ray_bundle: RayBundle, ray_samples: RaySamples,
+                weights: torch.Tensor, num_samples: int,
+                histogram_padding: float = 0.01, eps: float = 1e-5) -> RaySamples:
+    """Inverse-CDF resampling at the bin midpoints of ``num_samples + 1``
+    evenly spaced quantiles; ``weights`` [R, S_in, 1]."""
+    num_bins = num_samples + 1
+    w = weights[..., 0] + histogram_padding
+    w_sum = torch.sum(w, dim=-1, keepdim=True)
+    padding = torch.relu(eps - w_sum)           # zero-weight rays: no NaNs
+    w = w + padding / w.shape[-1]
+    w_sum = w_sum + padding
+    cdf = torch.clamp_max(torch.cumsum(w / w_sum, dim=-1), 1.0)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
+
+    u = torch.linspace(0.0, 1.0 - 1.0 / num_bins, num_bins, device=cdf.device)
+    u = (u + 1.0 / (2 * num_bins))[None, :].expand(cdf.shape[0], num_bins)
+    existing_bins = torch.cat([ray_samples.spacing_starts[..., 0],
+                               ray_samples.spacing_ends[..., -1:, 0]], dim=-1)
+    inds = searchsorted_right(cdf, u)
+    last = existing_bins.shape[-1] - 1
+    below = torch.clamp(inds - 1, 0, last)
+    above = torch.clamp(inds, 0, last)
+    cdf_g0, cdf_g1 = torch.gather(cdf, -1, below), torch.gather(cdf, -1, above)
+    bins_g0 = torch.gather(existing_bins, -1, below)
+    bins_g1 = torch.gather(existing_bins, -1, above)
+    t = torch.clamp(torch.nan_to_num((u - cdf_g0) / (cdf_g1 - cdf_g0)), 0.0, 1.0)
+    bins = bins_g0 + t * (bins_g1 - bins_g0)
+    euclid = spacing_to_euclidean(bins, ray_samples.s_near, ray_samples.s_far)
+    return _make_ray_samples(ray_bundle, euclid, bins, ray_samples.s_near,
+                             ray_samples.s_far)
+
+
+def proposal_sampling(ray_bundle: RayBundle,
+                      density_fns: Sequence[Callable[[torch.Tensor], torch.Tensor]],
+                      num_proposal_samples: Sequence[int], num_nerf_samples: int,
+                      ) -> Tuple[RaySamples, List[torch.Tensor], List[RaySamples]]:
+    """Proposal-network sampling loop.  Returns (final nerf RaySamples,
+    proposal weights, proposal RaySamples); the caller appends the nerf
+    level."""
+    weights_list: List[torch.Tensor] = []
+    ray_samples_list: List[RaySamples] = []
+    ray_samples = initial_samples(ray_bundle, num_proposal_samples[0]
+                                  if num_proposal_samples else num_nerf_samples)
+    for i, density_fn in enumerate(density_fns):
+        if i > 0:
+            ray_samples = pdf_samples(ray_bundle, ray_samples, weights_list[-1],
+                                      num_proposal_samples[i])
+        weights_list.append(ray_samples.get_weights(density_fn(ray_samples.positions())))
+        ray_samples_list.append(ray_samples)
+    if density_fns:
+        ray_samples = pdf_samples(ray_bundle, ray_samples, weights_list[-1],
+                                  num_nerf_samples)
+    return ray_samples, weights_list, ray_samples_list
