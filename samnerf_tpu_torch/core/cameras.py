@@ -27,6 +27,12 @@ class Cameras:
     width: int
     height: int
 
+    def to(self, device) -> "Cameras":
+        return dataclasses.replace(
+            self, camera_to_worlds=self.camera_to_worlds.to(device),
+            fx=self.fx.to(device), fy=self.fy.to(device),
+            cx=self.cx.to(device), cy=self.cy.to(device))
+
 
 def generate_rays(cameras: Cameras, camera_indices: torch.Tensor,
                   coords: torch.Tensor, pixel_offset: float = 0.5) -> RayBundle:

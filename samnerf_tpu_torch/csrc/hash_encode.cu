@@ -1,10 +1,14 @@
-// Parity-partitioned multiresolution hash encode, forward only, for sm_90a.
+// Parity-partitioned multiresolution hash encode and its table gradient,
+// for sm_90a.
 //
 // Replaces the TPU Pallas kernels of samnerf_tpu/ops/hash_pallas.py:
-//   F32-ENC  _fwd_kernel (v1), _fwd_kernel_v2, _fwd_kernel_v4
-//   Q-ENC    _fwd_kernel_q8 (qbits 8 and 4), _fwd_kernel_q8v4
-// Those kernels scan table slabs because the TPU has no vector gather; on
-// Hopper every corner is one direct gather of row 8*hi+s, lane lo.
+//   F32-ENC      _fwd_kernel (v1), _fwd_kernel_v2, _fwd_kernel_v4
+//   Q-ENC        _fwd_kernel_q8 (qbits 8 and 4), _fwd_kernel_q8v4
+//   F32-ENC-BWD  _bwd_kernel (v1), _bwd_kernel_v2, _bwd_kernel_v4
+// Those kernels scan table slabs, and the backward ones scatter through
+// one-hot matmuls, because the TPU has no vector gather or scatter; on
+// Hopper every corner is one direct gather of row 8*hi+s, lane lo, and
+// every gradient contribution one atomic add there.
 //
 // What bounds it on an H100: bytes.  Each (point, pack*level) output pair
 // does 8 random 8-byte (f32 pair) or 4-byte (packed word) gathers and
@@ -16,6 +20,18 @@
 // f32 masters are rounded to bf16 in registers (__float2bfloat16_rn),
 // which equals the reference's table.astype(bf16) without a per-frame
 // pack pass over the table.
+//
+// F32-ENC-BWD is bound by its atomics: per (point, pack*level) 8 random
+// 8-byte read-modify-writes in L2 against about 200 integer/float
+// operations.  Same thread layout as the forward; the index math is the
+// forward's own point_level / corner, so a gradient cannot land on
+// another row than the value it came from.  A (point, level) whose two
+// cotangents are both 0 adds nothing and is skipped, which is exact and
+// removes the hot spot of points outside the unit cube, all moved to the
+// origin.  Sums stay in f32 and are not rounded to bf16 (the JAX CPU
+// reference rounds the accumulated gradient; the TPU v2 kernel rounds each
+// product): tests hold the two at rtol 1e-2 / atol 1e-4.  Atomics add in
+// an order that changes from run to run.
 //
 // Index math follows _corner_index_math / _morton_mix bit for bit: every
 // product that feeds floor() or a morton bit is a rounded f32 product
@@ -192,6 +208,45 @@ __global__ void q_encode_kernel(const uint32_t* __restrict__ packed,
   }
 }
 
+// Add 2 floats at *dst.  sm_90 has 8-byte float2 atomics on global
+// memory from CUDA 12.1; older toolkits take two 4-byte ones.
+__device__ __forceinline__ void atomic_add2(float2* dst, float a, float b) {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900 && CUDART_VERSION >= 12010
+  atomicAdd(dst, make_float2(a, b));
+#else
+  atomicAdd(&dst->x, a);
+  atomicAdd(&dst->y, b);
+#endif
+}
+
+__global__ void f32_encode_bwd_kernel(const float* __restrict__ pos,
+                                      const float* __restrict__ gout,
+                                      float2* __restrict__ grad, long long n,
+                                      const Plan p) {
+  const int L = p.num_levels;
+  const int PL = p.num_packed * L;
+  const long long total = n * PL;
+  for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       t < total; t += (long long)gridDim.x * blockDim.x) {
+    const long long pt = t / PL;
+    const int pl = (int)(t - pt * PL);
+    const int pk = pl / L, l = pl - pk * L;
+    const float* g = gout + pt * (2LL * PL);
+    const float g0 = g[(2 * pk) * L + l];
+    const float g1 = g[(2 * pk + 1) * L + l];
+    if (g0 == 0.0f && g1 == 0.0f) continue;
+    const PointLevel q = point_level(pos, pt, p.scale[l]);
+    float2* tab = grad + (long long)pl * p.rows * kLanes;
+#pragma unroll
+    for (int s = 0; s < kParities; ++s) {
+      const Corner c = corner(q, s, l, p);
+      const uint32_t hi = c.entry >> 7, lo = c.entry & (kLanes - 1u);
+      atomic_add2(tab + ((long long)(kParities * hi + s) * kLanes + lo),
+                  __fmul_rn(g0, c.w), __fmul_rn(g1, c.w));
+    }
+  }
+}
+
 int make_plan(Plan* p, int num_levels, int num_packed, int num_steps,
               int table_bits, int key_bits, int rows, const float* scale,
               const float* inv, const int* dense, const int* half) {
@@ -222,7 +277,8 @@ unsigned int grid_for(long long total, int threads) {
 // Plain C interface (loaded with ctypes).  Pointers are device pointers
 // except the per-level plan arrays (scale, inv, dense, half), which are
 // host arrays copied into the kernel's parameter block.  Returns the
-// cudaError_t of the launch.
+// cudaError_t of the launch.  Outputs are allocated by the caller; the
+// gradient table must arrive zeroed.
 extern "C" int parity_hash_encode_f32(const void* table, const void* pos,
                                       void* out, long long n, int num_levels,
                                       int num_packed, int num_steps,
@@ -269,5 +325,25 @@ extern "C" int parity_hash_encode_q(const void* packed, const void* qscales,
         (const uint32_t*)packed, (const float*)qscales, (const float*)pos,
         (float*)out, n, p);
   }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int parity_hash_encode_f32_bwd(const void* pos, const void* gout,
+                                          void* grad, long long n,
+                                          int num_levels, int num_packed,
+                                          int num_steps, int table_bits,
+                                          int key_bits, const float* scale,
+                                          const float* inv, const int* dense,
+                                          const int* half, void* stream) {
+  Plan p;
+  int err = make_plan(&p, num_levels, num_packed, num_steps, table_bits,
+                      key_bits, num_steps * kParities, scale, inv, dense, half);
+  if (err) return err;
+  const long long total = n * num_packed * num_levels;
+  if (total == 0) return 0;
+  const int threads = 256;
+  f32_encode_bwd_kernel<<<grid_for(total, threads), threads, 0,
+                          (cudaStream_t)stream>>>(
+      (const float*)pos, (const float*)gout, (float2*)grad, n, p);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,91 @@
+"""DataManager: a scene's cameras, images and precomputed features.
+
+Counterpart of ``samnerf_tpu/data/datamanager.py`` for the
+nerfstudio-format scene (:mod:`samnerf_tpu_torch.data.dataparser`).  All
+images are decoded once into one uint8 numpy array and each feature set
+into one float32 array; they stay in host memory until
+:func:`samnerf_tpu_torch.data.device_data.build_device_dataset` moves the
+whole set to the card, where the trainer samples every batch.  The JAX
+package's host batch path (``next_train``) is not ported: no entry point
+of the port draws a batch on the host.
+"""
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+from PIL import Image
+
+from samnerf_tpu_torch.data.dataparser import DataparserConfig, parse_nerfstudio_data
+from samnerf_tpu_torch.data.feature_loader import clipseg_pt_to_grid, load_features
+
+
+@dataclasses.dataclass
+class DataManagerConfig:
+    dataparser: DataparserConfig = dataclasses.field(default_factory=DataparserConfig)
+    train_num_rays_per_batch: int = 4096 * 4
+    eval_num_rays_per_batch: int = 4096 * 4
+    patch_size: int = 1
+    distill_sam: bool = False
+    use_clipseg_feature: bool = False
+
+
+def _load_image(path: Path, downscale: int) -> np.ndarray:
+    """uint8 [H, W, 3]; alpha composited over white; honours nerfstudio's
+    ``images_<d>/`` directories."""
+    path = Path(path)
+    if downscale > 1:
+        cand = path.parent.parent / f"{path.parent.name}_{downscale}" / path.name
+        if cand.exists():
+            path = cand
+    img = Image.open(path)
+    if img.mode in ("RGBA", "LA", "PA") or (
+            img.mode == "P" and "transparency" in img.info):
+        rgba = img.convert("RGBA")
+        bg = Image.new("RGBA", rgba.size, (255, 255, 255, 255))
+        img = Image.alpha_composite(bg, rgba).convert("RGB")
+    else:
+        img = img.convert("RGB")
+    if downscale > 1 and "images_" not in path.parent.name:
+        img = img.resize((img.width // downscale, img.height // downscale),
+                         Image.BILINEAR)
+    return np.asarray(img, dtype=np.uint8)
+
+
+class DataManager:
+    def __init__(self, config: DataManagerConfig):
+        self.config = config
+        dp = config.dataparser
+        self.train_outputs = parse_nerfstudio_data(dp, split="train")
+        self.eval_outputs = parse_nerfstudio_data(dp, split="test")
+        self.cameras = self.train_outputs.cameras
+        self.eval_cameras = self.eval_outputs.cameras
+
+        def load_split(outputs):
+            return np.stack([_load_image(p, outputs.downscale_factor)
+                             for p in outputs.image_filenames])
+
+        self.images = load_split(self.train_outputs)
+        self.eval_images = (load_split(self.eval_outputs)
+                            if self.eval_outputs.image_filenames else None)
+        # [n, fh, fw, c] float32, or None when the config does not use them
+        self.sam_features = self.clipseg_features = None
+        names = self.train_outputs.image_filenames
+        if config.distill_sam:
+            self.sam_features = load_features(
+                [self._sibling(p, "sam_features", ".npy") for p in names])
+        if config.use_clipseg_feature:
+            self.clipseg_features = load_features(
+                [self._sibling(p, "clipseg_features", ".pt") for p in names],
+                get_feature=clipseg_pt_to_grid)
+
+    @staticmethod
+    def _sibling(image_path: Path, subdir: str, ext: str) -> str:
+        """``<data>/<subdir>/<stem><ext>``."""
+        p = Path(image_path)
+        return str(p.parent.parent / subdir / (p.stem + ext))
+
+    @property
+    def num_train_images(self) -> int:
+        return self.images.shape[0]

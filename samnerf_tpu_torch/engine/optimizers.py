@@ -1,0 +1,119 @@
+"""Per-group Adam with exponential-decay schedules.
+
+Counterpart of ``samnerf_tpu/engine/optimizers.py``: one
+``torch.optim.Adam`` whose parameter groups are the top-level state-dict
+prefixes (``fields``, ``proposal_networks``, ``sam_field``, ``conv``),
+each with its own schedule and optional clip, matching
+``optax.multi_transform`` of ``clip_by_global_norm`` + ``adam``.
+
+- optax's schedule reads the update count before incrementing it, so
+  update ``k`` (0-based) uses ``lr(k)``; :meth:`GroupedAdam.step` sets each
+  group's lr from the schedule before stepping.
+- optax updates a leaf with a zero gradient (its moments decay, the leaf
+  moves); ``torch.optim.Adam`` skips a parameter whose ``.grad`` is None.
+  :meth:`GroupedAdam.step` therefore refuses a None gradient: the train
+  step's graph reaches every parameter, with zeros where the proposal
+  gate is shut.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, Optional
+
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerGroupConfig:
+    lr: float = 1e-2
+    eps: float = 1e-15
+    lr_final: Optional[float] = None
+    max_steps: int = 10000
+    warmup_steps: int = 0
+    lr_pre_warmup: float = 1e-8
+    ramp: str = "cosine"
+    max_norm: Optional[float] = None
+
+
+def exponential_decay_schedule(cfg: OptimizerGroupConfig) -> Callable[[int], float]:
+    """lr(step): optional warmup from ``lr_pre_warmup`` (cosine or linear
+    ramp), then log-linear decay from ``lr`` to ``lr_final`` at
+    ``max_steps``.  Computed in float64 on the host; the JAX package
+    computes it in f32 on the device (relative difference ~1e-7)."""
+    lr_init = cfg.lr
+    lr_final = cfg.lr_final if cfg.lr_final is not None else cfg.lr
+
+    def schedule(step: int) -> float:
+        if step < cfg.warmup_steps:
+            frac = step / cfg.warmup_steps
+            if cfg.ramp == "cosine":
+                return cfg.lr_pre_warmup + (1 - cfg.lr_pre_warmup) * math.sin(
+                    0.5 * math.pi * min(max(frac, 0.0), 1.0))
+            return cfg.lr_pre_warmup + (lr_init - cfg.lr_pre_warmup) * frac
+        t = min(max((step - cfg.warmup_steps)
+                    / max(cfg.max_steps - cfg.warmup_steps, 1), 0.0), 1.0)
+        return math.exp(math.log(lr_init) * (1 - t) + math.log(lr_final) * t)
+
+    return schedule
+
+
+def group_of(name: str) -> str:
+    """Optimizer group of a state-dict name: its top-level prefix, with
+    ``proposal_networks.i`` -> ``proposal_networks``."""
+    return name.split(".", 1)[0]
+
+
+class GroupedAdam:
+    """Adam over named parameter groups with per-group schedules and
+    global-norm clipping."""
+
+    def __init__(self, groups: Dict[str, OptimizerGroupConfig], model: nn.Module):
+        params: Dict[str, list] = {}
+        for name, p in model.named_parameters():
+            params.setdefault(group_of(name), []).append(p)
+        missing = set(params) - set(groups)
+        if missing:
+            raise ValueError(f"no optimizer group configured for params: {missing}")
+        self.names = [g for g in groups if g in params]
+        self.configs = {g: groups[g] for g in self.names}
+        self.schedules = {g: exponential_decay_schedule(groups[g]) for g in self.names}
+        self.optimizer = torch.optim.Adam(
+            [{"params": params[g], "name": g, "lr": self.schedules[g](0),
+              "eps": groups[g].eps} for g in self.names],
+            betas=(0.9, 0.999))
+        self.count = 0
+
+    def step(self) -> None:
+        """One update of every group at ``lr(count)``."""
+        for group in self.optimizer.param_groups:
+            cfg = self.configs[group["name"]]
+            grads = [p.grad for p in group["params"]]
+            if any(g is None for g in grads):
+                raise RuntimeError(f"a parameter of group {group['name']!r} has no "
+                                   "gradient; optax would update it with zeros")
+            if cfg.max_norm is not None:
+                norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+                scale = torch.where(norm < cfg.max_norm, 1.0, cfg.max_norm / norm)
+                for g in grads:
+                    g.mul_(scale)
+            group["lr"] = self.schedules[group["name"]](self.count)
+        self.optimizer.step()
+        self.count += 1
+
+    def zero_grad(self) -> None:
+        self.optimizer.zero_grad(set_to_none=True)
+
+    def state_dict(self) -> dict:
+        return {"optimizer": self.optimizer.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.count = state["count"]
+
+
+def build_optimizer(groups: Dict[str, OptimizerGroupConfig],
+                    model: nn.Module) -> GroupedAdam:
+    """Per-group Adam(eps per group, default 1e-15) + exp decay."""
+    return GroupedAdam(groups, model)

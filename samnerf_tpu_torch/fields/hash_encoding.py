@@ -8,7 +8,7 @@ import torch
 from torch import nn
 
 from samnerf_tpu_torch.ops.encodings import hash_grid_scalings
-from samnerf_tpu_torch.ops.hash_grid import (LANES, PARITIES, parity_hash_encode,
+from samnerf_tpu_torch.ops.hash_grid import (LANES, PARITIES, hash_encode,
                                              parity_hash_encode_q8,
                                              quantize_parity_table)
 
@@ -20,8 +20,9 @@ class ParityHashEncoding(nn.Module):
     ``quantize_serve`` the encode reads int8 (or int4, ``quant_bits``)
     tables: pre-baked ``qtable{b}`` / ``qscales{b}`` buffers when present
     (see ``SamNerfRenderer.bake_serve_tables``), else the masters
-    quantized at max scale on every call.  Output [N, F*L] f32,
-    feature-major channels."""
+    quantized at max scale on every call, and no gradient reaches the
+    table.  The f32 path carries the table gradient (F32-ENC-BWD).  Output
+    [N, F*L] f32, feature-major channels."""
 
     def __init__(self, num_levels: int = 16, min_res: int = 16,
                  max_res: int = 2048, log2_hashmap_size: int = 19,
@@ -81,6 +82,6 @@ class ParityHashEncoding(nn.Module):
                                         self.num_steps, hash_fn=self.hash_fn,
                                         qbits=qb)
         else:
-            out = parity_hash_encode(self.table.detach(), positions,
-                                     self.scalings, self.num_steps, self.hash_fn)
+            out = hash_encode(self.table, positions, self.scalings,
+                              self.num_steps, self.hash_fn)
         return out[:n] if pad else out

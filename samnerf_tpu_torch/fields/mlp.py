@@ -8,9 +8,22 @@ import torch
 from torch import nn
 
 
+class _TruncExp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.exp(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(torch.clamp(x, -15.0, 15.0))
+
+
 def trunc_exp(x: torch.Tensor) -> torch.Tensor:
-    """exp; the clamped backward waits with training."""
-    return torch.exp(x)
+    """exp with a clamped gradient: forward exp(x), backward
+    g * exp(clamp(x, -15, 15))."""
+    return _TruncExp.apply(x)
 
 
 class MLP(nn.Module):

@@ -3,8 +3,10 @@ counterpart of ``samnerf_tpu/fields/nerfacto_field.py``.
 
 The MLPs are pointwise, so points go to the encoders in their natural
 [R*S] order (the JAX package's sample-major reorder only serves the TPU
-scan).  Appearance embeddings, occupancy culling and the fused
-encode+MLP kernel are not on the serve path and wait.
+scan).  The same code serves and trains: gradients reach the MLPs and,
+through F32-ENC-BWD, the f32 hash tables; positions carry none.
+Appearance embeddings (off in both presets), occupancy culling and the
+fused encode+MLP kernel wait.
 """
 from __future__ import annotations
 

@@ -11,14 +11,16 @@ JAX package's, bit for bit: they are also the checkpoint format.
   hash with the primes-XOR hash, optionally remixed by ``_morton_mix``
   (``hash_fn="morton[N]"``).
 
-Two kernels (``csrc/hash_encode.cu``) carry the serve path:
-:func:`parity_hash_encode` (F32-ENC) and :func:`parity_hash_encode_q8`
-(Q-ENC, qbits 8 or 4).  Each wrapper runs its plain PyTorch version
-(:func:`parity_hash_encode_ref`, :func:`_parity_hash_encode_q8_ref`) for
-CPU tensors and launches the kernel for CUDA tensors; ``launches`` on the
-wrapper counts kernel launches.  The TPU's slab scans, touched-slab ids,
-group skips and point sorting have no counterpart: on Hopper each corner
-is a direct gather.  Serve only; no gradients.
+Three kernels (``csrc/hash_encode.cu``): :func:`parity_hash_encode`
+(F32-ENC) and :func:`parity_hash_encode_q8` (Q-ENC, qbits 8 or 4) carry
+the serve path; :func:`hash_encode` binds F32-ENC and its table gradient
+:func:`parity_hash_encode_bwd` (F32-ENC-BWD) into autograd for training.
+Each wrapper runs its plain PyTorch version (:func:`parity_hash_encode_ref`,
+:func:`_parity_hash_encode_q8_ref`, :func:`parity_hash_encode_bwd_ref`)
+for CPU tensors and launches the kernel for CUDA tensors; ``launches`` on
+the wrapper counts kernel launches.  The TPU's slab scans, touched-slab
+ids, group skips and point sorting have no counterpart: on Hopper each
+corner is a direct gather and each gradient contribution an atomic add.
 """
 from __future__ import annotations
 
@@ -139,6 +141,23 @@ def parity_hash_encode_ref(table: torch.Tensor, positions: torch.Tensor,
                 vals = tq[p * num_levels + l, row, lo, f]       # [8, N]
                 outs.append(torch.sum(vals * w, dim=0))
     return torch.stack(outs, dim=-1)
+
+
+def parity_hash_encode_bwd_ref(grad_out: torch.Tensor, positions: torch.Tensor,
+                               scalings, num_steps: int,
+                               hash_fn: str = "reference") -> torch.Tensor:
+    """Plain version of F32-ENC-BWD: the vjp of
+    :func:`parity_hash_encode_ref` with respect to the table, taken at a
+    zero table as ``hash_pallas.py:1900-1906`` takes it.  Autograd through
+    the bf16 read rounds the accumulated gradient to bf16, as JAX's CPU
+    vjp does.  grad_out [N, P*2*L] -> [P*L, steps*8, 128, 2]."""
+    shape = (grad_out.shape[1] // 2, num_steps * PARITIES, LANES, 2)
+    with torch.enable_grad():
+        table = torch.zeros(shape, device=positions.device, requires_grad=True)
+        out = parity_hash_encode_ref(table, positions, scalings, num_steps,
+                                     hash_fn)
+        (grad,) = torch.autograd.grad(out, table, grad_out)
+    return grad
 
 
 def _parity_hash_encode_q8_ref(packed_q8: torch.Tensor, scales: torch.Tensor,
@@ -274,7 +293,7 @@ def init_parity_table(generator: torch.Generator, num_levels: int,
     return (u * 2.0 - 1.0) * scale
 
 
-# --- the two Hopper kernels ------------------------------------------------------
+# --- the three Hopper kernels ------------------------------------------------------
 
 
 def _plan_arrays(plan, num_steps: int, hash_fn: str):
@@ -330,6 +349,8 @@ def _lib():
     lib.parity_hash_encode_f32.restype = ctypes.c_int
     lib.parity_hash_encode_q.argtypes = _Q_ARGTYPES
     lib.parity_hash_encode_q.restype = ctypes.c_int
+    lib.parity_hash_encode_f32_bwd.argtypes = _F32_ARGTYPES
+    lib.parity_hash_encode_f32_bwd.restype = ctypes.c_int
     return lib
 
 
@@ -427,3 +448,70 @@ def parity_hash_encode_q8(packed_q8: torch.Tensor, scales: torch.Tensor,
 
 
 parity_hash_encode_q8.launches = 0
+
+
+def parity_hash_encode_bwd(grad_out: torch.Tensor, positions: torch.Tensor,
+                           scalings, num_steps: int,
+                           hash_fn: str = "reference") -> torch.Tensor:
+    """F32-ENC-BWD: the table gradient of :func:`parity_hash_encode`.
+    grad_out [N, P*2*L] f32, positions [N, 3] -> [P*L, steps*8, 128, 2]
+    f32; positions get no gradient (``hash_pallas.py:1893-1941``).
+
+    Replaces ``hash_pallas.py`` ``_bwd_kernel`` / ``_bwd_kernel_v2`` /
+    ``_bwd_kernel_v4``.  CPU tensors run :func:`parity_hash_encode_bwd_ref`;
+    CUDA tensors launch ``f32_encode_bwd_kernel`` on the current stream,
+    which sums in f32 with atomics (no bf16 rounding, run-to-run order)."""
+    _check_common(positions, scalings, num_steps, hash_fn)
+    num_levels = len(scalings)
+    if grad_out.dtype != torch.float32 or grad_out.ndim != 2 \
+            or grad_out.shape[0] != positions.shape[0] \
+            or grad_out.shape[1] % (2 * num_levels) or not grad_out.is_contiguous():
+        raise ValueError("grad_out must be a contiguous [N, P*2*L] float32 tensor, "
+                         f"got {grad_out.dtype} {tuple(grad_out.shape)}")
+    num_packed = grad_out.shape[1] // (2 * num_levels)
+    if positions.device != grad_out.device:
+        raise ValueError("grad_out and positions must be on one device")
+    if positions.device.type == "cpu":
+        return parity_hash_encode_bwd_ref(grad_out, positions, scalings,
+                                          num_steps, hash_fn)
+    if positions.device.type != "cuda":
+        raise ValueError(f"unsupported device {positions.device}")
+    plan = _level_plan(scalings, num_steps)
+    scale, inv, dense, half, key_bits, table_bits = _plan_arrays(
+        plan, num_steps, hash_fn)
+    grad = torch.zeros((num_packed * num_levels, num_steps * PARITIES, LANES, 2),
+                       dtype=torch.float32, device=positions.device)
+    stream = torch.cuda.current_stream(positions.device).cuda_stream
+    _launch(_lib().parity_hash_encode_f32_bwd, _ptr(positions), _ptr(grad_out),
+            _ptr(grad), positions.shape[0], num_levels, num_packed, num_steps,
+            table_bits, key_bits, _np_ptr(scale), _np_ptr(inv), _np_ptr(dense),
+            _np_ptr(half), ctypes.c_void_p(stream))
+    parity_hash_encode_bwd.launches += 1
+    return grad
+
+
+parity_hash_encode_bwd.launches = 0
+
+
+class _HashEncode(torch.autograd.Function):
+    """F32-ENC forward, F32-ENC-BWD backward (the ``jax.custom_vjp`` of
+    ``hash_pallas.parity_hash_encode``).  Positions get no gradient."""
+
+    @staticmethod
+    def forward(ctx, table, positions, scalings, num_steps, hash_fn):
+        ctx.save_for_backward(positions)
+        ctx.plan = (scalings, num_steps, hash_fn)
+        return parity_hash_encode(table, positions, scalings, num_steps, hash_fn)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (positions,) = ctx.saved_tensors
+        grad = parity_hash_encode_bwd(grad_out.contiguous(), positions, *ctx.plan)
+        return grad, None, None, None, None
+
+
+def hash_encode(table: torch.Tensor, positions: torch.Tensor, scalings,
+                num_steps: int, hash_fn: str = "reference") -> torch.Tensor:
+    """:func:`parity_hash_encode` with the table gradient of
+    :func:`parity_hash_encode_bwd` under autograd."""
+    return _HashEncode.apply(table, positions, scalings, num_steps, hash_fn)

@@ -1,5 +1,4 @@
-"""Volumetric renderers, counterpart of ``samnerf_tpu/ops/rendering.py``
-(eval mode)."""
+"""Volumetric renderers, counterpart of ``samnerf_tpu/ops/rendering.py``."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -11,21 +10,30 @@ from samnerf_tpu_torch.core.rays import RaySamples
 
 def render_rgb(rgb: torch.Tensor, weights: torch.Tensor,
                background_color: str = "last_sample",
-               bg_rgb: Optional[torch.Tensor] = None) -> torch.Tensor:
+               bg_rgb: Optional[torch.Tensor] = None,
+               training: bool = True) -> torch.Tensor:
     """Composite per-sample rgb [R, S, 3] with weights [R, S, 1] over a
-    'last_sample' or 'explicit' (``bg_rgb`` [3]) background, clipped."""
-    rgb = torch.nan_to_num(rgb)
+    'last_sample', 'black', 'white' or 'explicit' (``bg_rgb`` [3])
+    background.  Outside training NaNs become 0 and the result is
+    clipped to [0, 1]."""
+    if not training:
+        rgb = torch.nan_to_num(rgb)
     comp_rgb = torch.sum(weights * rgb, dim=-2)
     acc = torch.sum(weights, dim=-2)
     if background_color == "last_sample":
         bg = rgb[..., -1, :]
+    elif background_color == "black":
+        bg = torch.zeros_like(comp_rgb)
+    elif background_color == "white":
+        bg = torch.ones_like(comp_rgb)
     elif background_color == "explicit":
         if bg_rgb is None:
             raise ValueError("explicit background needs bg_rgb")
         bg = bg_rgb
     else:
         raise ValueError(background_color)
-    return torch.clamp(comp_rgb + bg * (1.0 - acc), 0.0, 1.0)
+    comp_rgb = comp_rgb + bg * (1.0 - acc)
+    return comp_rgb if training else torch.clamp(comp_rgb, 0.0, 1.0)
 
 
 def render_accumulation(weights: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,15 @@
-"""Eval-mode ray samplers: spaced sampling, inverse-CDF resampling and the
+"""Ray samplers: stratified spaced sampling, inverse-CDF resampling and the
 proposal sampling loop.
 
-Counterpart of ``samnerf_tpu/ops/samplers.py`` without jitter (serving
-is deterministic per ray); the stratified training paths wait.
+Counterpart of ``samnerf_tpu/ops/samplers.py``.  Training draws jitter;
+the caller passes it in as uniform [0, 1) tensors (one per sampling
+level, [R, 1] for single jitter or [R, S+1]), so a test can hand both
+packages the same numbers.  Without jitter sampling is deterministic per
+ray (eval and serving).
 """
 from __future__ import annotations
 
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,12 +40,20 @@ def _make_ray_samples(ray_bundle: RayBundle, euclid_bins, spacing_bins,
         spacing_ends=spacing_bins[..., 1:, None], s_near=s_near, s_far=s_far)
 
 
-def initial_samples(ray_bundle: RayBundle, num_samples: int) -> RaySamples:
-    """Evenly spaced bins in the piecewise spacing."""
+def initial_samples(ray_bundle: RayBundle, num_samples: int,
+                    jitter: Optional[torch.Tensor] = None) -> RaySamples:
+    """Evenly spaced bins in the piecewise spacing; with ``jitter`` each
+    edge moves uniformly within its half-bins (stratified)."""
     num_rays = ray_bundle.origins.shape[0]
     bins = torch.linspace(0.0, 1.0, num_samples + 1,
-                          device=ray_bundle.origins.device)
-    bins = bins[None, :].expand(num_rays, num_samples + 1)
+                          device=ray_bundle.origins.device)[None, :]
+    if jitter is not None:
+        centers = (bins[..., 1:] + bins[..., :-1]) / 2.0
+        upper = torch.cat([centers, bins[..., -1:]], dim=-1)
+        lower = torch.cat([bins[..., :1], centers], dim=-1)
+        bins = lower + (upper - lower) * jitter
+    else:
+        bins = bins.expand(num_rays, num_samples + 1)
     s_near = spacing_piecewise(ray_bundle.nears)
     s_far = spacing_piecewise(ray_bundle.fars)
     return _make_ray_samples(ray_bundle, spacing_to_euclidean(bins, s_near, s_far),
@@ -58,11 +69,15 @@ def searchsorted_right(sorted_seq: torch.Tensor, values: torch.Tensor) -> torch.
 
 def pdf_samples(ray_bundle: RayBundle, ray_samples: RaySamples,
                 weights: torch.Tensor, num_samples: int,
+                jitter: Optional[torch.Tensor] = None,
                 histogram_padding: float = 0.01, eps: float = 1e-5) -> RaySamples:
-    """Inverse-CDF resampling at the bin midpoints of ``num_samples + 1``
-    evenly spaced quantiles; ``weights`` [R, S_in, 1]."""
+    """Inverse-CDF resampling of ``weights`` [R, S_in, 1] at
+    ``num_samples + 1`` evenly spaced quantiles, offset by ``jitter`` /
+    (S+1) or else by half a quantile step.  The new bins carry no
+    gradient (the reference's ``stop_gradient``), so neither do the
+    weights here."""
     num_bins = num_samples + 1
-    w = weights[..., 0] + histogram_padding
+    w = weights[..., 0].detach() + histogram_padding
     w_sum = torch.sum(w, dim=-1, keepdim=True)
     padding = torch.relu(eps - w_sum)           # zero-weight rays: no NaNs
     w = w + padding / w.shape[-1]
@@ -71,7 +86,10 @@ def pdf_samples(ray_bundle: RayBundle, ray_samples: RaySamples,
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
 
     u = torch.linspace(0.0, 1.0 - 1.0 / num_bins, num_bins, device=cdf.device)
-    u = (u + 1.0 / (2 * num_bins))[None, :].expand(cdf.shape[0], num_bins)
+    if jitter is not None:
+        u = u[None, :] + jitter / num_bins
+    else:
+        u = (u + 1.0 / (2 * num_bins))[None, :].expand(cdf.shape[0], num_bins)
     existing_bins = torch.cat([ray_samples.spacing_starts[..., 0],
                                ray_samples.spacing_ends[..., -1:, 0]], dim=-1)
     inds = searchsorted_right(cdf, u)
@@ -91,21 +109,42 @@ def pdf_samples(ray_bundle: RayBundle, ray_samples: RaySamples,
 def proposal_sampling(ray_bundle: RayBundle,
                       density_fns: Sequence[Callable[[torch.Tensor], torch.Tensor]],
                       num_proposal_samples: Sequence[int], num_nerf_samples: int,
+                      jitter: Optional[Sequence[torch.Tensor]] = None,
+                      anneal: float = 1.0,
+                      proposal_grad: Optional[float] = None,
                       ) -> Tuple[RaySamples, List[torch.Tensor], List[RaySamples]]:
     """Proposal-network sampling loop.  Returns (final nerf RaySamples,
     proposal weights, proposal RaySamples); the caller appends the nerf
-    level."""
+    level.
+
+    ``jitter``: one uniform tensor per level (proposal levels, then the
+    nerf level) for stratified training samples.  ``anneal``: exponent on
+    the proposal weights before resampling.  ``proposal_grad``: the
+    training gate; density becomes ``d*g + d.detach()*(1-g)``, which has
+    value d and gradient g*dd, so at g = 0 the proposal parameters get
+    zero gradients (not none: Adam still moves them, as optax does)."""
     weights_list: List[torch.Tensor] = []
     ray_samples_list: List[RaySamples] = []
+    jit = list(jitter) if jitter is not None else [None] * (len(density_fns) + 1)
     ray_samples = initial_samples(ray_bundle, num_proposal_samples[0]
-                                  if num_proposal_samples else num_nerf_samples)
+                                  if num_proposal_samples else num_nerf_samples,
+                                  jit[0])
     for i, density_fn in enumerate(density_fns):
         if i > 0:
-            ray_samples = pdf_samples(ray_bundle, ray_samples, weights_list[-1],
-                                      num_proposal_samples[i])
-        weights_list.append(ray_samples.get_weights(density_fn(ray_samples.positions())))
+            ray_samples = pdf_samples(ray_bundle, ray_samples,
+                                      _annealed(weights_list[-1], anneal),
+                                      num_proposal_samples[i], jit[i])
+        density = density_fn(ray_samples.positions())
+        if proposal_grad is not None:
+            density = density * proposal_grad + density.detach() * (1.0 - proposal_grad)
+        weights_list.append(ray_samples.get_weights(density))
         ray_samples_list.append(ray_samples)
     if density_fns:
-        ray_samples = pdf_samples(ray_bundle, ray_samples, weights_list[-1],
-                                  num_nerf_samples)
+        ray_samples = pdf_samples(ray_bundle, ray_samples,
+                                  _annealed(weights_list[-1], anneal),
+                                  num_nerf_samples, jit[len(density_fns)])
     return ray_samples, weights_list, ray_samples_list
+
+
+def _annealed(weights: torch.Tensor, anneal: float) -> torch.Tensor:
+    return weights if anneal == 1.0 else torch.pow(weights.detach(), anneal)

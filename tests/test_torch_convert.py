@@ -79,7 +79,7 @@ def test_parity_hash_encoding_forward(mode):
     enc.load_state_dict(params_from_jax(params))
     out = enc(torch.from_numpy(pos))
     assert out.shape == (300, 16)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
 
 
 def test_mlp_forward():

@@ -8,7 +8,9 @@ without the conftest::
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 
 Max abs error, not allclose, so a flipped corner index shows: features
-are O(0.5) and a wrong corner moves one by O(0.1).
+are O(0.5) and a wrong corner moves one by O(0.1).  The table gradient is
+held at rtol 1e-2 / atol 1e-4: the kernel sums in f32 with atomics, the
+plain version rounds the sum to bf16, as JAX's CPU vjp does.
 """
 import numpy as np
 import pytest
@@ -54,6 +56,29 @@ def test_cuda_kernels_match_plain_versions(hash_fn):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("hash_fn", ("reference", "morton"))
+def test_cuda_backward_kernel_matches_plain_version(hash_fn):
+    """F32-ENC-BWD through autograd against the plain backward, with O(1)
+    cotangents, a tenth of the rows zeroed as outside points are, and a
+    block of points at one position (a hot spot of atomics)."""
+    dev = _cuda()
+    steps = 64
+    scalings = tuple(hash_grid_scalings(6, 16, 512).tolist())
+    rng = np.random.default_rng(1)
+    pos = rng.uniform(0.0, 1.0, (50_001, 3)).astype(np.float32)
+    pos[:5000] = 0.5
+    g = rng.normal(0.0, 1.0, (50_001, 4 * 2 * 6)).astype(np.float32)
+    g[rng.uniform(size=50_001) < 0.1] = 0.0
+    pos, g = torch.from_numpy(pos).to(dev), torch.from_numpy(g).to(dev)
+    table = torch.zeros((4 * 6, steps * 8, 128, 2), device=dev, requires_grad=True)
+    before = th.parity_hash_encode_bwd.launches
+    th.hash_encode(table, pos, scalings, steps, hash_fn).backward(g)
+    assert th.parity_hash_encode_bwd.launches == before + 1
+    ref = th.parity_hash_encode_bwd_ref(g, pos, scalings, steps, hash_fn)
+    torch.testing.assert_close(table.grad, ref, rtol=1e-2, atol=1e-4)
+
+
+@pytest.mark.cuda
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     dev = _cuda()
     scalings = tuple(hash_grid_scalings(4, 4, 64).tolist())
@@ -63,3 +88,6 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
         th.parity_hash_encode(table.cpu(), pos, scalings, 4)
     with pytest.raises(ValueError):                    # strided positions
         th.parity_hash_encode(table, pos.t().contiguous().t(), scalings, 4)
+    with pytest.raises(ValueError):                    # cotangent of another width
+        th.parity_hash_encode_bwd(torch.zeros((256, 6), device=dev), pos,
+                                  scalings, 4)
