@@ -23,7 +23,21 @@ which raises on failure:
    peak memory, launches per step, losses); then one train step of a
    small model on the card against the same step on the CPU (losses and
    gradients);
-7. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
+7. attn_kernel: FLASH-RELPOS against its plain version at SAM ViT-H's
+   and ViT-B's global-attention shapes and a small ragged one (max abs
+   error, time, bound, and ``scaled_dot_product_attention`` with the
+   materialised bias as a yardstick);
+8. encode: SAM ViT-H at full width (seeded weights, saved once as a
+   reference-layout checkpoint and loaded through ``build_sam``) through
+   ``SamPredictor.set_image`` on 512x512 frames (ms per image, peak
+   memory, FLASH-RELPOS launches per image, click -> mask ms), and the
+   kernel route's embedding against the plain route's; then a small
+   encoder on the card against the same encoder on the CPU;
+9. preprocess: ``python -m samnerf_tpu_torch.preprocessing
+   .get_image_embeddings`` (its ``main``) with that checkpoint on a
+   synthetic 24-image 512x512 scene, the port's feature loader on the
+   files, and 3 ``Trainer`` steps on them;
+10. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
    as the last line.
 
 Float32 matmuls and convolutions run in full f32 (TF32 off) so the card
@@ -56,6 +70,22 @@ TOL_DENSE_GRAD = dict(rtol=1e-3, atol=1e-5)   # f32 sums in other orders
 TOL_LOSS = 1e-4
 TOL_RELU_MARGIN = 1e-6          # conv pre-activations must keep this far from 0
 TRAIN_WARMUP, TRAIN_STEPS = 3, 30
+# FLASH-RELPOS: outputs are softmax averages of O(1) values; f32 sums over
+# the keys in another order differ by ~1e-6; a wrong key tile or bias
+# index moves an output by 1e-2 or more
+TOL_ATTN = 1e-4
+# encoder embeddings (O(1) after the neck's LayerNorm2d): the kernel route
+# against the plain route, and a card encoder against the CPU's; f32 sums
+# in other orders through every later block
+TOL_ENCODE = 1e-3
+ENCODE_IMAGES = 6               # the first is the warm-up
+# FLASH-RELPOS shapes (name, batch * heads, token grid h, w, head dim):
+# SAM ViT-H's and ViT-B's global layers and a small ragged one
+ATTN_SHAPES = [("vit_h", 16, 64, 64, 80), ("vit_b", 12, 64, 64, 64),
+               ("ragged", 3, 12, 20, 20)]
+SMALL_ENCODER = dict(img_size=256, patch_size=16, embed_dim=160, depth=4,
+                     num_heads=2, mlp_ratio=4.0, out_chans=256, window_size=7,
+                     global_attn_indexes=(2,), flash_min_tokens=256)
 
 
 def _smi() -> str:
@@ -490,12 +520,248 @@ def train_reference_phase(dev):
     return report
 
 
+def attn_kernel_phase(dev):
+    """FLASH-RELPOS against its plain version.  q, k, v ~ N(0, 1), as a
+    seeded layer's LayerNorm and lecun-normal qkv give them; rel-pos
+    tables N(0, 0.02) (``init_state``) contracted with q by the encoder's
+    own ``decomposed_rel_terms``."""
+    import torch.nn.functional as F
+
+    from samnerf_tpu_torch.ops import attention as ta
+    from samnerf_tpu_torch.perception.sam.image_encoder import decomposed_rel_terms
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for name, b, gh, gw, d in ATTN_SHAPES:
+        n = gh * gw
+        q, k, v = (torch.randn((b, n, d), generator=gen, device=dev) for _ in range(3))
+        tables = [torch.randn((2 * s - 1, d), generator=gen, device=dev) * 0.02
+                  for s in (gh, gw)]
+        rel_h, rel_w = decomposed_rel_terms(q, *tables, (gh, gw), (gh, gw))
+        rel_h = rel_h.reshape(b, n, gh).contiguous()
+        rel_w = rel_w.reshape(b, n, gw).contiguous()
+        scale = d ** -0.5
+        run = lambda: ta.flash_attention_relpos(q, k, v, rel_h, rel_w, scale)
+        plain = lambda: ta.reference_attention_relpos(q, k, v, rel_h, rel_w, scale)
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        if not math.isfinite(err) or err > TOL_ATTN:
+            raise AssertionError(f"FLASH-RELPOS {name}: max abs err {err} > {TOL_ATTN}")
+        # the yardstick: one PyTorch call on the same inputs, the bias
+        # materialised beforehand as its attn_mask
+        bias = (rel_h[:, :, :, None] + rel_w[:, :, None, :]).reshape(b, n, n)
+        library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
+                                                         scale=scale)
+        library_err = (library() - ref).abs().max().item()
+        del out, ref
+        ms = _time_ms(run, reps=20)
+        plain_ms = _time_ms(plain, reps=5)
+        library_ms = _time_ms(library, reps=5)
+        del bias
+        # operations: q.k and p.v, a multiply-add per (query, key, dim)
+        # each; bytes: q, k, v, rel_h, rel_w read once, the output written
+        flops = 4 * b * n * n * d
+        nbytes = 4 * (4 * b * n * d + b * n * (gh + gw))
+        t_ops, t_bytes = flops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        row = dict(kernel="FLASH-RELPOS", shape=name, heads=b, tokens=n, head_dim=d,
+                   grid=(gh, gw), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, library_max_abs_err=library_err,
+                   bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   tflops=flops / ms / 1e9)
+        rows.append(row)
+        print(f"attn kernel FLASH-RELPOS {name:6s} B={b:2d} N={n:5d} D={d:2d} "
+              f"err={err:.3e} (tol {TOL_ATTN:g}) ms={ms:.4f} plain_ms={plain_ms:.3f} "
+              f"library_ms={library_ms:.3f} (err {library_err:.1e}) "
+              f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}), "
+              f"{row['tflops']:.1f} TFLOP/s", flush=True)
+        del q, k, v, rel_h, rel_w
+    return rows
+
+
+def vit_h_checkpoint(dev, path: Path) -> None:
+    """Seeded ViT-H SAM weights (``init_state``, drawn on the card) saved
+    once in the reference torch SAM's key layout."""
+    from samnerf_tpu_torch.perception.sam.build_sam import build_sam
+    from samnerf_tpu_torch.utils.init import init_state
+
+    state = init_state(build_sam("vit_h", device="meta"),
+                       torch.Generator(device=dev).manual_seed(3), device="cpu")
+    torch.save(state, path)
+    print(f"vit_h checkpoint: {sum(t.numel() for t in state.values()) / 1e6:.1f} M "
+          f"parameters, {path.stat().st_size / 2**30:.2f} GiB", flush=True)
+
+
+def _scene_images(scene: Path):
+    from PIL import Image
+    return [np.asarray(Image.open(p).convert("RGB"))
+            for p in sorted((scene / "images").glob("*.png"))]
+
+
+def encode_phase(dev, checkpoint: Path, images):
+    """ViT-H through ``SamPredictor.set_image``: ms per image over distinct
+    512x512 frames after a warm-up, peak memory, FLASH-RELPOS launches per
+    image, click -> mask ms; then one image through the plain route
+    (``use_flash=False``, the same weights) against the kernel route."""
+    from samnerf_tpu_torch.ops import attention as ta
+    from samnerf_tpu_torch.perception.sam.build_sam import build_sam
+    from samnerf_tpu_torch.perception.sam.predictor import SamPredictor
+
+    sam = build_sam("vit_h", checkpoint=str(checkpoint), device=dev)
+    predictor = SamPredictor(sam)
+    predictor.set_image(images[0])                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ta.flash_attention_relpos.launches = 0
+    times = []
+    for img in images[1:ENCODE_IMAGES]:
+        t0 = time.perf_counter()
+        predictor.set_image(img)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        emb = predictor.get_image_embedding()
+        if tuple(emb.shape) != (1, 64, 64, 256) or not bool(torch.isfinite(emb).all()):
+            raise AssertionError(f"embedding {tuple(emb.shape)} or not finite")
+    launches = ta.flash_attention_relpos.launches
+    peak = torch.cuda.max_memory_allocated()
+    images_timed = len(times)
+    if launches != 4 * images_timed:
+        raise AssertionError(f"FLASH-RELPOS launched {launches} times for "
+                             f"{images_timed} ViT-H images, not 4 per image")
+    clicks = [(256.0, 256.0), (100.0, 300.0), (400.0, 120.0), (320.0, 420.0),
+              (60.0, 60.0), (480.0, 300.0)]
+    click_ms = []
+    for i, click in enumerate(clicks):
+        t0 = time.perf_counter()
+        masks, iou, low = predictor.predict(point_coords=np.array([click]),
+                                            point_labels=np.array([1]))
+        if i:                                            # the first is the warm-up
+            click_ms.append((time.perf_counter() - t0) * 1e3)
+        if masks.shape != (3, 512, 512) or low.shape != (3, 256, 256) \
+                or not np.isfinite(low).all() or not np.isfinite(iou).all():
+            raise AssertionError(f"predict: masks {masks.shape}, low-res {low.shape}")
+    kernel_emb = predictor.get_image_embedding().clone()
+    plain = build_sam("vit_h", device="meta")
+    plain.load_state_dict(sam.state_dict(), assign=True)
+    for block in plain.image_encoder.blocks:
+        block.attn.use_flash = False
+    plain_predictor = SamPredictor(plain)
+    plain_predictor.set_image(images[ENCODE_IMAGES - 1])     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    plain_predictor.set_image(images[ENCODE_IMAGES - 1])
+    torch.cuda.synchronize()
+    plain_image_ms = (time.perf_counter() - t0) * 1e3
+    plain_peak = torch.cuda.max_memory_allocated()
+    if ta.flash_attention_relpos.launches != launches:
+        raise AssertionError("the plain route launched FLASH-RELPOS")
+    route_err = (kernel_emb - plain_predictor.get_image_embedding()).abs().max().item()
+    result = dict(image_ms=statistics.median(times), image_ms_all=times,
+                  images=images_timed, launches=launches,
+                  launches_per_image=launches / images_timed,
+                  max_memory_allocated=peak, click_ms=statistics.median(click_ms),
+                  click_ms_all=click_ms, plain_image_ms=plain_image_ms,
+                  plain_max_memory_allocated=plain_peak, route_max_abs_err=route_err,
+                  embedding_absmax=kernel_emb.abs().max().item())
+    print(f"encode vit_h 512x512 -> 1024x1024: median {result['image_ms']:.2f} ms/image "
+          f"over {images_timed} images ({', '.join(f'{t:.1f}' for t in times)}); "
+          f"FLASH-RELPOS launches/image {launches / images_timed:g}; "
+          f"max_memory_allocated={peak / 2**30:.2f} GiB; click -> mask median "
+          f"{result['click_ms']:.2f} ms; plain route {plain_image_ms:.2f} ms/image, "
+          f"{plain_peak / 2**30:.2f} GiB; kernel vs plain route embedding max abs err "
+          f"{route_err:.3e} (tol {TOL_ENCODE:g}, |emb| max "
+          f"{result['embedding_absmax']:.2f})", flush=True)
+    if not math.isfinite(route_err) or route_err > TOL_ENCODE:
+        raise AssertionError(f"kernel and plain routes disagree: {route_err}")
+    del sam, plain, predictor, plain_predictor
+    return result
+
+
+def encode_reference_phase(dev):
+    """A small encoder (4 blocks, 16x16 tokens, head dim 80, one global
+    layer over FLASH-RELPOS, the windows plain) on the card against the
+    same seeded encoder on the CPU, where the wrapper runs the plain
+    version."""
+    from samnerf_tpu_torch.ops import attention as ta
+    from samnerf_tpu_torch.perception.sam.image_encoder import ImageEncoderViT
+    from samnerf_tpu_torch.utils.init import init_state
+
+    x = np.random.default_rng(9).normal(size=(1, 256, 256, 3)).astype(np.float32)
+    outs = {}
+    for d in (dev, "cpu"):
+        enc = ImageEncoderViT(**SMALL_ENCODER, device=d)
+        enc.load_state_dict(init_state(ImageEncoderViT(**SMALL_ENCODER, device="meta"),
+                                       torch.Generator().manual_seed(5), device=d))
+        before = ta.flash_attention_relpos.launches
+        with torch.no_grad():
+            outs[str(d)] = enc(torch.as_tensor(x, device=d)).cpu()
+        launches = ta.flash_attention_relpos.launches - before
+        if launches != (1 if d == dev else 0):
+            raise AssertionError(f"small encoder on {d}: {launches} FLASH-RELPOS launches")
+    err = (outs[str(dev)] - outs["cpu"]).abs().max().item()
+    print(f"encode reference: small encoder card vs CPU max abs err {err:.3e} "
+          f"(tol {TOL_ENCODE:g})", flush=True)
+    if not math.isfinite(err) or err > TOL_ENCODE:
+        raise AssertionError(f"card and CPU encoders disagree: {err}")
+    return dict(max_abs_err=err)
+
+
+def preprocess_phase(dev, checkpoint: Path, root: Path):
+    """The feature-extraction entry point on a synthetic 512x512 scene (24
+    train images), the port's feature loader on its files, and 3 trainer
+    steps distilling them."""
+    import shutil
+
+    from samnerf_tpu_torch.data.feature_loader import load_features
+    from samnerf_tpu_torch.ops import attention as ta
+    from samnerf_tpu_torch.preprocessing import get_image_embeddings
+    from samnerf_tpu_torch.scripts.profile_train import build_trainer
+    from samnerf_tpu_torch.utils.synthetic import write_scene
+
+    scene = write_scene(root / "scene", num_train=24, num_test=0, h=512, w=512,
+                        with_features=True, feature_long_side=64)
+    shutil.rmtree(scene / "sam_features")        # the synthetic targets
+    ta.flash_attention_relpos.launches = 0
+    t0 = time.perf_counter()
+    get_image_embeddings.main([str(scene), "--checkpoint", str(checkpoint)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ta.flash_attention_relpos.launches
+    files = sorted((scene / "sam_features").glob("*.npy"))
+    if len(files) != 24 or launches != 4 * 24:
+        raise AssertionError(f"{len(files)} feature files, {launches} FLASH-RELPOS launches")
+    feats = load_features(files)
+    if feats.shape != (24, 64, 64, 256) or feats.dtype != np.float32 \
+            or not np.isfinite(feats).all():
+        raise AssertionError(f"features {feats.shape} {feats.dtype} or not finite")
+    trainer = build_trainer(scene, root / "out", dev)
+    if not np.array_equal(trainer.datamanager.sam_features, feats):
+        raise AssertionError("the trainer's SAM targets are not the extracted features")
+    losses = []
+    trainer.cfg.max_num_iterations = 3
+    trainer.train(step_callback=lambda step, m: losses.append(
+        {k: float(v) for k, v in m.items()}))
+    del trainer
+    if len(losses) != 3 or not all(math.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError(f"train steps on the extracted features: {losses}")
+    result = dict(files=len(files), seconds=seconds, launches=launches,
+                  feature_std=float(feats.std()), losses=losses)
+    print(f"preprocess: get_image_embeddings wrote {len(files)} [256, 64, 64] f32 files "
+          f"in {seconds:.1f} s ({launches} FLASH-RELPOS launches); 3 train steps on them, "
+          f"sam_loss {losses[0].get('sam_loss', float('nan')):.4f} -> "
+          f"{losses[-1].get('sam_loss', float('nan')):.4f}", flush=True)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from samnerf_tpu_torch.ops import cuda_build
+    from samnerf_tpu_torch.utils.synthetic import write_scene
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -514,6 +780,16 @@ def main() -> int:
     reference = reference_phase(dev)
     train = train_phase(dev)
     train_reference = train_reference_phase(dev)
+    attn_rows = attn_kernel_phase(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        checkpoint = root / "sam_vit_h_seeded.pth"
+        vit_h_checkpoint(dev, checkpoint)
+        frames = _scene_images(write_scene(root / "frames", num_train=ENCODE_IMAGES,
+                                           num_test=0, h=512, w=512))
+        encode = encode_phase(dev, checkpoint, frames)
+        encode_reference = encode_reference_phase(dev)
+        preprocess = preprocess_phase(dev, checkpoint, root)
 
     source = "samnerf_tpu_torch/csrc/hash_encode.cu"
     kernels = []
@@ -545,13 +821,26 @@ def main() -> int:
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
                     "library_ms": None})
+    rep = next(r for r in attn_rows if r["shape"] == "vit_h")
+    kernels.append({"name": "FLASH-RELPOS", "route": "cuda",
+                    "source": "samnerf_tpu_torch/csrc/attention_relpos.cu",
+                    "replaces": "samnerf_tpu/ops/attention_pallas.py:32",
+                    "launches": encode["launches"],
+                    "launches_by_path": {"encode": encode["launches"],
+                                         "preprocess": preprocess["launches"]},
+                    "max_abs_err": max(r["max_abs_err"] for r in attn_rows),
+                    "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+                    "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+                    "library_ms": rep["library_ms"]})
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
          "build_s": build_s, "kernel_rows": rows, "train_kernel_rows": train_rows,
          "serve": serve, "reference": reference, "train": train,
-         "train_reference": train_reference, "kernels": kernels}, indent=1))
+         "train_reference": train_reference, "attn_kernel_rows": attn_rows,
+         "encode": encode, "encode_reference": encode_reference,
+         "preprocess": preprocess, "kernels": kernels}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,11 @@
 The module tree mirrors ``samnerf_tpu`` so each file has an obvious
 counterpart; the JAX package stays the reference the port is tested
 against.  This package imports ``torch`` only.  It serves a
-``samnerf_distill`` frame and trains the method (``python -m
-samnerf_tpu_torch.train``).  Every hash encode and its table gradient
-runs a hand-written ``sm_90a`` kernel (``csrc/hash_encode.cu``) on CUDA
-tensors and its plain PyTorch version on CPU tensors.
+``samnerf_distill`` frame, trains the method (``python -m
+samnerf_tpu_torch.train``), and runs SAM's ViT image encoder
+(``perception.sam.predictor.SamPredictor``, ``python -m
+samnerf_tpu_torch.preprocessing.get_image_embeddings``).  Every hash
+encode and its table gradient, and the encoder's global attention, run a
+hand-written ``sm_90a`` kernel (``csrc/*.cu``) on CUDA tensors and their
+plain PyTorch version on CPU tensors.
 """

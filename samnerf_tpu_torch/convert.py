@@ -6,9 +6,12 @@ decoder-only ``Sam`` and returns the state dict of the port's module.
 Both packages then compute the same function.
 
 - names: ``Dense_i`` -> ``layers.i``, ``Conv_i`` -> ``convs.i``,
-  ``ParityHashEncoding_0`` -> ``encoding``, ``MLP_0`` -> ``mlp``; any
-  other ``name_i`` -> ``name.i`` (``proposal_networks_0``, ``sam_enc_1``,
-  and every SAM list, which gives the reference torch SAM's names);
+  ``ParityHashEncoding_0`` -> ``encoding``, ``MLP_0`` -> ``mlp``; the
+  image encoder's ``patch_embed`` -> ``patch_embed.proj`` and
+  ``neck_conv1`` / ``neck_ln1`` / ``neck_conv2`` / ``neck_ln2`` ->
+  ``neck.0`` .. ``neck.3``; any other ``name_i`` -> ``name.i``
+  (``proposal_networks_0``, ``sam_enc_1``, ``blocks_7`` and every SAM
+  list, which gives the reference torch SAM's names);
 - ``Dense`` kernels [in, out] -> ``Linear.weight`` [out, in];
 - ``Conv`` kernels HWIO -> OIHW;
 - ``ConvTranspose`` kernels (the mask decoder's ``output_upscaling``)
@@ -16,8 +19,9 @@ Both packages then compute the same function.
   ``build_sam._conv_t``;
 - ``LayerNorm`` ``scale`` -> ``weight``; ``Embed`` ``embedding`` ->
   ``weight``;
-- hash ``table``, ``qtable{b}``, ``qscales{b}`` and everything else pass
-  through unchanged (the JAX package owns the table layout).
+- hash ``table``, ``qtable{b}``, ``qscales{b}``, the encoder's
+  ``pos_embed`` ([1, 64, 64, C] in both) and ``rel_pos_*`` and
+  everything else pass through unchanged.
 """
 from __future__ import annotations
 
@@ -28,7 +32,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-_MODULE_NAMES = {"ParityHashEncoding_0": "encoding", "MLP_0": "mlp"}
+_MODULE_NAMES = {"ParityHashEncoding_0": "encoding", "MLP_0": "mlp",
+                 "patch_embed": "patch_embed.proj", "neck_conv1": "neck.0",
+                 "neck_ln1": "neck.1", "neck_conv2": "neck.2", "neck_ln2": "neck.3"}
 _LIST_NAMES = {"Dense": "layers", "Conv": "convs"}
 _INDEXED = re.compile(r"^(.*)_(\d+)$")
 

@@ -1,0 +1,123 @@
+"""Attention with SAM's decomposed relative-position bias (PyTorch + CUDA).
+
+Counterpart of ``samnerf_tpu/ops/attention_pallas.py``: softmax over
+``q k^T * scale + rel_h[q, j // Kw] + rel_w[q, j % Kw]`` for every key
+``j = kh * Kw + kw`` of the token grid, without the N x N logits in device
+memory.  Used by the ViT image encoder's global layers.
+
+- :func:`reference_attention_relpos`: the plain version (materialises the
+  logits); the CPU path and what the kernel is held against;
+- :func:`flash_attention_relpos`: FLASH-RELPOS, the wrapper of the
+  hand-written kernel in ``csrc/attention_relpos.cu``.  CPU tensors run the
+  plain version, CUDA tensors launch the kernel (or raise); ``launches``
+  counts kernel launches;
+- :func:`attention_relpos`: the wrapper under autograd, whose backward
+  recomputes through the plain version, as ``_flash_bwd_rule`` does in the
+  JAX package (there is no backward kernel).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+MAX_HEAD_DIM = 128        # the kernel's register tile: ceil(D / 16) <= 8
+MAX_REL_SUM = 256         # Kh + Kw rows of bias staged in shared memory
+
+
+def reference_attention_relpos(q, k, v, rel_h, rel_w, scale: float):
+    """q, k, v [B, N, D]; rel_h [B, N, Kh]; rel_w [B, N, Kw] with
+    Kh * Kw == N -> [B, N, D]."""
+    logits = torch.matmul(q * scale, k.transpose(-2, -1))
+    b, n, _ = q.shape
+    bias = (rel_h[:, :, :, None] + rel_w[:, :, None, :]).reshape(b, n, n)
+    attn = torch.softmax((logits + bias).float(), dim=-1)
+    return torch.matmul(attn.to(q.dtype), v)
+
+
+@functools.cache
+def _lib():
+    from samnerf_tpu_torch.ops import cuda_build
+    lib = cuda_build.load("attention_relpos")
+    lib.flash_attention_relpos_f32.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+    lib.flash_attention_relpos_f32.restype = ctypes.c_int
+    return lib
+
+
+def _check(q, k, v, rel_h, rel_w):
+    for name, t in (("q", q), ("k", k), ("v", v), ("rel_h", rel_h), ("rel_w", rel_w)):
+        if t.dtype != torch.float32 or t.ndim != 3 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 3-d float32 tensor, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError("q, k, v, rel_h and rel_w must be on one device")
+    b, n, d = q.shape
+    kh, kw = rel_h.shape[-1], rel_w.shape[-1]
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q, k, v must share one shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if rel_h.shape[:2] != (b, n) or rel_w.shape[:2] != (b, n) or kh * kw != n:
+        raise ValueError(f"rel_h {tuple(rel_h.shape)} and rel_w {tuple(rel_w.shape)} "
+                         f"must be [B, N, Kh] and [B, N, Kw] with Kh * Kw == N = {n}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} is not supported (1 to {MAX_HEAD_DIM})")
+    if kh + kw > MAX_REL_SUM:
+        raise ValueError(f"Kh + Kw = {kh + kw} exceeds {MAX_REL_SUM}")
+    if not 1 <= b <= 65535:
+        raise ValueError(f"batch * heads = {b} must be in 1..65535")
+
+
+def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           rel_h: torch.Tensor, rel_w: torch.Tensor,
+                           scale: float) -> torch.Tensor:
+    """FLASH-RELPOS: q, k, v [B, N, D] f32 (B = batch * heads), rel_h
+    [B, N, Kh], rel_w [B, N, Kw] f32 with Kh * Kw == N -> [B, N, D].
+
+    Replaces ``attention_pallas.py`` ``_attn_kernel``.  CPU tensors run
+    :func:`reference_attention_relpos`; CUDA tensors launch
+    ``flash_relpos_kernel`` on the current stream."""
+    _check(q, k, v, rel_h, rel_w)
+    if q.device.type == "cpu":
+        return reference_attention_relpos(q, k, v, rel_h, rel_w, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    b, n, d = q.shape
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib().flash_attention_relpos_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_h.data_ptr(), rel_w.data_ptr(),
+        out.data_ptr(), b, n, d, rel_h.shape[-1], rel_w.shape[-1], float(scale),
+        ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"attention kernel launch failed: cudaError_t {err}")
+    flash_attention_relpos.launches += 1
+    return out
+
+
+flash_attention_relpos.launches = 0
+
+
+class _AttentionRelPos(torch.autograd.Function):
+    """FLASH-RELPOS forward; the backward is autograd through the plain
+    version on the saved inputs (``attention_pallas._flash_bwd_rule``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rel_h, rel_w, scale):
+        ctx.save_for_backward(q, k, v, rel_h, rel_w)
+        ctx.scale = scale
+        return flash_attention_relpos(q, k, v, rel_h, rel_w, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = reference_attention_relpos(*inputs, ctx.scale)
+        grads = torch.autograd.grad(out, inputs, grad_out)
+        return (*grads, None)
+
+
+def attention_relpos(q, k, v, rel_h, rel_w, scale: float) -> torch.Tensor:
+    """:func:`flash_attention_relpos` with gradients for all five tensors."""
+    return _AttentionRelPos.apply(q, k, v, rel_h, rel_w, scale)

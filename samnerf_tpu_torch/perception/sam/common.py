@@ -1,6 +1,7 @@
 """LayerNorm2d and MLPBlock, counterpart of the two small modules at the
-top of ``samnerf_tpu/perception/sam/image_encoder.py`` (the ViT itself is
-not on the serve path and waits)."""
+top of ``samnerf_tpu/perception/sam/image_encoder.py``, shared by the ViT
+image encoder (``image_encoder.py``), the prompt encoder and the mask
+decoder."""
 from __future__ import annotations
 
 from typing import Type

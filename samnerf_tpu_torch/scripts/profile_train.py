@@ -37,17 +37,22 @@ from samnerf_tpu_torch.scripts.profile_serve import _kernel_name
 from samnerf_tpu_torch.utils.synthetic import write_scene
 
 
+def build_trainer(scene: Path, output_dir: Path, device, seed: int = 0) -> Trainer:
+    """The ``samnerf_distill`` trainer at full width on ``scene``."""
+    method = method_configs()["samnerf_distill"]
+    method.datamanager.dataparser.data = scene
+    dm = DataManager(method.datamanager)
+    tcfg = dataclasses.replace(method.trainer, seed=seed, output_dir=output_dir,
+                               save_final=False)
+    return Trainer(method.model, tcfg, method.optimizers, dm, device=device)
+
+
 def build_synthetic_trainer(root: Path, device, seed: int = 0) -> Trainer:
     """The ``samnerf_distill`` trainer at full width on a synthetic
     512x512 scene written under ``root``."""
-    method = method_configs()["samnerf_distill"]
-    method.datamanager.dataparser.data = write_scene(
-        root / "scene", num_train=24, num_test=2, h=512, w=512,
-        with_features=True, feature_long_side=64)
-    dm = DataManager(method.datamanager)
-    tcfg = dataclasses.replace(method.trainer, seed=seed, output_dir=root / "out",
-                               save_final=False)
-    return Trainer(method.model, tcfg, method.optimizers, dm, device=device)
+    scene = write_scene(root / "scene", num_train=24, num_test=2, h=512, w=512,
+                        with_features=True, feature_long_side=64)
+    return build_trainer(scene, root / "out", device, seed)
 
 
 def main() -> None:

@@ -19,6 +19,9 @@ def init_state(module: nn.Module, generator: torch.Generator, device="cuda",
       1 / fan_in, fan_in = the product of all but the leading dim
       (lecun normal, untruncated);
     - norm weights of rank 1: ones; biases: zeros;
+    - the ViT's position embedding and rel-pos tables (``pos_embed``,
+      ``rel_pos_h``, ``rel_pos_w``; zeros in the reference's init):
+      normal with std 0.02, so the bias they give is not zero;
     - any other tensor (a positional-encoding matrix): standard normal.
     """
     gdev = generator.device
@@ -37,6 +40,8 @@ def init_state(module: nn.Module, generator: torch.Generator, device="cuda",
                 / math.sqrt(fan_in)
         elif leaf == "weight":
             t = torch.ones(shape)
+        elif leaf in ("pos_embed", "rel_pos_h", "rel_pos_w"):
+            t = torch.randn(shape, generator=generator, device=gdev) * 0.02
         else:
             t = torch.randn(shape, generator=generator, device=gdev)
         state[name] = t.to(device)

@@ -1,5 +1,6 @@
-"""The port's hand-written CUDA hash-encode kernels against their plain
-PyTorch versions, on the card (``cuda`` marker; they skip without one).
+"""The port's hand-written CUDA kernels (the hash encodes and
+FLASH-RELPOS) against their plain PyTorch versions, on the card (``cuda``
+marker; they skip without one).
 
 This file imports torch and the port only, so it runs on a machine with
 a card and no JAX.  ``tests/conftest.py`` imports JAX, so run it there
@@ -11,11 +12,15 @@ Max abs error, not allclose, so a flipped corner index shows: features
 are O(0.5) and a wrong corner moves one by O(0.1).  The table gradient is
 held at rtol 1e-2 / atol 1e-4: the kernel sums in f32 with atomics, the
 plain version rounds the sum to bf16, as JAX's CPU vjp does.
+FLASH-RELPOS is held at max abs error 1e-4: outputs are softmax averages
+of O(1) values, f32 sums over the keys in another order differ by about
+1e-6, and a wrong key tile or bias index moves an output by 1e-2 or more.
 """
 import numpy as np
 import pytest
 import torch
 
+from samnerf_tpu_torch.ops import attention as ta
 from samnerf_tpu_torch.ops import hash_grid as th
 from samnerf_tpu_torch.ops.encodings import hash_grid_scalings
 
@@ -91,3 +96,51 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):                    # cotangent of another width
         th.parity_hash_encode_bwd(torch.zeros((256, 6), device=dev), pos,
                                   scalings, 4)
+
+
+def _attention_inputs(dev, b, kh, kw, d, seed=0):
+    """q, k, v ~ N(0, 1) and rel-pos terms at the scale a seeded layer
+    gives (tables N(0, 0.02) contracted with q: std about 0.02 sqrt(D))."""
+    rng = np.random.default_rng(seed)
+    n = kh * kw
+    q, k, v = (torch.from_numpy(rng.normal(size=(b, n, d)).astype(np.float32)).to(dev)
+               for _ in range(3))
+    rel = 0.02 * np.sqrt(d)
+    rel_h = torch.from_numpy((rng.normal(size=(b, n, kh)) * rel).astype(np.float32))
+    rel_w = torch.from_numpy((rng.normal(size=(b, n, kw)) * rel).astype(np.float32))
+    return q, k, v, rel_h.to(dev), rel_w.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 12, 20, 20), (2, 5, 7, 33), (16, 64, 64, 80)])
+def test_flash_relpos_kernel_matches_plain_version(shape):
+    """(B*heads, Kh, Kw, D): ragged tiles (N = 240, 35), D not a power of
+    two, and the ViT-H global layer (N = 4096, D = 80)."""
+    dev = _cuda()
+    b, kh, kw, d = shape
+    args = _attention_inputs(dev, b, kh, kw, d)
+    before = ta.flash_attention_relpos.launches
+    out = ta.flash_attention_relpos(*args, d ** -0.5)
+    assert ta.flash_attention_relpos.launches == before + 1
+    ref = ta.reference_attention_relpos(*args, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["dtype", "device", "shape", "strided", "head_dim"])
+def test_flash_relpos_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    dev = _cuda()
+    q, k, v, rel_h, rel_w = _attention_inputs(dev, 2, 4, 8, 16)
+    if bad == "dtype":
+        q = q.half()
+    elif bad == "device":
+        v = v.cpu()
+    elif bad == "shape":
+        rel_h = rel_h[:, :, :3].contiguous()
+    elif bad == "strided":
+        k = k.transpose(1, 2).contiguous().transpose(1, 2)
+    else:
+        q, k, v = (torch.zeros((2, 32, 136), device=dev) for _ in range(3))
+    with pytest.raises(ValueError):
+        ta.flash_attention_relpos(q, k, v, rel_h, rel_w, 0.25)
