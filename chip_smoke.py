@@ -10,11 +10,18 @@ which raises on failure:
    per source, all at once);
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card at the serve path's shapes (max abs error, time, bound);
-4. serve: full-width ``samnerf_distill`` 512x512 frames through
-   ``SamNerfRenderer.serve_frame_fn`` (static preset) with f32 tables and
-   with baked int8 tables, launch counts per frame; then a 64x64 frame of
-   a small model on the card against the same frame on the CPU, where
-   every kernel runs its plain version;
+4. qmlp_kernel: FUSED-QMLP against its plain version at the four serve
+   heads' shapes (proposal, nerfacto, SAM at q8 and q4, ClipSeg), beside
+   the unfused route (Q-ENC per pyramid, then the port's ``MLP``);
+   serve: full-width ``samnerf_distill`` 512x512 frames through
+   ``SamNerfRenderer.serve_frame_fn`` (static preset) with f32 tables,
+   baked int8 tables, and baked int8 tables served through FUSED-QMLP
+   (``serve_fuse_mlp``), launch counts per frame; then a 64x64 frame of a
+   small model on the card against the same frame on the CPU, where every
+   kernel runs its plain version, for each of the three;
+   view: ``SamNerfRenderer.render_view`` at 512x512, full width, int8
+   fused, with a ``SamPredictor``: a click locked in 3D in view 0, three
+   further cameras that re-project it, and one view with a crop box;
 5. train_kernels: the encode backward F32-ENC-BWD against its plain
    version, and F32-ENC's time, at the three encode shapes of a
    ``samnerf_distill`` training step (16384 rays);
@@ -63,6 +70,22 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 TOL_KERNEL = 1e-5               # features are O(0.5); a flipped index is O(0.1)
+# FUSED-QMLP: the JAX kernel test's tolerance; the MLP sums in f32 in
+# another order than the plain version's matmuls
+TOL_QMLP = dict(rtol=1e-4, atol=1e-4)
+# (name, points, pyramids as (levels, packs, min res, max res), log2 table
+# size, hidden, out, qbits): the four serve heads at one call of a 512x512
+# static frame (a 32768-ray chunk; the SAM grid's 32768 rays x 8 samples;
+# the ClipSeg grid's 1024 rays x 8)
+QMLP_SHAPES = [
+    ("proposal", 1 << 21, [(5, 1, 16, 128)], 17, 16, 1, 8),
+    ("nerfacto", 1 << 20, [(16, 1, 16, 2048)], 19, 64, 16, 8),
+    ("sam", 1 << 18, [(12, 4, 16, 128), (12, 4, 128, 512)], 19, 256, 256, 8),
+    ("sam", 1 << 18, [(12, 4, 16, 128), (12, 4, 128, 512)], 19, 256, 256, 4),
+    ("clipseg", 8192, [(12, 4, 16, 128), (12, 4, 128, 512)], 19, 256, 192, 8)]
+FUSED_PER_FRAME = 19            # 8 proposal + 8 nerfacto + 2 SAM + 1 ClipSeg
+VIEW_SIZE = 512
+VIEW_INTRIN = np.array([[400.0, 0.0, 256.0], [0.0, 400.0, 256.0], [0.0, 0.0, 1.0]])
 TOL_FRAME = 1e-3                # f32 card vs CPU, sums taken in other orders
 # table gradients: f32 atomics vs a bf16-rounded sum (one bf16 step is 2^-8)
 TOL_TABLE_GRAD = dict(rtol=1e-2, atol=1e-4)
@@ -198,6 +221,86 @@ def kernel_phase(dev):
     return rows
 
 
+def qmlp_kernel_phase(dev):
+    """FUSED-QMLP against its plain version at the serve heads' shapes
+    (morton hash, tables U(-0.5, 0.5), uniform positions, weights
+    N(0, 1/fan_in) and biases N(0, 0.1)), with the unfused route's time:
+    Q-ENC per pyramid, the concatenation and the port's ``MLP``."""
+    from samnerf_tpu_torch.fields.mlp import MLP
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    from samnerf_tpu_torch.ops.encodings import hash_grid_scalings
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows = []
+    for name, n, spec, log2, h_dim, o_dim, qbits in QMLP_SHAPES:
+        steps = (1 << log2) // 1024
+        packed, scales, scalings = [], [], []
+        for levels, packs, lo_res, hi_res in spec:
+            table = hg.init_parity_table(gen, levels, steps, packs, scale=0.5, device=dev)
+            pk, sc = hg.quantize_parity_table(table, qbits=qbits)
+            packed.append(pk)
+            scales.append(sc)
+            scalings.append(tuple(hash_grid_scalings(levels, lo_res, hi_res).tolist()))
+            del table
+        c_dim = sum(2 * p.shape[0] for p in packed)
+        mlp = MLP(c_dim, h_dim, 1, o_dim, device=dev)
+        with torch.no_grad():
+            for layer in mlp.layers:
+                layer.weight.copy_(torch.randn(layer.weight.shape, generator=gen,
+                                               device=dev) * layer.weight.shape[1] ** -0.5)
+                layer.bias.copy_(torch.randn(layer.bias.shape, generator=gen,
+                                             device=dev) * 0.1)
+        w1, w2 = (m.weight.detach().t().contiguous() for m in mlp.layers)
+        b1, b2 = (m.bias.detach() for m in mlp.layers)
+        pos = torch.rand((n, 3), generator=gen, device=dev)
+        args = (packed, scales, pos, scalings, steps, w1, b1, w2, b2, "morton", qbits)
+        run = lambda: hg.parity_hash_encode_qmlp(*args)
+        plain = lambda: hg._parity_hash_encode_qmlp_ref(*args)
+
+        @torch.no_grad()
+        def unfused():
+            return mlp(torch.cat([hg.parity_hash_encode_q8(pk, sc, pos, s, steps, "morton",
+                                                           qbits)
+                                  for pk, sc, s in zip(packed, scales, scalings)], -1))
+
+        out, ref, alt = run(), plain(), unfused()
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        ratio = _tol_ratio(out, ref, **TOL_QMLP)
+        unfused_err = (alt - ref).abs().max().item()
+        if not math.isfinite(ratio) or ratio > 1.0 or tuple(out.shape) != (n, o_dim):
+            raise AssertionError(f"FUSED-QMLP {name} q{qbits}: max abs err {err}, "
+                                 f"{ratio:.3f} x the tolerance {TOL_QMLP}")
+        del out, ref, alt
+        ms = _time_ms(run, reps=20)
+        plain_ms = _time_ms(plain, reps=3, warmup=1)
+        unfused_ms = _time_ms(unfused, reps=20)
+        # bytes: positions read, the output written, the table words these
+        # positions touch; operations: the encode's multiply-adds (8
+        # corners x 2 features per (point, pack*level)) and the MLP's
+        # 2 N (C H + H O)
+        tb = sum(_touched_table_bytes(hg, pos, s, steps, "morton", pk.shape[0] // len(s),
+                                      qbits) for pk, s in zip(packed, scalings))
+        nbytes = 12 * n + 4 * o_dim * n + tb
+        ops = n * (c_dim // 2) * 8 * 2 * 2 + 2 * n * (c_dim * h_dim + h_dim * o_dim)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+        row = dict(kernel="FUSED-QMLP", shape=name, variant=f"q{qbits}", hash_fn="morton",
+                   points=n, pyramids=len(spec), channels=c_dim, hidden=h_dim, out=o_dim,
+                   max_abs_err=err, tol_ratio=ratio, ms=ms, plain_ms=plain_ms,
+                   unfused_route_ms=unfused_ms, unfused_route_max_abs_err=unfused_err,
+                   bound_ms=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   gflop=ops / 1e9, table_bytes_touched=tb)
+        rows.append(row)
+        print(f"qmlp kernel FUSED-QMLP {name:8s} q{qbits} N={n:8d} {c_dim}->{h_dim}->{o_dim} "
+              f"err={err:.3e} ({ratio:.3f} x tol) ms={ms:.4f} plain_ms={plain_ms:.3f} "
+              f"unfused_route_ms={unfused_ms:.4f} bound_ms={row['bound_ms']:.4f} "
+              f"({row['bound_by']}, {row['gflop']:.2f} GFLOP, {tb / 1e6:.1f} MB table)",
+              flush=True)
+        del packed, scales, pos, mlp
+    return rows
+
+
 def _cameras(dev, i, h, w, focal):
     from samnerf_tpu_torch.core.cameras import Cameras
     c2w = np.eye(4, dtype=np.float32)[:3, :4]
@@ -207,6 +310,22 @@ def _cameras(dev, i, h, w, focal):
                    fy=torch.tensor([[focal]], device=dev),
                    cx=torch.tensor([[w / 2.0]], device=dev),
                    cy=torch.tensor([[h / 2.0]], device=dev), width=w, height=h)
+
+
+# (tag, hash_q8_serve, serve_fuse_mlp) of the serve and reference runs
+SERVE_RUNS = (("f32", False, False), ("int8", True, False), ("int8_fused", True, True))
+
+
+def _reset_encode_launches(hg):
+    hg.parity_hash_encode.launches = 0
+    hg.parity_hash_encode_q8.launches = 0
+    hg.parity_hash_encode_qmlp.launches = 0
+
+
+def _encode_launches(hg):
+    return {"F32-ENC": hg.parity_hash_encode.launches,
+            "Q-ENC": hg.parity_hash_encode_q8.launches,
+            "FUSED-QMLP": hg.parity_hash_encode_qmlp.launches}
 
 
 def serve_phase(dev):
@@ -227,8 +346,9 @@ def serve_phase(dev):
     clicks = [(256.0, 256.0), (100.0, 300.0), (400.0, 120.0), (320.0, 420.0),
               (60.0, 60.0), (480.0, 300.0)]
     results = {}
-    for q8 in (False, True):
-        model = SAMModel(dataclasses.replace(cfg, hash_q8_serve=q8), device=dev)
+    for tag, q8, fuse in SERVE_RUNS:
+        model = SAMModel(dataclasses.replace(cfg, hash_q8_serve=q8, serve_fuse_mlp=fuse),
+                         device=dev)
         model.load_state_dict(params)
         snr = SamNerfRenderer(model, serve_preset="static")
         if q8:
@@ -245,8 +365,7 @@ def serve_phase(dev):
         serve(_cameras(dev, 0, H, W, 400.0), 0, clicks[0])        # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        hg.parity_hash_encode.launches = 0
-        hg.parity_hash_encode_q8.launches = 0
+        _reset_encode_launches(hg)
         times = []
         for i, click in enumerate(clicks[1:], start=1):
             t0 = time.perf_counter()
@@ -256,24 +375,26 @@ def serve_phase(dev):
             if img.dtype != torch.uint8 or tuple(img.shape) != (H, W, 3):
                 raise AssertionError(f"frame {img.dtype} {tuple(img.shape)}")
         frames = len(times)
-        launches = {"F32-ENC": hg.parity_hash_encode.launches,
-                    "Q-ENC": hg.parity_hash_encode_q8.launches}
-        tag = "int8" if q8 else "f32"
+        launches = _encode_launches(hg)
         results[tag] = dict(frame_ms=statistics.median(times), frame_ms_all=times,
                             frames=frames, launches=launches,
                             max_memory_allocated=torch.cuda.max_memory_allocated())
-        print(f"serve {tag:4s} 512x512 static: median frame {results[tag]['frame_ms']:.2f}"
-              f" ms over {frames} frames ({', '.join(f'{t:.1f}' for t in times)}); "
-              f"launches/frame F32-ENC={launches['F32-ENC'] / frames:g} "
-              f"Q-ENC={launches['Q-ENC'] / frames:g}; max_memory_allocated="
+        print(f"serve {tag:10s} 512x512 static: median frame "
+              f"{results[tag]['frame_ms']:.2f} ms over {frames} frames "
+              f"({', '.join(f'{t:.1f}' for t in times)}); launches/frame "
+              + " ".join(f"{k}={v / frames:g}" for k, v in launches.items())
+              + f"; max_memory_allocated="
               f"{results[tag]['max_memory_allocated'] / 2**30:.2f} GiB", flush=True)
         del model, snr, serve
-    if results["f32"]["launches"]["F32-ENC"] == 0:
-        raise AssertionError("F32-ENC never launched on the f32 serve path")
-    if results["int8"]["launches"]["Q-ENC"] == 0:
-        raise AssertionError("Q-ENC never launched on the int8 serve path")
-    if results["int8"]["launches"]["F32-ENC"]:
-        raise AssertionError("the int8 serve path ran an f32 encode")
+    expect = {"f32": {"F32-ENC"}, "int8": {"Q-ENC"}, "int8_fused": {"FUSED-QMLP"}}
+    for tag, kernels in expect.items():
+        ran = {k for k, v in results[tag]["launches"].items() if v}
+        if ran != kernels:
+            raise AssertionError(f"the {tag} serve path launched {ran}, not {kernels}")
+    fused = results["int8_fused"]
+    if fused["launches"]["FUSED-QMLP"] != FUSED_PER_FRAME * fused["frames"]:
+        raise AssertionError(f"FUSED-QMLP launched {fused['launches']['FUSED-QMLP']} times "
+                             f"in {fused['frames']} frames, not {FUSED_PER_FRAME} per frame")
     return results
 
 
@@ -292,10 +413,13 @@ def reference_phase(dev):
                             "num_levels": 4, "max_res": 64},),
         hashgrid_layers=(4, 4), hashgrid_resolutions=((16, 64), (64, 128)),
         hashgrid_sizes=(14, 14), num_sam_samples=4, patch_size=2, hash_fn="morton")
+    from samnerf_tpu_torch.ops import hash_grid as hg
+
     report = {}
-    for q8 in (False, True):
-        c = dataclasses.replace(cfg, hash_q8_serve=q8)
+    for tag, q8, fuse in SERVE_RUNS:
+        c = dataclasses.replace(cfg, hash_q8_serve=q8, serve_fuse_mlp=fuse)
         outs = {}
+        _reset_encode_launches(hg)
         for d in (dev, "cpu"):
             params = init_state(SAMModel(c, device="meta"),
                                 torch.Generator().manual_seed(1), device=d,
@@ -312,19 +436,115 @@ def reference_phase(dev):
                                                         return_mask=True)
             outs[str(d)] = {k: v.cpu() for k, v in grids.items()}
             outs[str(d)].update(img=img.cpu(), mask=mask.cpu())
+        launches = _encode_launches(hg)
+        ran = {k for k, v in launches.items() if v}
+        if ran != {"f32": {"F32-ENC"}, "int8": {"Q-ENC"}, "int8_fused": {"FUSED-QMLP"}}[tag]:
+            raise AssertionError(f"the small {tag} frame on the card launched {launches}")
         a, b = outs[str(dev)], outs["cpu"]
         errs = {k: (a[k] - b[k]).abs().max().item() for k in ("rgb", "sam", "clipseg")}
         agree = (a["mask"] == b["mask"]).float().mean().item()
         same = a["mask"] == b["mask"]
         img_err = (a["img"].int() - b["img"].int()).abs()[same].max().item()
-        tag = "int8" if q8 else "f32"
         report[tag] = dict(grid_max_abs_err=errs, mask_agreement=agree,
-                           frame_max_diff_outside_flips=img_err)
+                           frame_max_diff_outside_flips=img_err, launches=launches)
         print(f"reference {tag}: 64x64 card vs CPU grid max abs err {errs}, "
               f"mask agreement {agree:.5f}, frame max diff {img_err}", flush=True)
         if max(errs.values()) > TOL_FRAME or agree < 0.999 or img_err > 1:
             raise AssertionError(f"card and CPU frames disagree: {report[tag]}")
     return report
+
+
+def view_phase(dev, cfg=None, size=VIEW_SIZE, chunk=1 << 15):
+    """``render_view`` with baked int8 tables through FUSED-QMLP (full
+    ``samnerf_distill`` width unless ``cfg`` is given): a click in view 0
+    is locked in 3D, three further cameras re-project it, then one view
+    with a crop box.  Raises if a locked pin that lies in bounds and in
+    front of the depth is not drawn."""
+    from samnerf_tpu_torch.engine.render_pipeline import (SamNerfRenderer,
+                                                          cameras_from_intrin_c2w, project,
+                                                          visible_mask)
+    from samnerf_tpu_torch.models.sam_model import SAMModel, SAMModelConfig, init_params
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    from samnerf_tpu_torch.perception.sam.predictor import SamPredictor
+    from samnerf_tpu_torch.perception.sam.sam import Sam, init_decoder_params
+    from samnerf_tpu_torch.utils.synthetic import look_at_c2w
+
+    cfg = cfg or SAMModelConfig(hash_fn="morton")
+    cfg = dataclasses.replace(cfg, hash_q8_serve=True, serve_fuse_mlp=True)
+    gen = torch.Generator().manual_seed(0)
+    model = SAMModel(cfg, device=dev)
+    model.load_state_dict(init_params(cfg, gen, device=dev))
+    sam = Sam(device=dev)
+    sam.load_state_dict(init_decoder_params(gen, device=dev))
+    snr = SamNerfRenderer(model, sam_predictor=SamPredictor(sam), chunk=chunk,
+                          serve_preset="static")
+    snr.bake_serve_tables()
+    intrin = VIEW_INTRIN * (size / VIEW_SIZE)
+    intrin[2, 2] = 1.0
+    # a generic position (the visibility test divides by each axis of a
+    # pin's ray); the random weights make a uniform fog, so the further
+    # cameras step towards the locked point and then see it in front of
+    # their depth
+    p0 = np.array([1.2 * np.cos(0.3), 1.2 * np.sin(0.3), 0.45])
+    views = [look_at_c2w(p0, np.zeros(3))]
+    click = np.array([[float(int(0.45 * size)), float(int(0.55 * size))]])
+    rows = []
+
+    def view(i, points, **crop):
+        c2w = views[i]
+        cams = cameras_from_intrin_c2w(intrin, c2w, size, size, device=dev)
+        _reset_encode_launches(hg)
+        t0 = time.perf_counter()
+        out = snr.render_view(cams, 0, intrin, c2w, points=points, **crop)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = _encode_launches(hg)
+        for k in ("rgb", "depth", "masked_rgb"):
+            if out[k].shape[:2] != (size, size) or not np.isfinite(out[k]).all():
+                raise AssertionError(f"view {i} {k}: {out[k].shape} or not finite")
+        pins = project(intrin, c2w, snr.prompts)
+        legal = ((pins >= 0) & (pins < size)).all(-1)
+        vis = visible_mask(pins[legal].astype(np.float64), snr.prompts[legal],
+                           out["depth"], intrin, c2w)
+        drawn = [bool((out["masked_rgb"][y, x] == [1.0, 0.0, 0.0]).all())
+                 for x, y in pins[legal]]
+        if not all(d for d, v in zip(drawn, vis) if v):
+            raise AssertionError(f"view {i}: a visible locked pin is not drawn: pins "
+                                 f"{pins.tolist()}, visible {vis.tolist()}, drawn {drawn}")
+        changed = np.abs(out["masked_rgb"] - out["rgb"]).max(-1) > 1e-6
+        row = dict(view=i, crop="crop_aabb" in crop, ms=ms, locked=len(snr.prompts),
+                   pins=pins.tolist(), in_bounds=legal.tolist(), visible=vis.tolist(),
+                   drawn=drawn, mask_fraction=float(changed.mean()), launches=launches)
+        rows.append(row)
+        print(f"view {i}{' crop' if row['crop'] else ''} {size}x{size}: {ms:.1f} ms, "
+              f"{row['locked']} locked, pins {row['pins']} in bounds {row['in_bounds']} "
+              f"visible {row['visible']} drawn {drawn}, mask covers "
+              f"{100 * row['mask_fraction']:.1f} % of the frame; launches "
+              + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
+        if launches["FUSED-QMLP"] != FUSED_PER_FRAME or launches["Q-ENC"] \
+                or launches["F32-ENC"]:
+            raise AssertionError(f"view {i} launched {launches}")
+
+    view(0, click)
+    step = (snr.prompts[0] - p0) / np.linalg.norm(snr.prompts[0] - p0)
+    for i in (1, 2, 3):
+        views.append(look_at_c2w(p0 + 0.05 * i * step + [0.0, 0.0, 0.02 * i], np.zeros(3)))
+        view(i, click)
+    view(0, click, crop_aabb=np.array([[-0.5, -0.5, -0.5], [0.5, 0.5, 0.5]]),
+         crop_bg=np.array([0.0, 0.0, 1.0]))
+    if len(snr.prompts) != 1 or not all(r["drawn"] == [True] for r in rows[:4]):
+        raise AssertionError("the click is not locked as one point drawn in view 0 and "
+                             f"the three further views: {rows[:4]}")
+    timed = [r["ms"] for r in rows[1:4]]
+    result = dict(views=rows, view_ms=statistics.median(timed), view_ms_all=timed,
+                  click_view_ms=rows[0]["ms"], crop_view_ms=rows[4]["ms"],
+                  launches_per_view=FUSED_PER_FRAME,
+                  launches=sum(r["launches"]["FUSED-QMLP"] for r in rows))
+    print(f"view: median {result['view_ms']:.1f} ms per moved view "
+          f"({', '.join(f'{t:.1f}' for t in timed)}), click view {rows[0]['ms']:.1f} ms, "
+          f"crop view {rows[4]['ms']:.1f} ms; FUSED-QMLP {FUSED_PER_FRAME} launches per "
+          f"view", flush=True)
+    del snr, model, sam
+    return result
 
 
 def _tol_ratio(out, ref, rtol, atol) -> float:
@@ -775,9 +995,11 @@ def main() -> int:
     print(f"build: {build_s:.1f} s", flush=True)
 
     rows = kernel_phase(dev)
+    qmlp_rows = qmlp_kernel_phase(dev)
     train_rows = train_kernel_phase(dev)
     serve = serve_phase(dev)
     reference = reference_phase(dev)
+    view = view_phase(dev)
     train = train_phase(dev)
     train_reference = train_reference_phase(dev)
     attn_rows = attn_kernel_phase(dev)
@@ -812,6 +1034,20 @@ def main() -> int:
                         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
                         "library_ms": None})
+    for k in kernels:
+        k["launches_by_path"].update(serve_int8_fused=serve["int8_fused"]["launches"][k["name"]])
+    # the SAM head stands for FUSED-QMLP: its largest function per launch
+    rep = next(r for r in qmlp_rows if r["shape"] == "sam" and r["variant"] == "q8")
+    kernels.append({"name": "FUSED-QMLP", "route": "cuda", "source": source,
+                    "replaces": "samnerf_tpu/ops/hash_pallas.py:1500",
+                    "launches": serve["int8_fused"]["launches"]["FUSED-QMLP"],
+                    "launches_by_path": {
+                        "serve_int8_fused": serve["int8_fused"]["launches"]["FUSED-QMLP"],
+                        "view": view["launches"]},
+                    "max_abs_err": max(r["max_abs_err"] for r in qmlp_rows),
+                    "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+                    "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+                    "library_ms": None, "unfused_route_ms": rep["unfused_route_ms"]})
     rep = next(r for r in train_rows if r["shape"] == "nerfacto" and r["hash_fn"] == "morton")
     kernels.append({"name": "F32-ENC-BWD", "route": "cuda", "source": source,
                     "replaces": "samnerf_tpu/ops/hash_pallas.py:644",
@@ -836,8 +1072,9 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "build_s": build_s, "kernel_rows": rows, "train_kernel_rows": train_rows,
-         "serve": serve, "reference": reference, "train": train,
+         "build_s": build_s, "kernel_rows": rows, "qmlp_kernel_rows": qmlp_rows,
+         "train_kernel_rows": train_rows, "serve": serve, "reference": reference,
+         "view": view, "train": train,
          "train_reference": train_reference, "attn_kernel_rows": attn_rows,
          "encode": encode, "encode_reference": encode_reference,
          "preprocess": preprocess, "kernels": kernels}, indent=1))

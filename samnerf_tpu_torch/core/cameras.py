@@ -1,16 +1,18 @@
 """Pinhole cameras and ray generation.
 
 Counterpart of ``samnerf_tpu/core/cameras.py`` (``Cameras``,
-``generate_rays`` :87) for perspective cameras without distortion, the
-only kind the serve path renders; fisheye, equirectangular, distortion
-and crop boxes wait.  Conventions: coords are (row, col) with pixel
-centers at +0.5; camera-space direction [(x-cx)/fx, -(y-cy)/fy, -1]
-(OpenGL), rotated by c2w and normalized; pixel_area from the +1-pixel
-neighbours of the normalized world directions.
+``generate_rays`` :87, with the viewer's crop box) for perspective
+cameras without distortion, the only kind the serve path renders;
+fisheye, equirectangular and distortion wait.  Conventions: coords are
+(row, col) with pixel centers at +0.5; camera-space direction
+[(x-cx)/fx, -(y-cy)/fy, -1] (OpenGL), rotated by c2w and normalized;
+pixel_area from the +1-pixel neighbours of the normalized world
+directions.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,9 +36,28 @@ class Cameras:
             cx=self.cx.to(device), cy=self.cy.to(device))
 
 
+def intersect_aabb(origins: torch.Tensor, directions: torch.Tensor,
+                   aabb: torch.Tensor, max_bound: float = 1e10
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Slab-method ray/box intersection (``samnerf_tpu/utils/misc.py:22``):
+    origins, directions [..., 3], aabb [6] (min xyz, max xyz) -> t_min,
+    t_max [..., 1], each clamped to [0, max_bound]; a miss gives t_min >
+    t_max."""
+    inv = 1.0 / torch.where(directions.abs() < 1e-10, 1e-10, directions)
+    t0 = (aabb[:3] - origins) * inv
+    t1 = (aabb[3:] - origins) * inv
+    tmin = torch.amax(torch.minimum(t0, t1), dim=-1, keepdim=True)
+    tmax = torch.amin(torch.maximum(t0, t1), dim=-1, keepdim=True)
+    return tmin.clamp(0.0, max_bound), tmax.clamp(0.0, max_bound)
+
+
 def generate_rays(cameras: Cameras, camera_indices: torch.Tensor,
-                  coords: torch.Tensor, pixel_offset: float = 0.5) -> RayBundle:
-    """camera_indices [R] int, coords [R, 2] (row, col) -> RayBundle [R]."""
+                  coords: torch.Tensor, pixel_offset: float = 0.5,
+                  aabb_box: Optional[torch.Tensor] = None) -> RayBundle:
+    """camera_indices [R] int, coords [R, 2] (row, col) -> RayBundle [R].
+    ``aabb_box`` [2, 3] (min corner, max corner): the viewer's crop box;
+    near and far then bound each ray to it, as the reference's crop does
+    (``samnerf_tpu/core/cameras.py:161-166``)."""
     ci = camera_indices.long()
     y = coords[..., 0].float() + pixel_offset
     x = coords[..., 1].float() + pixel_offset
@@ -53,6 +74,11 @@ def generate_rays(cameras: Cameras, camera_indices: torch.Tensor,
     directions = dirs_world[0]
     dx = torch.sqrt(torch.sum((directions - dirs_world[1]) ** 2, dim=-1))
     dy = torch.sqrt(torch.sum((directions - dirs_world[2]) ** 2, dim=-1))
+    nears = fars = None
+    if aabb_box is not None:
+        nears, t_max = intersect_aabb(c2w[..., :3, 3], directions,
+                                      aabb_box.reshape(6))
+        fars = torch.maximum(t_max, nears)
     return RayBundle(origins=c2w[..., :3, 3], directions=directions,
                      pixel_area=(dx * dy)[..., None],
-                     camera_indices=ci[..., None])
+                     camera_indices=ci[..., None], nears=nears, fars=fars)

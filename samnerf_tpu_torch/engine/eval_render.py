@@ -10,7 +10,7 @@ JAX package's so both packages see the same chunks.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -158,24 +158,48 @@ class ImageRenderer:
         self._plans[key] = plan
         return plan
 
+    def render_image(self, cameras: Cameras, camera_index: int,
+                     width: Optional[int] = None, height: Optional[int] = None,
+                     features: Tuple[str, ...] = (), crop_aabb=None,
+                     crop_bg=None) -> Dict[str, np.ndarray]:
+        """Render one camera (the camera's size unless given) with depth,
+        accumulation and the per-level median depths; returns host numpy
+        arrays.  ``crop_aabb`` [2, 3] and ``crop_bg`` [3] as in
+        :meth:`render_image_device`."""
+        out = self.render_image_device(cameras, camera_index,
+                                       width or cameras.width,
+                                       height or cameras.height, features,
+                                       crop_aabb=crop_aabb, crop_bg=crop_bg)
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
     @torch.no_grad()
     def render_image_device(self, cameras: Cameras, camera_index: int,
                             width: int, height: int,
                             features: Tuple[str, ...] = (),
-                            minimal: bool = False) -> Dict[str, torch.Tensor]:
+                            minimal: bool = False, crop_aabb=None,
+                            crop_bg=None) -> Dict[str, torch.Tensor]:
         """Render one camera on the model's device.  ``minimal`` returns rgb
         and the requested feature grids only (the serve fast path);
-        otherwise depth, accumulation and per-level median depths too."""
+        otherwise depth, accumulation and per-level median depths too.
+        ``crop_aabb`` [2, 3] (min, max corner): the viewer's crop box; the
+        rgb pass's rays are bounded to it and its empty space takes the
+        background ``crop_bg`` [3] (black unless given)."""
         cfg, chunk = self.cfg, self.chunk
         device = cameras.camera_to_worlds.device
         plan = self._plan(height, width, tuple(features), device)
         rgb_coords, rgb_unflatten = plan["rgb"]
         fuse = "sam" in plan or "clipseg" in plan
+        bg = None
+        if crop_aabb is not None:
+            crop_aabb = torch.as_tensor(crop_aabb, dtype=torch.float32, device=device)
+            bg = (torch.zeros(3, device=device) if crop_bg is None else
+                  torch.as_tensor(crop_bg, dtype=torch.float32, device=device))
         outs = []
         for c in rgb_coords:
             rb = generate_rays(cameras, torch.full((c.shape[0],), camera_index,
-                                                   device=device), c)
-            outs.append(self.model(rb, return_topk=fuse))
+                                                   device=device), c,
+                               aabb_box=crop_aabb)
+            outs.append(self.model(rb, bg_color=bg, return_topk=fuse))
         out = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
         outputs = {"rgb": rgb_unflatten(out["rgb"])}
         if not minimal:

@@ -1,15 +1,19 @@
 """The interactive serve path: render a view, decode a SAM mask from a
 click on the rendered embedding, composite the overlay.
 
-Counterpart of ``samnerf_tpu/engine/render_pipeline.py`` (``serve_model``,
-``SamNerfRenderer`` with ``serve_frame_fn`` and ``bake_serve_tables``).
-``render_view`` with 3D prompt locking and ClipSeg text prompts waits.
+Counterpart of ``samnerf_tpu/engine/render_pipeline.py``: ``serve_model``,
+the geometry of 3D prompt locking (``backproject``, ``project``,
+``visible_mask``, ``pooled_heatmap_points``, ``draw_pins``) and
+``SamNerfRenderer`` with ``serve_frame_fn`` (the all-device frame),
+``render_view`` (the viewer's flow, which locks clicks as 3D points) and
+``bake_serve_tables``.  ``render_view``'s ClipSeg text prompts and the
+no-distill LanguageSAM branch wait for ClipSeg.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,7 +23,11 @@ from samnerf_tpu_torch.engine.eval_render import ImageRenderer
 from samnerf_tpu_torch.fields.hash_encoding import ParityHashEncoding
 from samnerf_tpu_torch.models.sam_model import SAMModel
 from samnerf_tpu_torch.ops.hash_grid import bake_quantized_tables
+from samnerf_tpu_torch.perception.langsam import composite_mask
 from samnerf_tpu_torch.perception.sam.sam import Sam, postprocess_masks
+
+EPS = 1e-4  # visibility epsilon
+TOR = 1e-2  # back-projection depth offset
 
 
 def serve_model(model: SAMModel, nerf: int = 0, props: int = 0,
@@ -43,8 +51,119 @@ def serve_model(model: SAMModel, nerf: int = 0, props: int = 0,
     return served
 
 
+def backproject(points_2d: np.ndarray, depth: np.ndarray, intrin: np.ndarray,
+                c2w: np.ndarray) -> np.ndarray:
+    """2D clicks -> 3D points through the rendered depth, TOR in front of
+    the surface.  points_2d [N, 2] (x, y); depth [H, W] or [H, W, 1];
+    intrin [3, 3]; c2w [3|4, 4]."""
+    depth = depth[..., 0] if depth.ndim == 3 else depth
+    fx, fy = intrin[0, 0], intrin[1, 1]
+    cx, cy = intrin[0, 2], intrin[1, 2]
+    px = points_2d[:, 0].astype(np.int64)
+    py = points_2d[:, 1].astype(np.int64)
+    t = depth[py, px] - TOR
+    x = (points_2d[:, 0] - cx) / fx
+    y = -(points_2d[:, 1] - cy) / fy
+    coords = np.stack([x, y, -np.ones_like(x)], axis=-1)  # [N, 3]
+    direction = coords @ c2w[:3, :3].T
+    direction /= np.linalg.norm(direction, axis=-1, keepdims=True)
+    return c2w[:3, 3][None] + t[:, None] * direction
+
+
+def project(intrin: np.ndarray, c2w: np.ndarray,
+            points: np.ndarray) -> np.ndarray:
+    """3D points [N, 3] -> int32 pixel coords (x, y), truncated."""
+    fx, fy = intrin[0, 0], intrin[1, 1]
+    cx, cy = intrin[0, 2], intrin[1, 2]
+    if c2w.shape[0] == 3:
+        c2w = np.concatenate([c2w, np.array([[0.0, 0.0, 0.0, 1.0]])], axis=0)
+    if points.shape[-1] == 3:
+        points = np.concatenate([points, np.ones((points.shape[0], 1))], axis=-1)
+    img = points @ np.linalg.inv(c2w)[:3].T  # [N, 3]
+    img = -img / img[:, -1:]
+    out = np.stack([img[:, 0] * fx + cx, img[:, 1] * (-fy) + cy], axis=-1)
+    return out.astype(np.int32)
+
+
+def visible_mask(prompts_2d: np.ndarray, prompts_3d: np.ndarray,
+                 depth: np.ndarray, intrin: np.ndarray, c2w: np.ndarray,
+                 t_reduce: str = "min") -> np.ndarray:
+    """Pins whose 3D point lies in front of the rendered depth (+EPS) along
+    their pixel's ray.  The per-axis distances (p - o) / d skip the axes
+    where d is within 1e-8 of 0 and reduce by "min" or by the mean."""
+    depth = depth[..., 0] if depth.ndim == 3 else depth
+    fx, fy = intrin[0, 0], intrin[1, 1]
+    cx, cy = intrin[0, 2], intrin[1, 2]
+    coords = (prompts_2d - np.array([[cx, cy]])) / np.array([[fx, -fy]])
+    coords = np.concatenate([coords, -np.ones_like(coords[:, :1])], axis=-1)
+    rays_d = coords @ c2w[:3, :3].T
+    rays_d /= np.linalg.norm(rays_d, axis=-1, keepdims=True)
+    rays_o = c2w[:3, 3][None]
+    valid = np.abs(rays_d) > 1e-8
+    ratios = (prompts_3d - rays_o) / np.where(valid, rays_d, 1.0)
+    if t_reduce == "min":
+        ts = np.where(valid, ratios, np.inf).min(axis=-1)
+    else:
+        cnt = np.maximum(valid.sum(axis=-1), 1)
+        ts = np.where(valid, ratios, 0.0).sum(axis=-1) / cnt
+    d = depth[prompts_2d[:, 1].astype(np.int64), prompts_2d[:, 0].astype(np.int64)]
+    return ts < (d + EPS)
+
+
+def pooled_heatmap_points(heat: np.ndarray, image_hw: Tuple[int, int],
+                          topk: int = 1000,
+                          threshold: float = 0.7) -> Optional[np.ndarray]:
+    """ClipSeg relevance [h, w] -> point prompts [M, 2] (x, y) in image
+    pixels: 16x16 average pool, top-k cells above ``threshold``; None when
+    no cell passes."""
+    fh, fw = heat.shape[0] // 16, heat.shape[1] // 16
+    pooled = heat.reshape(fh, 16, fw, 16).mean(axis=(1, 3))
+    flat = pooled.reshape(-1)
+    amax = np.argsort(-flat)[:min(topk, flat.size)]
+    aw, ah = amax % fw, amax // fw
+    mask = pooled[ah, aw] > threshold
+    if not mask.any():
+        return None
+    pts = np.stack([aw, ah], axis=1)[mask].astype(np.float32)
+    pts[:, 0] = pts[:, 0] / fw * image_hw[1]
+    pts[:, 1] = pts[:, 1] / fh * image_hw[0]
+    return pts
+
+
+def draw_pins(image: np.ndarray, pins: np.ndarray, radius: int = 4,
+              color=(1.0, 0.0, 0.0)) -> np.ndarray:
+    """A copy of ``image`` with a filled disc of ``color`` at each pin
+    (x, y), clipped at the borders."""
+    img = image.copy()
+    h, w = img.shape[:2]
+    for x, y in pins.astype(np.int64):
+        y0, y1 = max(0, y - radius), min(h, y + radius + 1)
+        x0, x1 = max(0, x - radius), min(w, x + radius + 1)
+        yy, xx = np.mgrid[y0:y1, x0:x1]
+        inside = (yy - y) ** 2 + (xx - x) ** 2 <= radius ** 2
+        img[yy[inside], xx[inside]] = color
+    return img
+
+
+def cameras_from_intrin_c2w(intrin: np.ndarray, c2w: np.ndarray, height: int,
+                            width: int, device="cuda") -> Cameras:
+    """One camera from a viewer camera message: intrin [3, 3], c2w [3|4, 4]."""
+    def scalar(v):
+        return torch.tensor([[float(v)]], device=device)
+
+    return Cameras(
+        camera_to_worlds=torch.as_tensor(np.asarray(c2w, np.float32)[None, :3, :4],
+                                         device=device),
+        fx=scalar(intrin[0, 0]), fy=scalar(intrin[1, 1]),
+        cx=scalar(intrin[0, 2]), cy=scalar(intrin[1, 2]),
+        width=int(width), height=int(height))
+
+
 class SamNerfRenderer:
-    """The viewer's serve backend over one model."""
+    """The viewer's serve backend over one model.  ``sam_predictor`` (a
+    :class:`~samnerf_tpu_torch.perception.sam.predictor.SamPredictor`)
+    decodes :meth:`render_view`'s masks; ``prompts`` [M, 3] holds the
+    locked 3D points."""
 
     #: "static" trims the SAM-field top-k to 8; "move" also halves the nerf
     #: and proposal counts (the renderer for a moving camera).
@@ -52,11 +171,13 @@ class SamNerfRenderer:
                      "static": dict(k=8),
                      "move": dict(nerf=16, props=32, k=2)}
 
-    def __init__(self, model: SAMModel, chunk: int = 1 << 15,
-                 serve_preset: str = "full"):
+    def __init__(self, model: SAMModel, sam_predictor=None,
+                 chunk: int = 1 << 15, serve_preset: str = "full"):
         model = serve_model(model, **self.SERVE_PRESETS[serve_preset])
         self.renderer = ImageRenderer(model, chunk=chunk)
         self.cfg = model.config
+        self.predictor = sam_predictor
+        self.prompts: Optional[np.ndarray] = None
         self._move_renderer: Optional[ImageRenderer] = None
         if serve_preset == "static":
             self._move_renderer = ImageRenderer(
@@ -66,6 +187,9 @@ class SamNerfRenderer:
         if preset == "move" and self._move_renderer is not None:
             return self._move_renderer
         return self.renderer
+
+    def clear_prompts(self) -> None:
+        self.prompts = None
 
     @torch.no_grad()
     def bake_serve_tables(self, optimize: int = 12) -> None:
@@ -121,3 +245,63 @@ class SamNerfRenderer:
             return (img, mask) if return_mask else img
 
         return serve
+
+    def render_view(self, cameras: Cameras, camera_index: int,
+                    intrin: np.ndarray, c2w: np.ndarray,
+                    points: Optional[np.ndarray] = None,
+                    width: Optional[int] = None, height: Optional[int] = None,
+                    crop_aabb: Optional[np.ndarray] = None,
+                    crop_bg: Optional[np.ndarray] = None,
+                    preset: str = "static") -> Dict[str, np.ndarray]:
+        """The viewer's flow (``samnerf_tpu`` ``render_view``), host numpy
+        out: render rgb, depth and the SAM / ClipSeg grids; back-project
+        each new click through the depth into a locked 3D point; project
+        every locked point into this view, keep those in bounds, decode a
+        mask from them on the rendered SAM embedding and composite it, and
+        draw the pins that the depth does not hide.
+
+        points: [N, 2] (x, y), all clicks so far; those beyond the locked
+        count are new.  None or empty clears the locked points.
+        crop_aabb [2, 3] / crop_bg [3]: the viewer's crop box and its
+        background.  preset "move" renders through the reduced-sample
+        renderer when there is one.  Adds ``masked_rgb`` to the render's
+        outputs.  ClipSeg text prompts and the no-distill LanguageSAM
+        branch are not ported (they wait for ClipSeg)."""
+        cfg = self.cfg
+        feats = ("sam", "clipseg") if cfg.distill_sam else ()
+        outputs = self._renderer_for(preset).render_image(
+            cameras, camera_index, width=width, height=height, features=feats,
+            crop_aabb=crop_aabb, crop_bg=crop_bg)
+        h, w = outputs["rgb"].shape[:2]
+        outputs["masked_rgb"] = outputs["rgb"]
+
+        if points is None or len(points) == 0:
+            self.prompts = None
+        else:
+            n_locked = 0 if self.prompts is None else len(self.prompts)
+            if len(points) > n_locked:
+                new_3d = backproject(np.asarray(points[n_locked:], np.float64),
+                                     outputs["depth"], intrin, c2w)
+                self.prompts = (new_3d if self.prompts is None else
+                                np.concatenate([self.prompts, new_3d], axis=0))
+
+        if self.predictor is None or "sam" not in outputs:
+            return outputs
+        self.predictor.set_feature(outputs["sam"], original_image_size=(h, w))
+        if self.prompts is None:
+            return outputs
+        prompts_2d = project(intrin, c2w, self.prompts)
+        legal = np.logical_and(prompts_2d >= 0, prompts_2d < np.array([[w, h]])).all(-1)
+        prompts_2d = prompts_2d[legal]
+        if len(prompts_2d) == 0:
+            return outputs
+        masks, _, _ = self.predictor.predict(
+            point_coords=prompts_2d.astype(np.float64),
+            point_labels=np.ones(len(prompts_2d), np.int64), multimask_output=False)
+        outputs["masked_rgb"] = composite_mask(
+            masks[0], outputs["rgb"], rng=np.random.default_rng(0)).astype(np.float32)
+        vis = visible_mask(prompts_2d.astype(np.float64), self.prompts[legal],
+                           outputs["depth"], intrin, c2w)
+        outputs["masked_rgb"] = draw_pins(outputs["masked_rgb"], prompts_2d[vis],
+                                          radius=max(1, int(4 * h / 840)))
+        return outputs

@@ -4,9 +4,10 @@ counterpart of ``samnerf_tpu/fields/nerfacto_field.py``.
 The MLPs are pointwise, so points go to the encoders in their natural
 [R*S] order (the JAX package's sample-major reorder only serves the TPU
 scan).  The same code serves and trains: gradients reach the MLPs and,
-through F32-ENC-BWD, the f32 hash tables; positions carry none.
-Appearance embeddings (off in both presets), occupancy culling and the
-fused encode+MLP kernel wait.
+through F32-ENC-BWD, the f32 hash tables; positions carry none.  With
+``hash_q8`` and ``fuse_mlp`` (serve only) the encode and the base MLP run
+as one FUSED-QMLP launch.  Appearance embeddings (off in both presets)
+and occupancy culling wait.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ from samnerf_tpu_torch.core.contraction import contract_to_unit
 from samnerf_tpu_torch.fields.hash_encoding import ParityHashEncoding
 from samnerf_tpu_torch.fields.mlp import MLP, trunc_exp
 from samnerf_tpu_torch.ops.encodings import sh_encoding
+from samnerf_tpu_torch.ops.hash_grid import (parity_hash_encode_qmlp,
+                                             quantize_parity_table)
 
 
 def _contract_and_select(positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -29,6 +32,37 @@ def _contract_and_select(positions: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     return p * selector[..., None], selector
 
 
+def _mlp_is_fusable(mlp: MLP) -> bool:
+    """FUSED-QMLP computes exactly relu(x @ w1 + b1) @ w2 + b2."""
+    return len(mlp.layers) == 2 and mlp.output_activation is None
+
+
+def _fused_encode_mlp(encs, mlp: MLP, flat: torch.Tensor) -> torch.Tensor:
+    """``mlp(cat([e(flat) for e in encs]))`` as one FUSED-QMLP call, on the
+    baked ``qtable{b}`` / ``qscales{b}`` of each encoding when it has them,
+    else on its master quantized at max scale.  ``flat`` [N, 3] in [0, 1];
+    the pyramids must share their table size and width.  Serve only: no
+    gradient."""
+    num_steps, quant_bits = encs[0].num_steps, encs[0].quant_bits
+    packed, scales = [], []
+    for e in encs:
+        if (e.num_steps, e.quant_bits) != (num_steps, quant_bits):
+            raise ValueError("stacked pyramids must share their table size and width")
+        pk = getattr(e, f"qtable{quant_bits}")
+        if pk is None:
+            pk, sc = quantize_parity_table(e.table.detach(), qbits=quant_bits)
+        else:
+            sc = getattr(e, f"qscales{quant_bits}")
+        packed.append(pk)
+        scales.append(sc)
+    first, last = mlp.layers
+    return parity_hash_encode_qmlp(
+        packed, scales, flat.contiguous(), [e.scalings for e in encs], num_steps,
+        first.weight.detach().t().contiguous(), first.bias.detach(),
+        last.weight.detach().t().contiguous(), last.bias.detach(),
+        hash_fn=encs[0].hash_fn, qbits=quant_bits)
+
+
 class NerfactoField(nn.Module):
     """Density + view-dependent color field."""
 
@@ -37,8 +71,9 @@ class NerfactoField(nn.Module):
                  max_res: int = 2048, log2_hashmap_size: int = 19,
                  num_layers_color: int = 3, hidden_dim_color: int = 64,
                  hash_q8: bool = False, hash_fn: str = "reference",
-                 quant_bits: int = 8, device="cuda"):
+                 quant_bits: int = 8, fuse_mlp: bool = False, device="cuda"):
         super().__init__()
+        self.fuse = hash_q8 and fuse_mlp
         self.encoding = ParityHashEncoding(
             num_levels=num_levels, min_res=16, max_res=max_res,
             log2_hashmap_size=log2_hashmap_size, features_per_level=2,
@@ -53,7 +88,11 @@ class NerfactoField(nn.Module):
     def get_density(self, positions: torch.Tensor):
         """[R, S, 3] -> (density [R, S, 1], geo_feat [R, S, geo])."""
         p, selector = _contract_and_select(positions)
-        h = self.mlp_base(self.encoding(p.reshape(-1, 3)))
+        flat = p.reshape(-1, 3)
+        if self.fuse and _mlp_is_fusable(self.mlp_base):
+            h = _fused_encode_mlp([self.encoding], self.mlp_base, flat)
+        else:
+            h = self.mlp_base(self.encoding(flat))
         h = h.reshape(*positions.shape[:-1], h.shape[-1])
         return trunc_exp(h[..., :1]) * selector[..., None], h[..., 1:]
 
@@ -73,8 +112,9 @@ class HashMLPDensityField(nn.Module):
                  num_levels: int = 5, max_res: int = 128, base_res: int = 16,
                  log2_hashmap_size: int = 13, features_per_level: int = 2,
                  hash_q8: bool = False, hash_fn: str = "reference",
-                 quant_bits: int = 8, device="cuda"):
+                 quant_bits: int = 8, fuse_mlp: bool = False, device="cuda"):
         super().__init__()
+        self.fuse = hash_q8 and fuse_mlp
         self.encoding = ParityHashEncoding(
             num_levels=num_levels, min_res=base_res, max_res=max_res,
             log2_hashmap_size=log2_hashmap_size,
@@ -86,6 +126,10 @@ class HashMLPDensityField(nn.Module):
     def forward(self, positions: torch.Tensor) -> torch.Tensor:
         """[R, S, 3] -> density [R, S, 1]."""
         p, selector = _contract_and_select(positions)
-        raw = self.mlp(self.encoding(p.reshape(-1, 3)))
+        flat = p.reshape(-1, 3)
+        if self.fuse and _mlp_is_fusable(self.mlp):
+            raw = _fused_encode_mlp([self.encoding], self.mlp, flat)
+        else:
+            raw = self.mlp(self.encoding(flat))
         raw = raw.reshape(*positions.shape[:-1], 1)
         return trunc_exp(raw) * selector[..., None]

@@ -1,5 +1,7 @@
 """SAM / ClipSeg feature distillation field and the patch conv head,
-counterpart of ``samnerf_tpu/fields/sam_field.py`` (the DINO head waits)."""
+counterpart of ``samnerf_tpu/fields/sam_field.py`` (the DINO head waits).
+With ``hash_q8`` and ``fuse_mlp`` (serve only) each head's two pyramids
+and its MLP run as one FUSED-QMLP launch."""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
@@ -10,6 +12,7 @@ from torch import nn
 from samnerf_tpu_torch.core.contraction import contract_to_unit
 from samnerf_tpu_torch.fields.hash_encoding import ParityHashEncoding
 from samnerf_tpu_torch.fields.mlp import MLP
+from samnerf_tpu_torch.fields.nerfacto_field import _fused_encode_mlp, _mlp_is_fusable
 
 
 class SAMField(nn.Module):
@@ -23,8 +26,10 @@ class SAMField(nn.Module):
                  hidden_dim: int = 256, sam_dim: int = 256,
                  clipseg_dim: int = 192, use_clipseg: bool = True,
                  hash_q8: bool = False, hash_fn: str = "reference",
-                 quant_bits: int = 8, device="cuda"):
+                 quant_bits: int = 8, fuse_mlp: bool = False, device="cuda"):
         super().__init__()
+        # the fused kernel stacks pyramids of one table size
+        self.fuse = hash_q8 and fuse_mlp and len(set(grid_sizes)) == 1
 
         def pyramids():
             return nn.ModuleList(
@@ -58,7 +63,10 @@ class SAMField(nn.Module):
             flat = torch.where(live.reshape(-1, 1) > 0, flat, 0.5)
 
         def head(encs, net):
-            h = net(torch.cat([e(flat) for e in encs], dim=-1))
+            if self.fuse and _mlp_is_fusable(net):
+                h = _fused_encode_mlp(encs, net, flat)
+            else:
+                h = net(torch.cat([e(flat) for e in encs], dim=-1))
             return h.reshape(*positions.shape[:-1], h.shape[-1])
 
         out = {}

@@ -72,6 +72,11 @@ class SAMModelConfig:
     serve_quant_bits: int = 8
     serve_quant_bits_props: int = 0
     serve_quant_bits_sam: int = 0
+    serve_fuse_mlp: bool = False
+    """Serve only: each hash encode and the MLP after it run as one
+    FUSED-QMLP launch (``ops.hash_grid.parity_hash_encode_qmlp``).  Takes
+    effect with ``hash_q8_serve``; the SAM field's heads fuse when their
+    pyramids share a table size."""
     hash_fn: str = "reference"
 
     @property
@@ -91,13 +96,15 @@ class SAMModel(nn.Module):
             hidden_dim=cfg.hidden_dim, hidden_dim_color=cfg.hidden_dim_color,
             num_levels=cfg.num_levels, max_res=cfg.max_res,
             log2_hashmap_size=cfg.log2_hashmap_size, hash_q8=cfg.hash_q8_serve,
-            hash_fn=cfg.hash_fn, quant_bits=cfg.serve_quant_bits, device=device)
+            hash_fn=cfg.hash_fn, quant_bits=cfg.serve_quant_bits,
+            fuse_mlp=cfg.serve_fuse_mlp, device=device)
         args = cfg.proposal_net_args
         self.proposal_networks = nn.ModuleList(
             HashMLPDensityField(
                 hash_q8=cfg.hash_q8_serve, hash_fn=cfg.hash_fn,
                 quant_bits=cfg.serve_quant_bits_props or cfg.serve_quant_bits,
-                device=device, **args[min(i, len(args) - 1)])
+                fuse_mlp=cfg.serve_fuse_mlp, device=device,
+                **args[min(i, len(args) - 1)])
             for i in range(cfg.num_proposal_iterations))
         if cfg.distill_sam:
             self.sam_field = SAMField(
@@ -107,7 +114,7 @@ class SAMModel(nn.Module):
                 use_clipseg=cfg.use_clipseg_feature, hash_q8=cfg.hash_q8_serve,
                 hash_fn=cfg.hash_fn,
                 quant_bits=cfg.serve_quant_bits_sam or cfg.serve_quant_bits,
-                device=device)
+                fuse_mlp=cfg.serve_fuse_mlp, device=device)
             self.conv = ConvHead(kernel_size=cfg.kernel_size, device=device)
 
     def forward(self, ray_bundle: RayBundle, get_features: Sequence[str] = (),

@@ -11,12 +11,15 @@ JAX package's, bit for bit: they are also the checkpoint format.
   hash with the primes-XOR hash, optionally remixed by ``_morton_mix``
   (``hash_fn="morton[N]"``).
 
-Three kernels (``csrc/hash_encode.cu``): :func:`parity_hash_encode`
+Four kernels (``csrc/hash_encode.cu``): :func:`parity_hash_encode`
 (F32-ENC) and :func:`parity_hash_encode_q8` (Q-ENC, qbits 8 or 4) carry
-the serve path; :func:`hash_encode` binds F32-ENC and its table gradient
-:func:`parity_hash_encode_bwd` (F32-ENC-BWD) into autograd for training.
-Each wrapper runs its plain PyTorch version (:func:`parity_hash_encode_ref`,
-:func:`_parity_hash_encode_q8_ref`, :func:`parity_hash_encode_bwd_ref`)
+the serve path, and :func:`parity_hash_encode_qmlp` (FUSED-QMLP) fuses
+Q-ENC with the MLP after it when the model serves with
+``serve_fuse_mlp``; :func:`hash_encode` binds F32-ENC and its table
+gradient :func:`parity_hash_encode_bwd` (F32-ENC-BWD) into autograd for
+training.  Each wrapper runs its plain PyTorch version
+(:func:`parity_hash_encode_ref`, :func:`_parity_hash_encode_q8_ref`,
+:func:`_parity_hash_encode_qmlp_ref`, :func:`parity_hash_encode_bwd_ref`)
 for CPU tensors and launches the kernel for CUDA tensors; ``launches`` on
 the wrapper counts kernel launches.  The TPU's slab scans, touched-slab
 ids, group skips and point sorting have no counterpart: on Hopper each
@@ -198,6 +201,20 @@ def _parity_hash_encode_q8_ref(packed_q8: torch.Tensor, scales: torch.Tensor,
     return torch.stack(outs, dim=-1)
 
 
+def _parity_hash_encode_qmlp_ref(packed_list, scales_list, positions,
+                                 scalings_list, num_steps: int, w1, b1, w2, b2,
+                                 hash_fn: str = "reference",
+                                 qbits: int = 8) -> torch.Tensor:
+    """Plain version of FUSED-QMLP (``hash_pallas.py:1620-1626``): Q-ENC's
+    plain version per pyramid, concatenated pyramid-major, then the f32
+    MLP ``relu(enc @ w1 + b1) @ w2 + b2``."""
+    enc = torch.cat([_parity_hash_encode_q8_ref(pk, sc, positions, s, num_steps,
+                                                hash_fn, qbits)
+                     for pk, sc, s in zip(packed_list, scales_list, scalings_list)],
+                    dim=-1)
+    return torch.relu(enc @ w1 + b1) @ w2 + b2
+
+
 # --- int8 / int4 serve tables --------------------------------------------------
 
 
@@ -293,7 +310,7 @@ def init_parity_table(generator: torch.Generator, num_levels: int,
     return (u * 2.0 - 1.0) * scale
 
 
-# --- the three Hopper kernels ------------------------------------------------------
+# --- the four Hopper kernels -------------------------------------------------------
 
 
 def _plan_arrays(plan, num_steps: int, hash_fn: str):
@@ -321,6 +338,28 @@ def _check_common(positions: torch.Tensor, scalings, num_steps: int,
         raise ValueError("the kernels take 1 to 32 levels")
 
 
+def _check_packed(packed: torch.Tensor, scales: torch.Tensor,
+                  positions: torch.Tensor, num_levels: int, num_steps: int,
+                  qbits: int) -> int:
+    """Check one packed pyramid against ``num_steps`` and ``qbits``;
+    returns its rows per (pack, level)."""
+    if qbits not in (8, 4):
+        raise ValueError(f"qbits must be 8 or 4, got {qbits}")
+    epl = 2 if qbits == 8 else 4
+    rows_q = max(-(-num_steps // epl), 1) * PARITIES
+    if packed.dtype != torch.float32 or packed.ndim != 3 \
+            or packed.shape[0] % num_levels or packed.shape[1] != rows_q \
+            or packed.shape[2] != LANES or not packed.is_contiguous():
+        raise ValueError(f"packed table must be a contiguous [P*L, {rows_q}, 128] "
+                         f"float32 tensor, got {packed.dtype} {tuple(packed.shape)}")
+    if scales.dtype != torch.float32 or scales.shape != (packed.shape[0],) \
+            or not scales.is_contiguous():
+        raise ValueError("scales must be a contiguous [P*L] float32 tensor")
+    if not (positions.device == packed.device == scales.device):
+        raise ValueError("packed table, scales and positions must be on one device")
+    return rows_q
+
+
 def _launch(fn, *args):
     err = fn(*args)
     if err != 0:
@@ -339,6 +378,8 @@ _F32_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 
                  + [ctypes.c_void_p] * 5)
 _Q_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 7
                + [ctypes.c_void_p] * 5)
+_QMLP_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_longlong]
+                  + [ctypes.c_int] * 7 + [ctypes.c_void_p])
 
 
 @functools.cache
@@ -351,6 +392,8 @@ def _lib():
     lib.parity_hash_encode_q.restype = ctypes.c_int
     lib.parity_hash_encode_f32_bwd.argtypes = _F32_ARGTYPES
     lib.parity_hash_encode_f32_bwd.restype = ctypes.c_int
+    lib.parity_hash_encode_qmlp.argtypes = _QMLP_ARGTYPES
+    lib.parity_hash_encode_qmlp.restype = ctypes.c_int
     return lib
 
 
@@ -410,22 +453,9 @@ def parity_hash_encode_q8(packed_q8: torch.Tensor, scales: torch.Tensor,
     :func:`_parity_hash_encode_q8_ref`; CUDA tensors launch
     ``q_encode_kernel<qbits>`` on the current stream."""
     _check_common(positions, scalings, num_steps, hash_fn)
-    if qbits not in (8, 4):
-        raise ValueError(f"qbits must be 8 or 4, got {qbits}")
+    rows_q = _check_packed(packed_q8, scales, positions, len(scalings), num_steps,
+                           qbits)
     num_levels = len(scalings)
-    epl = 2 if qbits == 8 else 4
-    rows_q = max(-(-num_steps // epl), 1) * PARITIES
-    if packed_q8.dtype != torch.float32 or packed_q8.ndim != 3 \
-            or packed_q8.shape[0] % num_levels or packed_q8.shape[1] != rows_q \
-            or packed_q8.shape[2] != LANES or not packed_q8.is_contiguous():
-        raise ValueError(f"packed table must be a contiguous [P*L, {rows_q}, 128] "
-                         f"float32 tensor, got {packed_q8.dtype} "
-                         f"{tuple(packed_q8.shape)}")
-    if scales.dtype != torch.float32 or scales.shape != (packed_q8.shape[0],) \
-            or not scales.is_contiguous():
-        raise ValueError("scales must be a contiguous [P*L] float32 tensor")
-    if not (positions.device == packed_q8.device == scales.device):
-        raise ValueError("packed table, scales and positions must be on one device")
     if positions.device.type == "cpu":
         return _parity_hash_encode_q8_ref(packed_q8, scales, positions,
                                           scalings, num_steps, hash_fn, qbits)
@@ -448,6 +478,76 @@ def parity_hash_encode_q8(packed_q8: torch.Tensor, scales: torch.Tensor,
 
 
 parity_hash_encode_q8.launches = 0
+
+_MAX_PYRAMIDS = 4
+
+
+def parity_hash_encode_qmlp(packed_list, scales_list, positions: torch.Tensor,
+                            scalings_list, num_steps: int, w1: torch.Tensor,
+                            b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                            hash_fn: str = "reference",
+                            qbits: int = 8) -> torch.Tensor:
+    """FUSED-QMLP: ``relu(enc @ w1 + b1) @ w2 + b2`` -> [N, O] f32, where
+    ``enc`` [N, C] concatenates pyramid-major the Q-ENC encodes of the
+    (packed, scales, scalings) pyramids, which share ``num_steps`` and
+    ``qbits``.  Weights in the JAX layout: w1 [C, H], b1 [H], w2 [H, O],
+    b2 [O], f32.  Serve only: no gradient.
+
+    Replaces ``hash_pallas.py`` ``_fwd_kernel_qmlp`` (qbits 8 and 4).  CPU
+    tensors run :func:`_parity_hash_encode_qmlp_ref`; CUDA tensors launch
+    ``qmlp_kernel<qbits>`` on the current stream."""
+    if not (len(packed_list) == len(scales_list) == len(scalings_list)) \
+            or not 1 <= len(packed_list) <= _MAX_PYRAMIDS:
+        raise ValueError(f"1 to {_MAX_PYRAMIDS} pyramids, each with packed "
+                         "table, scales and scalings")
+    rows = 0
+    for pk, sc, s in zip(packed_list, scales_list, scalings_list):
+        _check_common(positions, s, num_steps, hash_fn)
+        _check_packed(pk, sc, positions, len(s), num_steps, qbits)
+        rows += pk.shape[0]
+    for name, t in (("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
+        if t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != positions.device:
+            raise ValueError(f"{name} must be a contiguous float32 tensor on the "
+                             f"positions' device, got {t.dtype} on {t.device}")
+    if w1.ndim != 2 or w2.ndim != 2 or w1.shape[0] != 2 * rows \
+            or b1.shape != (w1.shape[1],) or w2.shape[0] != w1.shape[1] \
+            or b2.shape != (w2.shape[1],):
+        raise ValueError(f"MLP shapes do not chain from {2 * rows} channels: w1 "
+                         f"{tuple(w1.shape)}, b1 {tuple(b1.shape)}, w2 "
+                         f"{tuple(w2.shape)}, b2 {tuple(b2.shape)}")
+    h_dim, o_dim = w1.shape[1], w2.shape[1]
+    if positions.device.type == "cpu":
+        return _parity_hash_encode_qmlp_ref(packed_list, scales_list, positions,
+                                            scalings_list, num_steps, w1, b1, w2, b2,
+                                            hash_fn, qbits)
+    if positions.device.type != "cuda":
+        raise ValueError(f"unsupported device {positions.device}")
+    plans = [_plan_arrays(_level_plan(s, num_steps), num_steps, hash_fn)
+             for s in scalings_list]
+    scale, inv, dense, half = (np.ascontiguousarray(np.concatenate([p[i] for p in plans]))
+                               for i in range(4))
+    key_bits, table_bits = plans[0][4], plans[0][5]
+    k = len(packed_list)
+    num_levels = np.asarray([len(s) for s in scalings_list], np.int32)
+    num_packed = np.asarray([pk.shape[0] // len(s)
+                             for pk, s in zip(packed_list, scalings_list)], np.int32)
+    packed_ptrs = (ctypes.c_void_p * k)(*[t.data_ptr() for t in packed_list])
+    scale_ptrs = (ctypes.c_void_p * k)(*[t.data_ptr() for t in scales_list])
+    n = positions.shape[0]
+    out = torch.empty((n, o_dim), dtype=torch.float32, device=positions.device)
+    stream = torch.cuda.current_stream(positions.device).cuda_stream
+    _launch(_lib().parity_hash_encode_qmlp, k, ctypes.cast(packed_ptrs, ctypes.c_void_p),
+            ctypes.cast(scale_ptrs, ctypes.c_void_p), _np_ptr(num_levels),
+            _np_ptr(num_packed), _np_ptr(scale), _np_ptr(inv), _np_ptr(dense),
+            _np_ptr(half), _ptr(positions), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2),
+            _ptr(out), n, num_steps, table_bits, key_bits,
+            packed_list[0].shape[1], qbits, h_dim, o_dim, ctypes.c_void_p(stream))
+    parity_hash_encode_qmlp.launches += 1
+    return out
+
+
+parity_hash_encode_qmlp.launches = 0
 
 
 def parity_hash_encode_bwd(grad_out: torch.Tensor, positions: torch.Tensor,

@@ -1,7 +1,8 @@
 """Where the time of a served frame goes on the card.
 
 Serves full-width ``samnerf_distill`` 512x512 frames (random weights from
-a seed, static preset, f32 and baked int8 tables) under
+a seed, static preset, f32 tables, baked int8 tables, and baked int8
+tables through FUSED-QMLP with ``serve_fuse_mlp``) under
 ``torch.profiler`` and prints, per table kind, the frame's wall time, the
 device busy time (the sum of its kernels: one stream, so they do not
 overlap), the idle share, and device time per kernel name, largest first.
@@ -67,8 +68,10 @@ def main() -> None:
     sam = Sam(device=dev)
     sam.load_state_dict(init_decoder_params(gen, device=dev))
     report = {"card": smi}
-    for q8 in (False, True):
-        model = SAMModel(dataclasses.replace(cfg, hash_q8_serve=q8), device=dev)
+    for tag, q8, fuse in (("f32", False, False), ("int8", True, False),
+                          ("int8_fused", True, True)):
+        model = SAMModel(dataclasses.replace(cfg, hash_q8_serve=q8, serve_fuse_mlp=fuse),
+                         device=dev)
         model.load_state_dict(params)
         snr = SamNerfRenderer(model, serve_preset="static")
         if q8:
@@ -90,7 +93,6 @@ def main() -> None:
                 per_kernel[name] += e.time_range.elapsed_us() / 1e3 / args.frames
                 launches[name] += 1
         busy = sum(per_kernel.values())
-        tag = "int8" if q8 else "f32"
         rows = [dict(kernel=k, ms_per_frame=v, launches_per_frame=launches[k] / args.frames,
                      share=v / busy) for k, v in per_kernel.most_common()]
         report[tag] = dict(wall_ms_per_frame=wall_ms, busy_ms_per_frame=busy,

@@ -131,3 +131,26 @@ def test_mask_decoder_forward():
         np.testing.assert_allclose(m.numpy(), np.asarray(ref_m), rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(iou.numpy(), np.asarray(ref_iou), rtol=1e-5,
                                    atol=1e-5)
+
+
+def test_fused_serve_model_loads_converted_weights_strictly():
+    """``serve_fuse_mlp`` adds no weights: a converted JAX tree of a fused
+    int8 model, baked tables included, loads strictly into the port's."""
+    import dataclasses
+
+    from samnerf_tpu.models.sam_model import SAMModel as JaxModel
+    from samnerf_tpu_torch.models.sam_model import SAMModel, SAMModelConfig
+
+    from test_model import TINY, make_bundle
+
+    cfg = dataclasses.replace(TINY, hash_q8_serve=True, serve_fuse_mlp=True)
+    shapes = jax.eval_shape(lambda: JaxModel(cfg).init(
+        jax.random.PRNGKey(0), make_bundle(16), rng=jax.random.PRNGKey(1),
+        train=False, get_features=("sam", "clipseg")))
+    params = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+    params = _np_tree(bake_quantized_tables(params, optimize=0))
+    model = SAMModel(SAMModelConfig(**{f: getattr(cfg, f) for f in
+                                       SAMModelConfig.__dataclass_fields__}), device="cpu")
+    state = params_from_jax(params)
+    model.load_state_dict(state, strict=True)
+    assert set(model.state_dict()) == set(state)

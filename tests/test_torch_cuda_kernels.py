@@ -1,4 +1,4 @@
-"""The port's hand-written CUDA kernels (the hash encodes and
+"""The port's hand-written CUDA kernels (the hash encodes, FUSED-QMLP and
 FLASH-RELPOS) against their plain PyTorch versions, on the card (``cuda``
 marker; they skip without one).
 
@@ -12,6 +12,8 @@ Max abs error, not allclose, so a flipped corner index shows: features
 are O(0.5) and a wrong corner moves one by O(0.1).  The table gradient is
 held at rtol 1e-2 / atol 1e-4: the kernel sums in f32 with atomics, the
 plain version rounds the sum to bf16, as JAX's CPU vjp does.
+FUSED-QMLP is held at rtol 1e-4 / atol 1e-4 (the JAX kernel test's
+tolerance): its MLP sums in f32 in another order than the plain matmuls.
 FLASH-RELPOS is held at max abs error 1e-4: outputs are softmax averages
 of O(1) values, f32 sums over the keys in another order differ by about
 1e-6, and a wrong key tile or bias index moves an output by 1e-2 or more.
@@ -96,6 +98,61 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):                    # cotangent of another width
         th.parity_hash_encode_bwd(torch.zeros((256, 6), device=dev), pos,
                                   scalings, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qbits", (8, 4))
+@pytest.mark.parametrize("heads", ("single", "stacked", "sam"))
+def test_fused_qmlp_kernel_matches_plain_version(heads, qbits):
+    """One pyramid with dense and hashed levels (C 24 -> H 16 -> O 1, N not
+    a multiple of any tile), two stacked pyramids of other scalings (24 ->
+    32 -> 9), and the SAM head's widths (two 12-level pyramids of 4 packs,
+    192 -> 256 -> 256, 50 KB of shared memory and more per block)."""
+    dev = _cuda()
+    rng = np.random.default_rng(2)
+    steps = 64 if heads == "single" else 8
+    if heads == "sam":
+        spec, (h, o), n = [(12, 4, 16, 128), (12, 4, 128, 512)], (256, 256), 10_007
+    elif heads == "stacked":
+        spec, (h, o), n = [(3, 2, 4, 64), (3, 2, 8, 128)], (32, 9), 30_001
+    else:
+        spec, (h, o), n = [(6, 2, 16, 512)], (16, 1), 100_003
+    packed, scales, scalings = [], [], []
+    for levels, packs, lo, hi in spec:
+        table = torch.from_numpy(rng.uniform(-0.5, 0.5, (packs * levels, steps * 8, 128, 2))
+                                 .astype(np.float32)).to(dev)
+        pk, sc = th.quantize_parity_table(table, qbits=qbits)
+        packed.append(pk)
+        scales.append(sc)
+        scalings.append(tuple(hash_grid_scalings(levels, lo, hi).tolist()))
+    c = sum(2 * p.shape[0] for p in packed)
+    w1, b1, w2, b2 = (torch.from_numpy((rng.normal(size=s) * f).astype(np.float32)).to(dev)
+                      for s, f in (((c, h), c ** -0.5), ((h,), 0.1), ((h, o), h ** -0.5),
+                                   ((o,), 0.1)))
+    pos = torch.from_numpy(rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)).to(dev)
+    args = (packed, scales, pos, scalings, steps, w1, b1, w2, b2, "morton", qbits)
+    before = th.parity_hash_encode_qmlp.launches
+    out = th.parity_hash_encode_qmlp(*args)
+    assert th.parity_hash_encode_qmlp.launches == before + 1
+    ref = th._parity_hash_encode_qmlp_ref(*args)
+    torch.cuda.synchronize()
+    assert out.shape == (n, o)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_fused_qmlp_wrapper_rejects_tensors_on_other_devices():
+    dev = _cuda()
+    scalings = tuple(hash_grid_scalings(4, 4, 64).tolist())
+    packed, scales = th.quantize_parity_table(torch.zeros((4, 32, 128, 2), device=dev))
+    pos = torch.full((256, 3), 0.5, device=dev)
+    w1, b1, w2, b2 = (torch.zeros(s, device=dev) for s in ((8, 4), (4,), (4, 2), (2,)))
+    with pytest.raises(ValueError):
+        th.parity_hash_encode_qmlp([packed], [scales], pos, [scalings], 4,
+                                   w1.cpu(), b1, w2, b2)
+    with pytest.raises(ValueError):
+        th.parity_hash_encode_qmlp([packed], [scales.cpu()], pos, [scalings], 4,
+                                   w1, b1, w2, b2)
 
 
 def _attention_inputs(dev, b, kh, kw, d, seed=0):

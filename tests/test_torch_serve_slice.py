@@ -25,6 +25,7 @@ import torch
 from samnerf_tpu.core.cameras import Cameras as JaxCameras
 from samnerf_tpu.engine.render_pipeline import SamNerfRenderer as JaxRenderer
 from samnerf_tpu.models.sam_model import SAMModel as JaxModel
+from samnerf_tpu.ops.hash_pallas import bake_quantized_tables
 from samnerf_tpu.perception.sam.build_sam import build_sam, convert_torch_state_dict
 from samnerf_tpu_torch.convert import params_from_jax
 from samnerf_tpu_torch.core.cameras import Cameras
@@ -60,11 +61,16 @@ def _model_params(cfg, seed=0):
     return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
-def run_both(q8: bool):
+def run_both(q8: bool, fuse: bool = False):
     """(JAX outputs, port outputs): dicts of rgb / sam / clipseg grids, the
-    uint8 frame and the mask, as numpy."""
-    cfg = dataclasses.replace(TINY, hash_fn="morton", hash_q8_serve=q8)
+    uint8 frame and the mask, as numpy.  ``fuse``: baked int8 tables (JAX's
+    ``bake_quantized_tables``, carried over by the converter) served with
+    ``serve_fuse_mlp``."""
+    cfg = dataclasses.replace(TINY, hash_fn="morton", hash_q8_serve=q8,
+                              serve_fuse_mlp=fuse)
     params = _model_params(cfg)
+    if fuse:
+        params = jax.tree.map(np.asarray, bake_quantized_tables(params, optimize=12))
     dec_sd = decoder_state(3, for_masks=True)
 
     jsam, _ = build_sam("vit_b")
