@@ -7,12 +7,17 @@ which raises on failure:
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions;
 2. build the CUDA kernels from ``samnerf_tpu_torch/csrc`` (one ``nvcc``
-   per source, all at once);
+   per source, all at once) and print ``ptxas``'s registers, spills and
+   shared memory of the Q-ENC and FUSED-QMLP kernels;
 3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card at the serve path's shapes (max abs error, time, bound);
+   the card at the serve path's shapes (max abs error, time, bound), the
+   quantized encodes on the pack-interleaved serve table, at uniform
+   positions and at the positions one 512x512 static frame feeds each
+   encoder (captured once from the model's own forward);
 4. qmlp_kernel: FUSED-QMLP against its plain version at the four serve
-   heads' shapes (proposal, nerfacto, SAM at q8 and q4, ClipSeg), beside
-   the unfused route (Q-ENC per pyramid, then the port's ``MLP``);
+   heads' shapes (proposal, nerfacto, SAM at q8 and q4, ClipSeg), at
+   uniform and in-frame positions, beside the unfused route (Q-ENC per
+   pyramid, then the port's ``MLP``);
    serve: full-width ``samnerf_distill`` 512x512 frames through
    ``SamNerfRenderer.serve_frame_fn`` (static preset) with f32 tables,
    baked int8 tables, and baked int8 tables served through FUSED-QMLP
@@ -70,8 +75,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 TOL_KERNEL = 1e-5               # features are O(0.5); a flipped index is O(0.1)
-# FUSED-QMLP: the JAX kernel test's tolerance; the MLP sums in f32 in
-# another order than the plain version's matmuls
+# FUSED-QMLP: the JAX kernel test's tolerance; the MLP sums in another
+# order than the plain version's matmuls, the wide heads in 3xTF32
+# (about 1e-6 relative)
 TOL_QMLP = dict(rtol=1e-4, atol=1e-4)
 # (name, points, pyramids as (levels, packs, min res, max res), log2 table
 # size, hidden, out, qbits): the four serve heads at one call of a 512x512
@@ -163,30 +169,36 @@ def _bound(n, channels, table_bytes, pack_levels):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_phase(dev):
+# encode kernels (name, levels, packs, log2 table size, points, min res, max
+# res, the head whose frame positions it takes): the point counts of one
+# 32768-ray chunk of the static preset
+KERNEL_SHAPES = [("nerfacto", 16, 1, 19, 1 << 20, 16, 2048, "nerfacto"),
+                 ("proposal", 5, 1, 17, 1 << 21, 16, 128, "proposal"),
+                 ("sam_pyramid", 12, 4, 19, 1 << 18, 128, 512, "sam")]
+
+
+def kernel_phase(dev, frame_pos):
     from samnerf_tpu_torch.ops import hash_grid as hg
     from samnerf_tpu_torch.ops.encodings import hash_grid_scalings
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    # (name, levels, packs, log2 table size, points, min res, max res):
-    # the point counts of one 32768-ray chunk of the static preset
-    shapes = [("nerfacto", 16, 1, 19, 1 << 20, 16, 2048),
-              ("proposal", 5, 1, 17, 1 << 21, 16, 128),
-              ("sam_pyramid", 12, 4, 19, 1 << 18, 128, 512)]
     rows = []
-    for name, L, P, log2, n, lo_res, hi_res in shapes:
+    for name, L, P, log2, n_uniform, lo_res, hi_res, head in KERNEL_SHAPES:
         steps = (1 << log2) // 1024
         scalings = tuple(hash_grid_scalings(L, lo_res, hi_res).tolist())
         table = hg.init_parity_table(gen, L, steps, P, scale=0.5, device=dev)
-        pos = torch.rand((n, 3), generator=gen, device=dev)
-        variants = [("f32", 0, h) for h in ("morton", "reference")]
-        if name != "proposal":
-            variants += [("q8", 8, "morton"), ("q4", 4, "morton")]
-        for kind, qbits, hash_fn in variants:
+        uniform = torch.rand((n_uniform, 3), generator=gen, device=dev)
+        variants = [("f32", 0, h, "uniform") for h in ("morton", "reference")]
+        variants += [(f"q{b}", b, "morton", where) for where in ("uniform", "frame")
+                     for b in ((8,) if name == "proposal" else (8, 4))]
+        for kind, qbits, hash_fn, where in variants:
+            pos = uniform if where == "uniform" else frame_pos[head]
+            n = pos.shape[0]
             if qbits:
                 packed, scales = hg.quantize_parity_table(table, qbits=qbits)
+                serve = hg.interleave_packs(packed, L)
                 run = (lambda: hg.parity_hash_encode_q8(
-                    packed, scales, pos, scalings, steps, hash_fn, qbits))
+                    serve, scales, pos, scalings, steps, hash_fn, qbits))
                 plain = (lambda: hg._parity_hash_encode_q8_ref(
                     packed, scales, pos, scalings, steps, hash_fn, qbits))
                 kernel = "Q-ENC"
@@ -207,32 +219,34 @@ def kernel_phase(dev):
             tb = _touched_table_bytes(hg, pos, scalings, steps, hash_fn, P, qbits)
             bound_ms, bound_by = _bound(n, P * 2 * L, tb, P * L)
             row = dict(kernel=kernel, shape=name, variant=kind, hash_fn=hash_fn,
-                       points=n, levels=L, packs=P, log2_table=log2,
+                       positions=where, points=n, levels=L, packs=P, log2_table=log2,
                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
                        bound_ms=bound_ms, bound_by=bound_by,
                        table_bytes_touched=tb)
             rows.append(row)
-            print(f"kernel {kernel:7s} {name:11s} {kind:3s} {hash_fn:9s} "
+            print(f"kernel {kernel:7s} {name:11s} {kind:3s} {hash_fn:9s} {where:7s} "
                   f"N={n:8d} err={err:.3e} (tol {TOL_KERNEL:g}) ms={ms:.4f} "
                   f"plain_ms={plain_ms:.3f} "
                   f"bound_ms={bound_ms:.4f} ({bound_by}, {tb / 1e6:.1f} MB table)",
                   flush=True)
-        del table, pos
+        del table, uniform
     return rows
 
 
-def qmlp_kernel_phase(dev):
+def qmlp_kernel_phase(dev, frame_pos):
     """FUSED-QMLP against its plain version at the serve heads' shapes
-    (morton hash, tables U(-0.5, 0.5), uniform positions, weights
-    N(0, 1/fan_in) and biases N(0, 0.1)), with the unfused route's time:
-    Q-ENC per pyramid, the concatenation and the port's ``MLP``."""
+    (morton hash, tables U(-0.5, 0.5), weights N(0, 1/fan_in) and biases
+    N(0, 0.1)), at uniform positions and at the head's in-frame positions,
+    with the unfused route's time: Q-ENC per pyramid, the concatenation
+    and the port's ``MLP``."""
     from samnerf_tpu_torch.fields.mlp import MLP
     from samnerf_tpu_torch.ops import hash_grid as hg
     from samnerf_tpu_torch.ops.encodings import hash_grid_scalings
 
     gen = torch.Generator(device=dev).manual_seed(6)
     rows = []
-    for name, n, spec, log2, h_dim, o_dim, qbits in QMLP_SHAPES:
+    for (name, n_uniform, spec, log2, h_dim, o_dim, qbits), where in (
+            (shape, where) for shape in QMLP_SHAPES for where in ("uniform", "frame")):
         steps = (1 << log2) // 1024
         packed, scales, scalings = [], [], []
         for levels, packs, lo_res, hi_res in spec:
@@ -242,6 +256,7 @@ def qmlp_kernel_phase(dev):
             scales.append(sc)
             scalings.append(tuple(hash_grid_scalings(levels, lo_res, hi_res).tolist()))
             del table
+        serve = [hg.interleave_packs(pk, len(s)) for pk, s in zip(packed, scalings)]
         c_dim = sum(2 * p.shape[0] for p in packed)
         mlp = MLP(c_dim, h_dim, 1, o_dim, device=dev)
         with torch.no_grad():
@@ -252,16 +267,18 @@ def qmlp_kernel_phase(dev):
                                              device=dev) * 0.1)
         w1, w2 = (m.weight.detach().t().contiguous() for m in mlp.layers)
         b1, b2 = (m.bias.detach() for m in mlp.layers)
-        pos = torch.rand((n, 3), generator=gen, device=dev)
-        args = (packed, scales, pos, scalings, steps, w1, b1, w2, b2, "morton", qbits)
-        run = lambda: hg.parity_hash_encode_qmlp(*args)
-        plain = lambda: hg._parity_hash_encode_qmlp_ref(*args)
+        pos = (torch.rand((n_uniform, 3), generator=gen, device=dev) if where == "uniform"
+               else frame_pos[name])
+        n = pos.shape[0]
+        args = (scales, pos, scalings, steps, w1, b1, w2, b2, "morton", qbits)
+        run = lambda: hg.parity_hash_encode_qmlp(serve, *args)
+        plain = lambda: hg._parity_hash_encode_qmlp_ref(packed, *args)
 
         @torch.no_grad()
         def unfused():
-            return mlp(torch.cat([hg.parity_hash_encode_q8(pk, sc, pos, s, steps, "morton",
+            return mlp(torch.cat([hg.parity_hash_encode_q8(t, sc, pos, s, steps, "morton",
                                                            qbits)
-                                  for pk, sc, s in zip(packed, scales, scalings)], -1))
+                                  for t, sc, s in zip(serve, scales, scalings)], -1))
 
         out, ref, alt = run(), plain(), unfused()
         torch.cuda.synchronize()
@@ -285,19 +302,43 @@ def qmlp_kernel_phase(dev):
         ops = n * (c_dim // 2) * 8 * 2 * 2 + 2 * n * (c_dim * h_dim + h_dim * o_dim)
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
         row = dict(kernel="FUSED-QMLP", shape=name, variant=f"q{qbits}", hash_fn="morton",
-                   points=n, pyramids=len(spec), channels=c_dim, hidden=h_dim, out=o_dim,
+                   positions=where, points=n, pyramids=len(spec), channels=c_dim,
+                   hidden=h_dim, out=o_dim,
                    max_abs_err=err, tol_ratio=ratio, ms=ms, plain_ms=plain_ms,
                    unfused_route_ms=unfused_ms, unfused_route_max_abs_err=unfused_err,
                    bound_ms=max(t_bytes, t_ops) * 1e3,
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
                    gflop=ops / 1e9, table_bytes_touched=tb)
         rows.append(row)
-        print(f"qmlp kernel FUSED-QMLP {name:8s} q{qbits} N={n:8d} {c_dim}->{h_dim}->{o_dim} "
+        print(f"qmlp kernel FUSED-QMLP {name:8s} q{qbits} {where:7s} N={n:8d} "
+              f"{c_dim}->{h_dim}->{o_dim} "
               f"err={err:.3e} ({ratio:.3f} x tol) ms={ms:.4f} plain_ms={plain_ms:.3f} "
               f"unfused_route_ms={unfused_ms:.4f} bound_ms={row['bound_ms']:.4f} "
               f"({row['bound_by']}, {row['gflop']:.2f} GFLOP, {tb / 1e6:.1f} MB table)",
               flush=True)
-        del packed, scales, pos, mlp
+        del packed, serve, scales, pos, mlp
+    return rows
+
+
+def kernel_resources():
+    """``ptxas``'s registers, spills and shared memory of the Q-ENC and
+    FUSED-QMLP kernels, named by their template arguments."""
+    import re
+
+    from samnerf_tpu_torch.ops import cuda_build
+
+    rows = []
+    for r in cuda_build.kernel_resources("hash_encode"):
+        m = re.search(r"(q_encode_kernel|qmlp_kernel)I((?:L[ib]\d+E)+)E", r["kernel"])
+        if m:
+            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
+            rows.append(dict(r, name=f"{m.group(1)}<{args}>"))
+    for r in rows:
+        print(f"ptxas {r['name']:34s} {r['registers']:3d} registers, spill stores "
+              f"{r['spill_stores']} B, spill loads {r['spill_loads']} B, stack "
+              f"{r['stack']} B, static smem {r['static_smem']} B", flush=True)
+    if not rows:
+        raise AssertionError("no ptxas report of the Q-ENC and FUSED-QMLP kernels")
     return rows
 
 
@@ -981,6 +1022,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from samnerf_tpu_torch.ops import cuda_build
+    from samnerf_tpu_torch.scripts.bench_encode import capture_frame_positions
     from samnerf_tpu_torch.utils.synthetic import write_scene
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -994,8 +1036,11 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s", flush=True)
 
-    rows = kernel_phase(dev)
-    qmlp_rows = qmlp_kernel_phase(dev)
+    resources = kernel_resources()
+    frame_pos = capture_frame_positions(dev)     # scripts/bench_encode.py
+    rows = kernel_phase(dev, frame_pos)
+    qmlp_rows = qmlp_kernel_phase(dev, frame_pos)
+    del frame_pos
     train_rows = train_kernel_phase(dev)
     serve = serve_phase(dev)
     reference = reference_phase(dev)
@@ -1022,7 +1067,7 @@ def main() -> int:
     for name, replaces, run in (("F32-ENC", "samnerf_tpu/ops/hash_pallas.py:519", "f32"),
                                 ("Q-ENC", "samnerf_tpu/ops/hash_pallas.py:1180", "int8")):
         mine = [r for r in rows if r["kernel"] == name]
-        rep = next(r for r in mine if r["shape"] == "nerfacto"
+        rep = next(r for r in mine if r["shape"] == "nerfacto" and r["positions"] == "uniform"
                    and r["hash_fn"] == "morton" and r["variant"] in ("f32", "q8"))
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
@@ -1034,10 +1079,15 @@ def main() -> int:
                         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
                         "library_ms": None})
+        frame = [r for r in mine if r["shape"] == "nerfacto" and r["positions"] == "frame"
+                 and r["variant"] == "q8"]
+        if frame:
+            kernels[-1]["ms_frame_positions"] = frame[0]["ms"]
     for k in kernels:
         k["launches_by_path"].update(serve_int8_fused=serve["int8_fused"]["launches"][k["name"]])
     # the SAM head stands for FUSED-QMLP: its largest function per launch
-    rep = next(r for r in qmlp_rows if r["shape"] == "sam" and r["variant"] == "q8")
+    rep = next(r for r in qmlp_rows if r["shape"] == "sam" and r["variant"] == "q8"
+               and r["positions"] == "uniform")
     kernels.append({"name": "FUSED-QMLP", "route": "cuda", "source": source,
                     "replaces": "samnerf_tpu/ops/hash_pallas.py:1500",
                     "launches": serve["int8_fused"]["launches"]["FUSED-QMLP"],
@@ -1047,7 +1097,10 @@ def main() -> int:
                     "max_abs_err": max(r["max_abs_err"] for r in qmlp_rows),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-                    "library_ms": None, "unfused_route_ms": rep["unfused_route_ms"]})
+                    "library_ms": None, "unfused_route_ms": rep["unfused_route_ms"],
+                    "ms_frame_positions": next(
+                        r["ms"] for r in qmlp_rows if r["shape"] == "sam"
+                        and r["variant"] == "q8" and r["positions"] == "frame")})
     rep = next(r for r in train_rows if r["shape"] == "nerfacto" and r["hash_fn"] == "morton")
     kernels.append({"name": "F32-ENC-BWD", "route": "cuda", "source": source,
                     "replaces": "samnerf_tpu/ops/hash_pallas.py:644",
@@ -1072,7 +1125,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "build_s": build_s, "kernel_rows": rows, "qmlp_kernel_rows": qmlp_rows,
+         "build_s": build_s, "kernel_resources": resources, "kernel_rows": rows,
+         "qmlp_kernel_rows": qmlp_rows,
          "train_kernel_rows": train_rows, "serve": serve, "reference": reference,
          "view": view, "train": train,
          "train_reference": train_reference, "attn_kernel_rows": attn_rows,

@@ -195,18 +195,18 @@ class SamNerfRenderer:
     def bake_serve_tables(self, optimize: int = 12) -> None:
         """Pre-quantize every hash table at int8 and int4 into the model's
         ``qtable{b}`` / ``qscales{b}`` buffers (with ``optimize``
-        candidates of the MSE-optimal scale search; 0 = max scale), so
-        frames skip the per-call quantization.  No-op unless the model
-        serves quantized tables."""
+        candidates of the MSE-optimal scale search; 0 = max scale), and
+        their serve-layout copies ``qserve{b}``, so frames skip the
+        per-call quantization.  No-op unless the model serves quantized
+        tables."""
         if not self.cfg.hash_q8_serve:
             return
         for enc in self.renderer.model.modules():
             if isinstance(enc, ParityHashEncoding):
                 baked = bake_quantized_tables({"table": enc.table.detach()},
                                               optimize=optimize)
-                for name, t in baked.items():
-                    if name != "table":
-                        setattr(enc, name, t)
+                for b in (8, 4):
+                    enc.set_quantized(b, baked[f"qtable{b}"], baked[f"qscales{b}"])
 
     def serve_frame_fn(self, sam: Sam, height: int, width: int,
                        max_points: int = 4, preset: str = "primary"):

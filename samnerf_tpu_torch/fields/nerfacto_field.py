@@ -20,8 +20,7 @@ from samnerf_tpu_torch.core.contraction import contract_to_unit
 from samnerf_tpu_torch.fields.hash_encoding import ParityHashEncoding
 from samnerf_tpu_torch.fields.mlp import MLP, trunc_exp
 from samnerf_tpu_torch.ops.encodings import sh_encoding
-from samnerf_tpu_torch.ops.hash_grid import (parity_hash_encode_qmlp,
-                                             quantize_parity_table)
+from samnerf_tpu_torch.ops.hash_grid import parity_hash_encode_qmlp
 
 
 def _contract_and_select(positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -39,25 +38,21 @@ def _mlp_is_fusable(mlp: MLP) -> bool:
 
 def _fused_encode_mlp(encs, mlp: MLP, flat: torch.Tensor) -> torch.Tensor:
     """``mlp(cat([e(flat) for e in encs]))`` as one FUSED-QMLP call, on the
-    baked ``qtable{b}`` / ``qscales{b}`` of each encoding when it has them,
-    else on its master quantized at max scale.  ``flat`` [N, 3] in [0, 1];
-    the pyramids must share their table size and width.  Serve only: no
-    gradient."""
+    baked serve tables of each encoding when it has them, else on its
+    master quantized at max scale (``ParityHashEncoding.serve_table``).
+    ``flat`` [N, 3] in [0, 1]; the pyramids must share their table size
+    and width.  Serve only: no gradient."""
     num_steps, quant_bits = encs[0].num_steps, encs[0].quant_bits
-    packed, scales = [], []
+    tables, scales = [], []
     for e in encs:
         if (e.num_steps, e.quant_bits) != (num_steps, quant_bits):
             raise ValueError("stacked pyramids must share their table size and width")
-        pk = getattr(e, f"qtable{quant_bits}")
-        if pk is None:
-            pk, sc = quantize_parity_table(e.table.detach(), qbits=quant_bits)
-        else:
-            sc = getattr(e, f"qscales{quant_bits}")
-        packed.append(pk)
+        table, sc = e.serve_table(quant_bits)
+        tables.append(table)
         scales.append(sc)
     first, last = mlp.layers
     return parity_hash_encode_qmlp(
-        packed, scales, flat.contiguous(), [e.scalings for e in encs], num_steps,
+        tables, scales, flat.contiguous(), [e.scalings for e in encs], num_steps,
         first.weight.detach().t().contiguous(), first.bias.detach(),
         last.weight.detach().t().contiguous(), last.bias.detach(),
         hash_fn=encs[0].hash_fn, qbits=quant_bits)

@@ -6,25 +6,28 @@ Builds happen at first use into ``samnerf_tpu_torch/_build/`` (listed in
 ``.gitignore``), keyed by a hash of the source, from the sources in this
 checkout only.  A failed build raises.  :func:`build_all` starts one
 ``nvcc`` per source at once, so a fresh checkout builds in the time of
-its slowest source.
+its slowest source.  ``ptxas``'s report of each kernel's registers,
+spills and shared memory (``-Xptxas -v``) is kept beside the library and
+read by :func:`kernel_resources`.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("hash_encode", "attention_relpos")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -69,6 +72,7 @@ def _finish(name: str, started) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    target.with_suffix(".log").write_text(log)
     os.replace(tmp, target)        # atomic: a reader never sees half a file
 
 
@@ -89,3 +93,33 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)))
             _libs[name] = lib
         return lib
+
+
+def kernel_resources(name: str) -> List[dict]:
+    """Per kernel of ``csrc/<name>.cu`` (mangled name), as ``ptxas``
+    reported them when this build of the source was compiled: registers
+    a thread, spill stores and loads (bytes), stack frame and static shared
+    memory (bytes).  Empty when the build's log is missing."""
+    log = _target(name).with_suffix(".log")
+    if not log.exists():
+        return []
+    rows, current = [], None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = dict(kernel=m.group(1))
+            rows.append(current)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            current.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            current["static_smem"] = int(s.group(1)) if s else 0
+    return [r for r in rows if "registers" in r]

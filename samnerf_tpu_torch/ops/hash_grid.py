@@ -17,7 +17,11 @@ the serve path, and :func:`parity_hash_encode_qmlp` (FUSED-QMLP) fuses
 Q-ENC with the MLP after it when the model serves with
 ``serve_fuse_mlp``; :func:`hash_encode` binds F32-ENC and its table
 gradient :func:`parity_hash_encode_bwd` (F32-ENC-BWD) into autograd for
-training.  Each wrapper runs its plain PyTorch version
+training.  Q-ENC and FUSED-QMLP read the packed tables in the serve
+layout of :func:`interleave_packs`, ``[L, rows_q, 128, P]``, where the P
+packs of one (level, row, lane) sit side by side; the packed
+``[P*L, rows_q, 128]`` stays the checkpoint format.  Each wrapper runs
+its plain PyTorch version
 (:func:`parity_hash_encode_ref`, :func:`_parity_hash_encode_q8_ref`,
 :func:`_parity_hash_encode_qmlp_ref`, :func:`parity_hash_encode_bwd_ref`)
 for CPU tensors and launches the kernel for CUDA tensors; ``launches`` on
@@ -273,6 +277,32 @@ def quantize_parity_table(table: torch.Tensor, qbits: int = 8, scales=None):
     return i32.view(torch.float32), scales
 
 
+def interleave_packs(packed: torch.Tensor, num_levels: int) -> torch.Tensor:
+    """The serve layout of a packed table: [P*L, rows_q, 128] (row
+    ``p*L + l``) -> [L, rows_q, 128, P], a fresh contiguous tensor whose P
+    words of one (level, row, lane) are adjacent, so Q-ENC and FUSED-QMLP
+    gather all packs of a corner in one 4-, 8- or 16-byte load.  An exact
+    permutation of the bits; P in {1, 2, 4} (2, 4 or 8 features per
+    level).  At P = 1 it shares the storage."""
+    if packed.ndim != 3 or packed.shape[0] % num_levels:
+        raise ValueError(f"packed table must be [P*L, rows_q, 128] with L = "
+                         f"{num_levels}, got {tuple(packed.shape)}")
+    num_packed = packed.shape[0] // num_levels
+    if num_packed not in (1, 2, 4):
+        raise ValueError(f"the serve layout takes 1, 2 or 4 packs, got {num_packed}")
+    words = packed.view(torch.int32).reshape(num_packed, num_levels, *packed.shape[1:])
+    return words.permute(1, 2, 3, 0).contiguous().view(torch.float32)
+
+
+def deinterleave_packs(table: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`interleave_packs`: [L, rows_q, 128, P] ->
+    [P*L, rows_q, 128], exact."""
+    num_levels, rows, lanes, num_packed = table.shape
+    words = table.view(torch.int32).permute(3, 0, 1, 2)
+    return words.reshape(num_packed * num_levels, rows, lanes).contiguous().view(
+        torch.float32)
+
+
 def is_parity_table(leaf) -> bool:
     """True for a master table leaf ([PL, steps*8, 128, 2] f32)."""
     return (isinstance(leaf, torch.Tensor) and leaf.ndim == 4
@@ -338,25 +368,33 @@ def _check_common(positions: torch.Tensor, scalings, num_steps: int,
         raise ValueError("the kernels take 1 to 32 levels")
 
 
-def _check_packed(packed: torch.Tensor, scales: torch.Tensor,
+def _check_serve_table(table: torch.Tensor, scales: torch.Tensor,
                   positions: torch.Tensor, num_levels: int, num_steps: int,
                   qbits: int) -> int:
-    """Check one packed pyramid against ``num_steps`` and ``qbits``;
-    returns its rows per (pack, level)."""
+    """Check one pyramid's serve table ([L, rows_q, 128, P] from
+    :func:`interleave_packs`) against ``num_levels``, ``num_steps`` and
+    ``qbits``; returns its rows per level."""
     if qbits not in (8, 4):
         raise ValueError(f"qbits must be 8 or 4, got {qbits}")
     epl = 2 if qbits == 8 else 4
     rows_q = max(-(-num_steps // epl), 1) * PARITIES
-    if packed.dtype != torch.float32 or packed.ndim != 3 \
-            or packed.shape[0] % num_levels or packed.shape[1] != rows_q \
-            or packed.shape[2] != LANES or not packed.is_contiguous():
-        raise ValueError(f"packed table must be a contiguous [P*L, {rows_q}, 128] "
-                         f"float32 tensor, got {packed.dtype} {tuple(packed.shape)}")
-    if scales.dtype != torch.float32 or scales.shape != (packed.shape[0],) \
-            or not scales.is_contiguous():
+    if table.dtype != torch.float32 or table.ndim != 4 \
+            or table.shape[:3] != (num_levels, rows_q, LANES) \
+            or not table.is_contiguous():
+        raise ValueError(f"serve table must be a contiguous [{num_levels}, {rows_q}, "
+                         "128, P] float32 tensor (interleave_packs), got "
+                         f"{table.dtype} {tuple(table.shape)}")
+    num_packed = table.shape[3]
+    if num_packed not in (1, 2, 4):
+        raise ValueError(f"the kernels take 1, 2 or 4 packs, got {num_packed}")
+    if table.data_ptr() % (4 * num_packed):
+        raise ValueError("serve table must be aligned to its packs' words "
+                         "(a fresh tensor, not an offset view)")
+    if scales.dtype != torch.float32 \
+            or scales.shape != (num_packed * num_levels,) or not scales.is_contiguous():
         raise ValueError("scales must be a contiguous [P*L] float32 tensor")
-    if not (positions.device == packed.device == scales.device):
-        raise ValueError("packed table, scales and positions must be on one device")
+    if not (positions.device == table.device == scales.device):
+        raise ValueError("serve table, scales and positions must be on one device")
     return rows_q
 
 
@@ -440,36 +478,35 @@ def parity_hash_encode(table: torch.Tensor, positions: torch.Tensor,
 parity_hash_encode.launches = 0
 
 
-def parity_hash_encode_q8(packed_q8: torch.Tensor, scales: torch.Tensor,
+def parity_hash_encode_q8(table: torch.Tensor, scales: torch.Tensor,
                           positions: torch.Tensor, scalings, num_steps: int,
                           hash_fn: str = "reference",
                           qbits: int = 8) -> torch.Tensor:
-    """Q-ENC: packed [P*L, ceil(steps/E)*8, 128] (uint32 bits held in f32,
-    from :func:`quantize_parity_table` at the same ``qbits``), scales
-    [P*L] f32, positions [N, 3] -> [N, P*2*L] f32.
+    """Q-ENC: serve table [L, ceil(steps/E)*8, 128, P] (uint32 bits held in
+    f32: :func:`interleave_packs` of :func:`quantize_parity_table` at the
+    same ``qbits``), scales [P*L] f32, positions [N, 3] -> [N, P*2*L] f32.
 
     Replaces ``hash_pallas.py`` ``_fwd_kernel_q8`` (qbits 8 and 4) and
     ``_fwd_kernel_q8v4``.  CPU tensors run
-    :func:`_parity_hash_encode_q8_ref`; CUDA tensors launch
-    ``q_encode_kernel<qbits>`` on the current stream."""
+    :func:`_parity_hash_encode_q8_ref` on the de-interleaved table; CUDA
+    tensors launch ``q_encode_kernel<qbits, P>`` on the current stream."""
     _check_common(positions, scalings, num_steps, hash_fn)
-    rows_q = _check_packed(packed_q8, scales, positions, len(scalings), num_steps,
-                           qbits)
     num_levels = len(scalings)
+    rows_q = _check_serve_table(table, scales, positions, num_levels, num_steps, qbits)
     if positions.device.type == "cpu":
-        return _parity_hash_encode_q8_ref(packed_q8, scales, positions,
+        return _parity_hash_encode_q8_ref(deinterleave_packs(table), scales, positions,
                                           scalings, num_steps, hash_fn, qbits)
     if positions.device.type != "cuda":
         raise ValueError(f"unsupported device {positions.device}")
     plan = _level_plan(scalings, num_steps)
     scale, inv, dense, half, key_bits, table_bits = _plan_arrays(
         plan, num_steps, hash_fn)
-    num_packed = packed_q8.shape[0] // num_levels
+    num_packed = table.shape[3]
     n = positions.shape[0]
     out = torch.empty((n, num_packed * 2 * num_levels), dtype=torch.float32,
                       device=positions.device)
     stream = torch.cuda.current_stream(positions.device).cuda_stream
-    _launch(_lib().parity_hash_encode_q, _ptr(packed_q8), _ptr(scales),
+    _launch(_lib().parity_hash_encode_q, _ptr(table), _ptr(scales),
             _ptr(positions), _ptr(out), n, num_levels, num_packed, num_steps,
             table_bits, key_bits, rows_q, qbits, _np_ptr(scale), _np_ptr(inv),
             _np_ptr(dense), _np_ptr(half), ctypes.c_void_p(stream))
@@ -480,47 +517,51 @@ def parity_hash_encode_q8(packed_q8: torch.Tensor, scales: torch.Tensor,
 parity_hash_encode_q8.launches = 0
 
 _MAX_PYRAMIDS = 4
+_MAX_QMLP_OUT = 256
 
 
-def parity_hash_encode_qmlp(packed_list, scales_list, positions: torch.Tensor,
+def parity_hash_encode_qmlp(tables, scales_list, positions: torch.Tensor,
                             scalings_list, num_steps: int, w1: torch.Tensor,
                             b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                             hash_fn: str = "reference",
                             qbits: int = 8) -> torch.Tensor:
     """FUSED-QMLP: ``relu(enc @ w1 + b1) @ w2 + b2`` -> [N, O] f32, where
     ``enc`` [N, C] concatenates pyramid-major the Q-ENC encodes of the
-    (packed, scales, scalings) pyramids, which share ``num_steps`` and
-    ``qbits``.  Weights in the JAX layout: w1 [C, H], b1 [H], w2 [H, O],
-    b2 [O], f32.  Serve only: no gradient.
+    (serve table, scales, scalings) pyramids, which share ``num_steps``
+    and ``qbits``; serve tables as :func:`parity_hash_encode_q8` takes
+    them.  Weights in the JAX layout: w1 [C, H], b1 [H], w2 [H, O], b2
+    [O], f32, O <= 256.  Serve only: no gradient.
 
     Replaces ``hash_pallas.py`` ``_fwd_kernel_qmlp`` (qbits 8 and 4).  CPU
-    tensors run :func:`_parity_hash_encode_qmlp_ref`; CUDA tensors launch
-    ``qmlp_kernel<qbits>`` on the current stream."""
-    if not (len(packed_list) == len(scales_list) == len(scalings_list)) \
-            or not 1 <= len(packed_list) <= _MAX_PYRAMIDS:
-        raise ValueError(f"1 to {_MAX_PYRAMIDS} pyramids, each with packed "
+    tensors run :func:`_parity_hash_encode_qmlp_ref` on the de-interleaved
+    tables; CUDA tensors launch ``qmlp_kernel`` on the current stream."""
+    if not (len(tables) == len(scales_list) == len(scalings_list)) \
+            or not 1 <= len(tables) <= _MAX_PYRAMIDS:
+        raise ValueError(f"1 to {_MAX_PYRAMIDS} pyramids, each with serve "
                          "table, scales and scalings")
-    rows = 0
-    for pk, sc, s in zip(packed_list, scales_list, scalings_list):
+    channels = 0
+    for tb, sc, s in zip(tables, scales_list, scalings_list):
         _check_common(positions, s, num_steps, hash_fn)
-        _check_packed(pk, sc, positions, len(s), num_steps, qbits)
-        rows += pk.shape[0]
+        _check_serve_table(tb, sc, positions, len(s), num_steps, qbits)
+        channels += 2 * tb.shape[0] * tb.shape[3]
     for name, t in (("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)):
         if t.dtype != torch.float32 or not t.is_contiguous() \
                 or t.device != positions.device:
             raise ValueError(f"{name} must be a contiguous float32 tensor on the "
                              f"positions' device, got {t.dtype} on {t.device}")
-    if w1.ndim != 2 or w2.ndim != 2 or w1.shape[0] != 2 * rows \
+    if w1.ndim != 2 or w2.ndim != 2 or w1.shape[0] != channels \
             or b1.shape != (w1.shape[1],) or w2.shape[0] != w1.shape[1] \
             or b2.shape != (w2.shape[1],):
-        raise ValueError(f"MLP shapes do not chain from {2 * rows} channels: w1 "
+        raise ValueError(f"MLP shapes do not chain from {channels} channels: w1 "
                          f"{tuple(w1.shape)}, b1 {tuple(b1.shape)}, w2 "
                          f"{tuple(w2.shape)}, b2 {tuple(b2.shape)}")
     h_dim, o_dim = w1.shape[1], w2.shape[1]
+    if o_dim > _MAX_QMLP_OUT:
+        raise ValueError(f"FUSED-QMLP takes at most {_MAX_QMLP_OUT} outputs, got {o_dim}")
     if positions.device.type == "cpu":
-        return _parity_hash_encode_qmlp_ref(packed_list, scales_list, positions,
-                                            scalings_list, num_steps, w1, b1, w2, b2,
-                                            hash_fn, qbits)
+        return _parity_hash_encode_qmlp_ref([deinterleave_packs(t) for t in tables],
+                                            scales_list, positions, scalings_list,
+                                            num_steps, w1, b1, w2, b2, hash_fn, qbits)
     if positions.device.type != "cuda":
         raise ValueError(f"unsupported device {positions.device}")
     plans = [_plan_arrays(_level_plan(s, num_steps), num_steps, hash_fn)
@@ -528,21 +569,20 @@ def parity_hash_encode_qmlp(packed_list, scales_list, positions: torch.Tensor,
     scale, inv, dense, half = (np.ascontiguousarray(np.concatenate([p[i] for p in plans]))
                                for i in range(4))
     key_bits, table_bits = plans[0][4], plans[0][5]
-    k = len(packed_list)
-    num_levels = np.asarray([len(s) for s in scalings_list], np.int32)
-    num_packed = np.asarray([pk.shape[0] // len(s)
-                             for pk, s in zip(packed_list, scalings_list)], np.int32)
-    packed_ptrs = (ctypes.c_void_p * k)(*[t.data_ptr() for t in packed_list])
+    k = len(tables)
+    num_levels = np.asarray([t.shape[0] for t in tables], np.int32)
+    num_packed = np.asarray([t.shape[3] for t in tables], np.int32)
+    table_ptrs = (ctypes.c_void_p * k)(*[t.data_ptr() for t in tables])
     scale_ptrs = (ctypes.c_void_p * k)(*[t.data_ptr() for t in scales_list])
     n = positions.shape[0]
     out = torch.empty((n, o_dim), dtype=torch.float32, device=positions.device)
     stream = torch.cuda.current_stream(positions.device).cuda_stream
-    _launch(_lib().parity_hash_encode_qmlp, k, ctypes.cast(packed_ptrs, ctypes.c_void_p),
+    _launch(_lib().parity_hash_encode_qmlp, k, ctypes.cast(table_ptrs, ctypes.c_void_p),
             ctypes.cast(scale_ptrs, ctypes.c_void_p), _np_ptr(num_levels),
             _np_ptr(num_packed), _np_ptr(scale), _np_ptr(inv), _np_ptr(dense),
             _np_ptr(half), _ptr(positions), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2),
             _ptr(out), n, num_steps, table_bits, key_bits,
-            packed_list[0].shape[1], qbits, h_dim, o_dim, ctypes.c_void_p(stream))
+            tables[0].shape[1], qbits, h_dim, o_dim, ctypes.c_void_p(stream))
     parity_hash_encode_qmlp.launches += 1
     return out
 

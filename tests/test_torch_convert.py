@@ -154,3 +154,59 @@ def test_fused_serve_model_loads_converted_weights_strictly():
     state = params_from_jax(params)
     model.load_state_dict(state, strict=True)
     assert set(model.state_dict()) == set(state)
+
+
+def test_baked_serve_tables_keep_the_checkpoint_layout():
+    """Baked tables stay in the packed layout in the state dict, beside a
+    non-persistent serve-layout copy (``qserve{b}``, ``interleave_packs``
+    of the table): JAX's baked tables load strictly, come back out of the
+    state dict bit for bit, and ``bake_serve_tables`` on the same masters
+    gives the same keys and the same bits."""
+    import dataclasses
+
+    from samnerf_tpu.models.sam_model import SAMModel as JaxModel
+    from samnerf_tpu_torch.engine.render_pipeline import SamNerfRenderer
+    from samnerf_tpu_torch.models.sam_model import SAMModel, SAMModelConfig
+    from samnerf_tpu_torch.ops.hash_grid import interleave_packs
+
+    from test_model import TINY, make_bundle
+
+    cfg = dataclasses.replace(TINY, hash_q8_serve=True, serve_fuse_mlp=True)
+    shapes = jax.eval_shape(lambda: JaxModel(cfg).init(
+        jax.random.PRNGKey(0), make_bundle(16), rng=jax.random.PRNGKey(1),
+        train=False, get_features=("sam", "clipseg")))
+    rng = np.random.default_rng(11)
+    masters = jax.tree.map(lambda s: rng.uniform(-0.5, 0.5, s.shape).astype(s.dtype), shapes)
+    baked = _np_tree(bake_quantized_tables(masters, optimize=0))
+    port_cfg = SAMModelConfig(**{f: getattr(cfg, f) for f in SAMModelConfig.__dataclass_fields__})
+
+    def words(t):
+        return t.view(torch.int32)
+
+    loaded = SAMModel(port_cfg, device="cpu")
+    state = params_from_jax(baked)
+    loaded.load_state_dict(state, strict=True)
+    assert set(loaded.state_dict()) == set(state)
+    assert not any("qserve" in k for k in state)
+    for k, v in loaded.state_dict().items():
+        assert torch.equal(words(v), words(state[k])), k
+    own = SAMModel(port_cfg, device="cpu")
+    own.load_state_dict(params_from_jax(_np_tree(masters)), strict=True)
+    SamNerfRenderer(own).bake_serve_tables(optimize=0)
+    own_state = own.state_dict()
+    assert set(own_state) == set(state)
+    encs = {n: m for n, m in own.named_modules() if isinstance(m, ParityHashEncoding)}
+    assert {n for n, m in loaded.named_modules() if isinstance(m, ParityHashEncoding)} \
+        == set(encs)
+    for name, enc in loaded.named_modules():
+        if not isinstance(enc, ParityHashEncoding):
+            continue
+        for b in (8, 4):
+            for key in (f"qtable{b}", f"qscales{b}"):
+                assert torch.equal(words(own_state[f"{name}.{key}"]),
+                                   words(state[f"{name}.{key}"])), (name, key)
+            for m in (enc, encs[name]):
+                serve = getattr(m, f"qserve{b}")
+                assert serve.shape[-1] == m.table.shape[0] // m.num_levels
+                assert torch.equal(words(serve), words(interleave_packs(
+                    getattr(m, f"qtable{b}"), m.num_levels)))

@@ -13,7 +13,8 @@ are O(0.5) and a wrong corner moves one by O(0.1).  The table gradient is
 held at rtol 1e-2 / atol 1e-4: the kernel sums in f32 with atomics, the
 plain version rounds the sum to bf16, as JAX's CPU vjp does.
 FUSED-QMLP is held at rtol 1e-4 / atol 1e-4 (the JAX kernel test's
-tolerance): its MLP sums in f32 in another order than the plain matmuls.
+tolerance): its MLP sums in another order than the plain matmuls, and
+the wide heads' in 3xTF32 on the tensor cores (about 1e-6 relative).
 FLASH-RELPOS is held at max abs error 1e-4: outputs are softmax averages
 of O(1) values, f32 sums over the keys in another order differ by about
 1e-6, and a wrong key tile or bias index moves an output by 1e-2 or more.
@@ -54,11 +55,38 @@ def test_cuda_kernels_match_plain_versions(hash_fn):
     for qbits in (8, 4):
         packed, scales = th.quantize_parity_table(table, qbits=qbits)
         before = th.parity_hash_encode_q8.launches
-        out = th.parity_hash_encode_q8(packed, scales, pos, scalings, steps,
-                                       hash_fn, qbits=qbits)
+        out = th.parity_hash_encode_q8(th.interleave_packs(packed, 6), scales, pos,
+                                       scalings, steps, hash_fn, qbits=qbits)
         assert th.parity_hash_encode_q8.launches == before + 1
         ref = th._parity_hash_encode_q8_ref(packed, scales, pos, scalings, steps,
                                             hash_fn, qbits)
+        assert (out - ref).abs().max().item() < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (5, 70_001))
+@pytest.mark.parametrize("packs", (1, 2, 4))
+def test_q_encode_kernel_matches_plain_version(packs, n):
+    """Q-ENC on the serve layout at 1, 2 and 4 packs, for fewer points than
+    one tile and for a ragged last tile, with a block of points at the
+    sentinel 0.5; the per-pack sums run in the plain version's order."""
+    dev = _cuda()
+    steps = 64
+    scalings = tuple(hash_grid_scalings(6, 16, 512).tolist())
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy(rng.uniform(-0.5, 0.5, (packs * 6, steps * 8, 128, 2))
+                             .astype(np.float32)).to(dev)
+    pos = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    pos[: n // 10] = 0.5
+    pos = torch.from_numpy(pos).to(dev)
+    for qbits in (8, 4):
+        packed, scales = th.quantize_parity_table(table, qbits=qbits)
+        out = th.parity_hash_encode_q8(th.interleave_packs(packed, 6), scales, pos,
+                                       scalings, steps, "morton", qbits=qbits)
+        ref = th._parity_hash_encode_q8_ref(packed, scales, pos, scalings, steps,
+                                            "morton", qbits)
+        torch.cuda.synchronize()
+        assert out.shape == (n, 2 * packs * 6)
         assert (out - ref).abs().max().item() < 1e-5
 
 
@@ -102,19 +130,29 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("qbits", (8, 4))
-@pytest.mark.parametrize("heads", ("single", "stacked", "sam"))
+@pytest.mark.parametrize("heads", ("single", "stacked", "sam", "clipseg", "proposal",
+                                   "below_tile"))
 def test_fused_qmlp_kernel_matches_plain_version(heads, qbits):
     """One pyramid with dense and hashed levels (C 24 -> H 16 -> O 1, N not
     a multiple of any tile), two stacked pyramids of other scalings (24 ->
-    32 -> 9), and the SAM head's widths (two 12-level pyramids of 4 packs,
-    192 -> 256 -> 256, 50 KB of shared memory and more per block)."""
+    32 -> 9), the SAM head's widths (two 12-level pyramids of 4 packs,
+    192 -> 256 -> 256, 50 KB of shared memory and more per block), the
+    ClipSeg head's (192 -> 256 -> 192 at its 8,192 points, the 32-point
+    tile), the proposal head's (one 5-level pyramid of 1 pack, 10 -> 16
+    -> 1) and the nerfacto head's widths at fewer points than one tile."""
     dev = _cuda()
     rng = np.random.default_rng(2)
-    steps = 64 if heads == "single" else 8
+    steps = 64 if heads in ("single", "proposal", "below_tile") else 8
     if heads == "sam":
-        spec, (h, o), n = [(12, 4, 16, 128), (12, 4, 128, 512)], (256, 256), 10_007
+        spec, (h, o), n = [(12, 4, 16, 128), (12, 4, 128, 512)], (256, 256), 20_011
+    elif heads == "clipseg":
+        spec, (h, o), n = [(12, 4, 16, 128), (12, 4, 128, 512)], (256, 192), 8192
     elif heads == "stacked":
         spec, (h, o), n = [(3, 2, 4, 64), (3, 2, 8, 128)], (32, 9), 30_001
+    elif heads == "proposal":
+        spec, (h, o), n = [(5, 1, 16, 128)], (16, 1), 50_001
+    elif heads == "below_tile":
+        spec, (h, o), n = [(16, 1, 16, 2048)], (64, 16), 37
     else:
         spec, (h, o), n = [(6, 2, 16, 512)], (16, 1), 100_003
     packed, scales, scalings = [], [], []
@@ -126,15 +164,16 @@ def test_fused_qmlp_kernel_matches_plain_version(heads, qbits):
         scales.append(sc)
         scalings.append(tuple(hash_grid_scalings(levels, lo, hi).tolist()))
     c = sum(2 * p.shape[0] for p in packed)
+    serve = [th.interleave_packs(pk, len(s)) for pk, s in zip(packed, scalings)]
     w1, b1, w2, b2 = (torch.from_numpy((rng.normal(size=s) * f).astype(np.float32)).to(dev)
                       for s, f in (((c, h), c ** -0.5), ((h,), 0.1), ((h, o), h ** -0.5),
                                    ((o,), 0.1)))
     pos = torch.from_numpy(rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)).to(dev)
-    args = (packed, scales, pos, scalings, steps, w1, b1, w2, b2, "morton", qbits)
+    args = (scales, pos, scalings, steps, w1, b1, w2, b2, "morton", qbits)
     before = th.parity_hash_encode_qmlp.launches
-    out = th.parity_hash_encode_qmlp(*args)
+    out = th.parity_hash_encode_qmlp(serve, *args)
     assert th.parity_hash_encode_qmlp.launches == before + 1
-    ref = th._parity_hash_encode_qmlp_ref(*args)
+    ref = th._parity_hash_encode_qmlp_ref(packed, *args)
     torch.cuda.synchronize()
     assert out.shape == (n, o)
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
@@ -145,6 +184,7 @@ def test_fused_qmlp_wrapper_rejects_tensors_on_other_devices():
     dev = _cuda()
     scalings = tuple(hash_grid_scalings(4, 4, 64).tolist())
     packed, scales = th.quantize_parity_table(torch.zeros((4, 32, 128, 2), device=dev))
+    packed = th.interleave_packs(packed, 4)
     pos = torch.full((256, 3), 0.5, device=dev)
     w1, b1, w2, b2 = (torch.zeros(s, device=dev) for s in ((8, 4), (4,), (4, 2), (2,)))
     with pytest.raises(ValueError):

@@ -53,6 +53,11 @@ def _pyramids(stacked: bool, qbits: int, steps: int = 4, n: int = 256, seed: int
     return packed, scales, scalings, pos
 
 
+def _serve(packed):
+    """The serve layout the wrappers take, of 3-level packed tables."""
+    return [th.interleave_packs(_t(p), 3) for p in packed]
+
+
 def _mlp(rng, c, h, o):
     return [(rng.normal(size=s) * f).astype(np.float32)
             for s, f in (((c, h), 0.2), ((h,), 0.1), ((h, o), 0.2), ((o,), 0.1))]
@@ -72,7 +77,7 @@ def test_plain_qmlp_matches_jax(monkeypatch, stacked, qbits, hash_fn):
                         functools.partial(pl.pallas_call, interpret=True))
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     kernel = np.asarray(hp.parity_hash_encode_qmlp(*jargs, hash_fn=hash_fn, qbits=qbits))
-    out = th.parity_hash_encode_qmlp([_t(p) for p in packed], [_t(s) for s in scales],
+    out = th.parity_hash_encode_qmlp(_serve(packed), [_t(s) for s in scales],
                                      _t(pos), scalings, 4, *map(_t, w),
                                      hash_fn=hash_fn, qbits=qbits)
     assert out.shape == (256, 9)
@@ -83,23 +88,31 @@ def test_plain_qmlp_matches_jax(monkeypatch, stacked, qbits, hash_fn):
 def test_cpu_wrapper_runs_the_plain_version_and_counts_no_launch():
     packed, scales, scalings, pos = _pyramids(True, 8)
     w = [_t(a) for a in _mlp(np.random.default_rng(2), 24, 16, 5)]
-    args = ([_t(p) for p in packed], [_t(s) for s in scales], _t(pos), scalings, 4, *w)
+    args = ([_t(s) for s in scales], _t(pos), scalings, 4, *w)
     before = th.parity_hash_encode_qmlp.launches
-    out = th.parity_hash_encode_qmlp(*args, hash_fn="morton")
-    ref = th._parity_hash_encode_qmlp_ref(*args, hash_fn="morton")
+    out = th.parity_hash_encode_qmlp(_serve(packed), *args, hash_fn="morton")
+    ref = th._parity_hash_encode_qmlp_ref([_t(p) for p in packed], *args, hash_fn="morton")
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
     assert th.parity_hash_encode_qmlp.launches == before
 
 
 @pytest.mark.parametrize("bad", ["steps", "qbits", "w1_rows", "chain", "strided",
-                                 "dtype", "lists", "pyramids"])
+                                 "dtype", "lists", "pyramids", "layout", "packs",
+                                 "out_dim"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     packed, scales, scalings, pos = _pyramids(True, 8)
-    packed, scales, pos = [_t(p) for p in packed], [_t(s) for s in scales], _t(pos)
+    packed, scales, pos = _serve(packed), [_t(s) for s in scales], _t(pos)
     w1, b1, w2, b2 = (_t(a) for a in _mlp(np.random.default_rng(3), 24, 16, 5))
     steps, qbits = 4, 8
     if bad == "steps":          # a pyramid packed at another table size
-        packed[1] = _t(np.zeros((6, 32, 128), np.float32))
+        packed[1] = _t(np.zeros((3, 32, 128, 2), np.float32))
+    elif bad == "layout":       # the packed (checkpoint) layout
+        packed[0] = th.deinterleave_packs(packed[0])
+    elif bad == "packs":        # 3 packs (6 features per level)
+        packed[0] = _t(np.zeros((3, 16, 128, 3), np.float32))
+        scales[0] = _t(np.zeros(9, np.float32))
+    elif bad == "out_dim":
+        w2, b2 = torch.zeros((16, 257)), torch.zeros(257)
     elif bad == "qbits":        # q8 packing read as q4
         qbits = 4
     elif bad == "w1_rows":

@@ -55,16 +55,42 @@ def test_f32_encode_matches_jax(hash_fn, P, shape):
 @pytest.mark.parametrize("hash_fn,P,shape", CASES)
 @pytest.mark.parametrize("qbits", (8, 4))
 def test_quantized_encode_matches_jax(qbits, hash_fn, P, shape):
+    """The wrapper, given the serve layout, against JAX's public op and its
+    plain version on the same packed tables."""
     L, steps, lo_res, hi_res = shape
     scalings, table, pos = _inputs(L, steps, P, lo_res, hi_res)
     packed, scales = hp.quantize_parity_table(jnp.asarray(table), qbits=qbits)
     ref = hp.parity_hash_encode_q8(packed, scales, jnp.asarray(pos), scalings,
                                    steps, hash_fn, qbits=qbits)
-    out = th.parity_hash_encode_q8(torch.from_numpy(np.array(packed)),
+    plain = hp._parity_hash_encode_q8_ref(packed, scales, jnp.asarray(pos), scalings,
+                                          steps, hash_fn, qbits=qbits)
+    out = th.parity_hash_encode_q8(th.interleave_packs(torch.from_numpy(np.array(packed)), L),
                                    torch.from_numpy(np.array(scales)),
                                    torch.from_numpy(pos), scalings, steps,
                                    hash_fn, qbits=qbits)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(out.numpy(), np.asarray(plain), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("P", (1, 2, 4))
+@pytest.mark.parametrize("qbits", (8, 4))
+def test_interleave_packs_is_an_exact_permutation(qbits, P):
+    """[P*L, rows_q, 128] -> [L, rows_q, 128, P] and back, bit for bit,
+    with word (l, r, lane, p) = packed word (p*L + l, r, lane); P = 3 is
+    refused."""
+    L = 3
+    _, table, _ = _inputs(L, 8, P, 4, 64)
+    packed, _ = th.quantize_parity_table(torch.from_numpy(table), qbits=qbits)
+    inter = th.interleave_packs(packed, L)
+    assert inter.shape == (L, packed.shape[1], 128, P) and inter.is_contiguous()
+    words = packed.numpy().view(np.uint32)
+    np.testing.assert_array_equal(
+        inter.numpy().view(np.uint32),
+        words.reshape(P, L, *words.shape[1:]).transpose(1, 2, 3, 0))
+    back = th.deinterleave_packs(inter)
+    np.testing.assert_array_equal(back.numpy().view(np.uint32), words)
+    with pytest.raises(ValueError):
+        th.interleave_packs(torch.zeros((3 * L, 8, 128)), L)
 
 
 @pytest.mark.parametrize("hash_fn", HASH_FNS)
@@ -132,7 +158,7 @@ def test_cpu_wrappers_run_the_plain_version_and_count_no_launch():
                                                               "morton"),
                                rtol=0, atol=0)
     packed, scales = th.quantize_parity_table(t)
-    th.parity_hash_encode_q8(packed, scales, p, scalings, 4)
+    th.parity_hash_encode_q8(th.interleave_packs(packed, 4), scales, p, scalings, 4)
     assert (th.parity_hash_encode.launches,
             th.parity_hash_encode_q8.launches) == before
 
@@ -151,8 +177,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         th.parity_hash_encode(t, p, scalings, 4, "cuckoo")
     packed, scales = th.quantize_parity_table(t, qbits=8)
+    inter = th.interleave_packs(packed, 4)
     with pytest.raises(ValueError):                         # q8 packing, q4 read
-        th.parity_hash_encode_q8(packed, scales, p, scalings, 4, qbits=4)
+        th.parity_hash_encode_q8(inter, scales, p, scalings, 4, qbits=4)
     with pytest.raises(ValueError):
-        th.parity_hash_encode_q8(packed, scales[:2], p, scalings, 4)
+        th.parity_hash_encode_q8(inter, scales[:2], p, scalings, 4)
+    with pytest.raises(ValueError):                         # the packed layout
+        th.parity_hash_encode_q8(packed, scales, p, scalings, 4)
+    with pytest.raises(ValueError):                         # 3 packs
+        th.parity_hash_encode_q8(torch.zeros((4, 16, 128, 3)), torch.zeros(12), p,
+                                 scalings, 4)
 
