@@ -7,13 +7,16 @@ which raises on failure:
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions;
 2. build the CUDA kernels from ``samnerf_tpu_torch/csrc`` (one ``nvcc``
-   per source, all at once) and print ``ptxas``'s registers, spills and
-   shared memory of the Q-ENC and FUSED-QMLP kernels;
+   per source, all at once; the toolkit's release printed) and print
+   ``ptxas``'s registers, spills and shared memory of the F32-ENC,
+   F32-ENC-BWD, Q-ENC and FUSED-QMLP kernels (raises on a spill);
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card at the serve path's shapes (max abs error, time, bound), the
-   quantized encodes on the pack-interleaved serve table, at uniform
-   positions and at the positions one 512x512 static frame feeds each
-   encoder (captured once from the model's own forward);
+   quantized encodes on the pack-interleaved serve table, F32-ENC and the
+   quantized encodes at uniform positions and at the positions one
+   512x512 static frame feeds each encoder (captured once from the
+   model's own forward), and F32-ENC's layout pass BF16-PACK against its
+   plain version (bit for bit);
 4. qmlp_kernel: FUSED-QMLP against its plain version at the four serve
    heads' shapes (proposal, nerfacto, SAM at q8 and q4, ClipSeg), at
    uniform and in-frame positions, beside the unfused route (Q-ENC per
@@ -21,18 +24,23 @@ which raises on failure:
    serve: full-width ``samnerf_distill`` 512x512 frames through
    ``SamNerfRenderer.serve_frame_fn`` (static preset) with f32 tables,
    baked int8 tables, and baked int8 tables served through FUSED-QMLP
-   (``serve_fuse_mlp``), launch counts per frame; then a 64x64 frame of a
+   (``serve_fuse_mlp``), launch counts per frame (22 F32-ENC per f32
+   frame, 19 FUSED-QMLP per fused frame); then a 64x64 frame of a
    small model on the card against the same frame on the CPU, where every
    kernel runs its plain version, for each of the three;
    view: ``SamNerfRenderer.render_view`` at 512x512, full width, int8
    fused, with a ``SamPredictor``: a click locked in 3D in view 0, three
    further cameras that re-project it, and one view with a crop box;
 5. train_kernels: the encode backward F32-ENC-BWD against its plain
-   version, and F32-ENC's time, at the three encode shapes of a
-   ``samnerf_distill`` training step (16384 rays);
+   version, and F32-ENC, at the three encode shapes of a
+   ``samnerf_distill`` training step (16384 rays), at uniform positions
+   and at the positions and cotangents of one full-width ``Trainer`` step
+   (captured by ``profile_train.capture_step_encodes``), and
+   F32-ENC-BWD's layout pass GRAD-DEINTERLEAVE against its plain version;
 6. train: full-width ``samnerf_distill`` training steps on a synthetic
    512x512 scene through the port's ``Trainer`` (ms per step, rays/s,
-   peak memory, launches per step, losses); then one train step of a
+   peak memory, launches per step: 6 F32-ENC and 6 F32-ENC-BWD, and the
+   layout passes, counted apart; losses); then one train step of a
    small model on the card against the same step on the CPU (losses and
    gradients);
 7. attn_kernel: FLASH-RELPOS against its plain version at SAM ViT-H's
@@ -49,8 +57,9 @@ which raises on failure:
    .get_image_embeddings`` (its ``main``) with that checkpoint on a
    synthetic 24-image 512x512 scene, the port's feature loader on the
    files, and 3 ``Trainer`` steps on them;
-10. one ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}``
-   as the last line.
+10. one ``{"kernels": [...]}`` line (the f32 kernels' layout passes
+   listed under ``passes`` beside the kernel that needs them), then
+   ``{"ok": true, "device": ...}`` as the last line.
 
 Float32 matmuls and convolutions run in full f32 (TF32 off) so the card
 and the CPU compute the same function.  Exits non-zero without a result
@@ -90,6 +99,8 @@ QMLP_SHAPES = [
     ("sam", 1 << 18, [(12, 4, 16, 128), (12, 4, 128, 512)], 19, 256, 256, 4),
     ("clipseg", 8192, [(12, 4, 16, 128), (12, 4, 128, 512)], 19, 256, 192, 8)]
 FUSED_PER_FRAME = 19            # 8 proposal + 8 nerfacto + 2 SAM + 1 ClipSeg
+F32_PER_FRAME = 22              # 8 proposal + 8 nerfacto + 2 x 2 SAM + 2 ClipSeg pyramids
+F32_PER_STEP = 6                # proposal, nerfacto, 2 SAM and 2 ClipSeg pyramids
 VIEW_SIZE = 512
 VIEW_INTRIN = np.array([[400.0, 0.0, 256.0], [0.0, 400.0, 256.0], [0.0, 0.0, 1.0]])
 TOL_FRAME = 1e-3                # f32 card vs CPU, sums taken in other orders
@@ -189,6 +200,7 @@ def kernel_phase(dev, frame_pos):
         table = hg.init_parity_table(gen, L, steps, P, scale=0.5, device=dev)
         uniform = torch.rand((n_uniform, 3), generator=gen, device=dev)
         variants = [("f32", 0, h, "uniform") for h in ("morton", "reference")]
+        variants += [("f32", 0, "morton", "frame")]
         variants += [(f"q{b}", b, "morton", where) for where in ("uniform", "frame")
                      for b in ((8,) if name == "proposal" else (8, 4))]
         for kind, qbits, hash_fn, where in variants:
@@ -229,8 +241,28 @@ def kernel_phase(dev, frame_pos):
                   f"plain_ms={plain_ms:.3f} "
                   f"bound_ms={bound_ms:.4f} ({bound_by}, {tb / 1e6:.1f} MB table)",
                   flush=True)
+        if P > 1:
+            rows.append(_pass_row(
+                "BF16-PACK", name, lambda: hg.pack_bf16_table(table, L),
+                lambda: hg.interleave_packs(hg._bf16_words(table), L), table.numel() * 6))
         del table, uniform
     return rows
+
+
+def _pass_row(kernel, shape, run, plain, nbytes):
+    """A layout pass of the f32 kernels (a permutation) against its plain
+    version, bit for bit, and its time; ``nbytes`` it must move."""
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    if out.shape != ref.shape or not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+        raise AssertionError(f"{kernel} {shape}: not its plain version bit for bit")
+    del out, ref
+    row = dict(kernel=kernel, shape=shape, max_abs_err=0.0, ms=_time_ms(run, reps=20),
+               plain_ms=_time_ms(plain, reps=3, warmup=1),
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    print(f"pass {kernel} {shape}: exact, ms={row['ms']:.4f} plain_ms={row['plain_ms']:.3f} "
+          f"bound_ms={row['bound_ms']:.4f} (bytes, {nbytes / 1e6:.0f} MB)", flush=True)
+    return row
 
 
 def qmlp_kernel_phase(dev, frame_pos):
@@ -320,16 +352,22 @@ def qmlp_kernel_phase(dev, frame_pos):
     return rows
 
 
+# the hash kernels whose ptxas report is printed and held to no spills
+RESOURCE_KERNELS = ("f32_encode_kernel", "f32_encode_bwd_kernel", "q_encode_kernel",
+                    "qmlp_kernel")
+
+
 def kernel_resources():
-    """``ptxas``'s registers, spills and shared memory of the Q-ENC and
-    FUSED-QMLP kernels, named by their template arguments."""
+    """``ptxas``'s registers, spills and shared memory of F32-ENC,
+    F32-ENC-BWD, Q-ENC and FUSED-QMLP, named by their template arguments;
+    raises if one of them spills."""
     import re
 
     from samnerf_tpu_torch.ops import cuda_build
 
     rows = []
     for r in cuda_build.kernel_resources("hash_encode"):
-        m = re.search(r"(q_encode_kernel|qmlp_kernel)I((?:L[ib]\d+E)+)E", r["kernel"])
+        m = re.search(r"(%s)I((?:L[ib]\d+E)+)E" % "|".join(RESOURCE_KERNELS), r["kernel"])
         if m:
             args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
             rows.append(dict(r, name=f"{m.group(1)}<{args}>"))
@@ -337,8 +375,13 @@ def kernel_resources():
         print(f"ptxas {r['name']:34s} {r['registers']:3d} registers, spill stores "
               f"{r['spill_stores']} B, spill loads {r['spill_loads']} B, stack "
               f"{r['stack']} B, static smem {r['static_smem']} B", flush=True)
-    if not rows:
-        raise AssertionError("no ptxas report of the Q-ENC and FUSED-QMLP kernels")
+    missing = [k for k in RESOURCE_KERNELS if not any(r["name"].startswith(k + "<")
+                                                      for r in rows)]
+    if missing:
+        raise AssertionError(f"no ptxas report of {missing}")
+    spills = [r["name"] for r in rows if r["spill_stores"] or r["spill_loads"]]
+    if spills:
+        raise AssertionError(f"ptxas reports spills in {spills}")
     return rows
 
 
@@ -361,12 +404,21 @@ def _reset_encode_launches(hg):
     hg.parity_hash_encode.launches = 0
     hg.parity_hash_encode_q8.launches = 0
     hg.parity_hash_encode_qmlp.launches = 0
+    hg.parity_hash_encode_bwd.launches = 0
+    hg.pack_bf16_table.launches = 0
+    hg.deinterleave_table_grad.launches = 0
 
 
 def _encode_launches(hg):
     return {"F32-ENC": hg.parity_hash_encode.launches,
             "Q-ENC": hg.parity_hash_encode_q8.launches,
             "FUSED-QMLP": hg.parity_hash_encode_qmlp.launches}
+
+
+def _pass_launches(hg):
+    """Launches of the f32 kernels' layout passes, counted apart."""
+    return {"BF16-PACK": hg.pack_bf16_table.launches,
+            "GRAD-DEINTERLEAVE": hg.deinterleave_table_grad.launches}
 
 
 def serve_phase(dev):
@@ -417,13 +469,14 @@ def serve_phase(dev):
                 raise AssertionError(f"frame {img.dtype} {tuple(img.shape)}")
         frames = len(times)
         launches = _encode_launches(hg)
+        passes = _pass_launches(hg)
         results[tag] = dict(frame_ms=statistics.median(times), frame_ms_all=times,
-                            frames=frames, launches=launches,
+                            frames=frames, launches=launches, pass_launches=passes,
                             max_memory_allocated=torch.cuda.max_memory_allocated())
         print(f"serve {tag:10s} 512x512 static: median frame "
               f"{results[tag]['frame_ms']:.2f} ms over {frames} frames "
               f"({', '.join(f'{t:.1f}' for t in times)}); launches/frame "
-              + " ".join(f"{k}={v / frames:g}" for k, v in launches.items())
+              + " ".join(f"{k}={v / frames:g}" for k, v in {**launches, **passes}.items())
               + f"; max_memory_allocated="
               f"{results[tag]['max_memory_allocated'] / 2**30:.2f} GiB", flush=True)
         del model, snr, serve
@@ -432,10 +485,12 @@ def serve_phase(dev):
         ran = {k for k, v in results[tag]["launches"].items() if v}
         if ran != kernels:
             raise AssertionError(f"the {tag} serve path launched {ran}, not {kernels}")
-    fused = results["int8_fused"]
-    if fused["launches"]["FUSED-QMLP"] != FUSED_PER_FRAME * fused["frames"]:
-        raise AssertionError(f"FUSED-QMLP launched {fused['launches']['FUSED-QMLP']} times "
-                             f"in {fused['frames']} frames, not {FUSED_PER_FRAME} per frame")
+    for tag, kernel, per_frame in (("int8_fused", "FUSED-QMLP", FUSED_PER_FRAME),
+                                   ("f32", "F32-ENC", F32_PER_FRAME)):
+        r = results[tag]
+        if r["launches"][kernel] != per_frame * r["frames"]:
+            raise AssertionError(f"{kernel} launched {r['launches'][kernel]} times in "
+                                 f"{r['frames']} frames, not {per_frame} per frame")
     return results
 
 
@@ -593,28 +648,40 @@ def _tol_ratio(out, ref, rtol, atol) -> float:
     return ((out - ref).abs() / (atol + rtol * ref.abs())).max().item()
 
 
-def train_kernel_phase(dev):
+# the encodes of a training step (name, levels, packs, log2 table size,
+# uniform points, min res, max res): one 16384-ray step
+TRAIN_SHAPES = [("proposal", 5, 1, 17, 16384 * 64, 16, 128),
+                ("nerfacto", 16, 1, 19, 16384 * 32, 16, 2048),
+                ("sam_pyramid", 12, 4, 19, 16384 * 16, 128, 512)]
+
+
+def train_kernel_phase(dev, step_calls):
     """F32-ENC-BWD against its plain backward, and both encode kernels'
-    times, at the encodes of one 16384-ray training step."""
+    times, at the encodes of one 16384-ray training step: at uniform
+    positions with N(0, 1) cotangents (a tenth of the rows zero, as
+    outside points' are), and at the positions and cotangents of the
+    first encode of the shape in a full-width ``Trainer`` step
+    (``step_calls``, ``profile_train.capture_step_encodes``)."""
     from samnerf_tpu_torch.ops import hash_grid as hg
     from samnerf_tpu_torch.ops.encodings import hash_grid_scalings
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    # (name, levels, packs, log2 table size, points, min res, max res)
-    shapes = [("proposal", 5, 1, 17, 16384 * 64, 16, 128),
-              ("nerfacto", 16, 1, 19, 16384 * 32, 16, 2048),
-              ("sam_pyramid", 12, 4, 19, 16384 * 16, 128, 512)]
     rows = []
-    for name, L, P, log2, n, lo_res, hi_res in shapes:
+    for name, L, P, log2, n_uniform, lo_res, hi_res in TRAIN_SHAPES:
         steps = (1 << log2) // 1024
         scalings = tuple(hash_grid_scalings(L, lo_res, hi_res).tolist())
         table = hg.init_parity_table(gen, L, steps, P, scale=0.5, device=dev)
-        pos = torch.rand((n, 3), generator=gen, device=dev)
-        g = torch.randn((n, P * 2 * L), generator=gen, device=dev)
-        live = torch.rand((n,), generator=gen, device=dev) >= 0.1
-        g *= live[:, None]                       # rows of points outside the cube
+        pos = torch.rand((n_uniform, 3), generator=gen, device=dev)
+        g = torch.randn((n_uniform, P * 2 * L), generator=gen, device=dev)
+        g *= (torch.rand((n_uniform,), generator=gen, device=dev) >= 0.1)[:, None]
+        step = next(c for c in step_calls if c["levels"] == L and c["packs"] == P
+                    and c["num_steps"] == steps and np.allclose(c["scalings"], scalings))
+        cases = [("uniform", h, pos, g) for h in ("morton", "reference")]
+        cases.append(("step", step["hash_fn"], step["positions"], step["cotangent"]))
         table_bytes = table.numel() * 4
-        for hash_fn in ("morton", "reference"):
+        for where, hash_fn, pos, g in cases:
+            n = pos.shape[0]
+            live = g.ne(0).any(dim=1)
             run = lambda: hg.parity_hash_encode_bwd(g, pos, scalings, steps, hash_fn)
             plain = lambda: hg.parity_hash_encode_bwd_ref(g, pos, scalings, steps, hash_fn)
             out, ref = run(), plain()
@@ -622,8 +689,8 @@ def train_kernel_phase(dev):
             err = (out - ref).abs().max().item()
             ratio = _tol_ratio(out, ref, **TOL_TABLE_GRAD)
             if not math.isfinite(ratio) or ratio > 1.0:
-                raise AssertionError(f"F32-ENC-BWD {name} {hash_fn}: max abs err {err}, "
-                                     f"{ratio:.3f} x the tolerance {TOL_TABLE_GRAD}")
+                raise AssertionError(f"F32-ENC-BWD {name} {hash_fn} {where}: max abs err "
+                                     f"{err}, {ratio:.3f} x the tolerance {TOL_TABLE_GRAD}")
             del out, ref
             ms = _time_ms(run, reps=20)
             plain_ms = _time_ms(plain, reps=3, warmup=1)
@@ -640,21 +707,35 @@ def train_kernel_phase(dev):
             bound_ms = max(t_bytes, t_ops) * 1e3
             bound_by = "bytes" if t_bytes >= t_ops else "operations"
             fwd = lambda: hg.parity_hash_encode(table, pos, scalings, steps, hash_fn)
+            fwd_err = (fwd() - hg.parity_hash_encode_ref(table, pos, scalings, steps,
+                                                         hash_fn)).abs().max().item()
+            if not math.isfinite(fwd_err) or fwd_err > TOL_KERNEL:
+                raise AssertionError(f"F32-ENC {name} {hash_fn} {where}: max abs err "
+                                     f"{fwd_err} > {TOL_KERNEL}")
             fwd_ms = _time_ms(fwd, reps=20)
             ftb = _touched_table_bytes(hg, pos, scalings, steps, hash_fn, P)
             fwd_bound_ms, fwd_bound_by = _bound(n, P * 2 * L, ftb, P * L)
-            row = dict(kernel="F32-ENC-BWD", shape=name, hash_fn=hash_fn, points=n,
-                       levels=L, packs=P, log2_table=log2, max_abs_err=err,
+            row = dict(kernel="F32-ENC-BWD", shape=name, hash_fn=hash_fn, positions=where,
+                       points=n, live_points=int(live.sum().item()), levels=L, packs=P,
+                       log2_table=log2, max_abs_err=err,
                        tol_ratio=ratio, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                        bound_by=bound_by, table_bytes_touched=tb,
                        atomic_rmw_bytes=2 * tb,
                        atomic_rmw_ms=2 * tb / HBM_BYTES_PER_S * 1e3, fwd_ms=fwd_ms,
-                       fwd_bound_ms=fwd_bound_ms, fwd_bound_by=fwd_bound_by)
+                       fwd_max_abs_err=fwd_err, fwd_bound_ms=fwd_bound_ms,
+                       fwd_bound_by=fwd_bound_by)
             rows.append(row)
-            print(f"train kernel {name:11s} {hash_fn:9s} N={n:8d} F32-ENC-BWD "
+            print(f"train kernel {name:11s} {hash_fn:9s} {where:7s} N={n:8d} F32-ENC-BWD "
                   f"err={err:.3e} ({ratio:.3f} x tol) ms={ms:.4f} plain_ms={plain_ms:.3f} "
-                  f"bound_ms={bound_ms:.4f} ({bound_by}); F32-ENC ms={fwd_ms:.4f} "
-                  f"bound_ms={fwd_bound_ms:.4f}", flush=True)
+                  f"bound_ms={bound_ms:.4f} ({bound_by}); F32-ENC err={fwd_err:.3e} "
+                  f"ms={fwd_ms:.4f} bound_ms={fwd_bound_ms:.4f}", flush=True)
+        if P > 1:
+            scratch = torch.randn((L, steps * 8, 128, P, 2), generator=gen, device=dev)
+            rows.append(_pass_row(
+                "GRAD-DEINTERLEAVE", name, lambda: hg.deinterleave_table_grad(scratch),
+                lambda: scratch.permute(3, 0, 1, 2, 4).reshape(table.shape),
+                2 * table_bytes))
+            del scratch
         del table, pos, g
     return rows
 
@@ -676,9 +757,7 @@ def train_phase(dev):
             now = time.perf_counter()
             if step == TRAIN_WARMUP:
                 torch.cuda.reset_peak_memory_stats()
-                hg.parity_hash_encode.launches = 0
-                hg.parity_hash_encode_bwd.launches = 0
-                hg.parity_hash_encode_q8.launches = 0
+                _reset_encode_launches(hg)
             elif step > TRAIN_WARMUP:
                 times.append((now - t_prev[0]) * 1e3)
             t_prev[0] = now
@@ -688,6 +767,7 @@ def train_phase(dev):
         launches = {"F32-ENC": hg.parity_hash_encode.launches,
                     "F32-ENC-BWD": hg.parity_hash_encode_bwd.launches,
                     "Q-ENC": hg.parity_hash_encode_q8.launches}
+        passes = _pass_launches(hg)
         peak = torch.cuda.max_memory_allocated()
         rays = trainer.datamanager.config.train_num_rays_per_batch
         del trainer
@@ -695,7 +775,9 @@ def train_phase(dev):
     rgb = [m["rgb_loss"] for m in losses]
     result = dict(step_ms=step_ms, step_ms_all=times, rays_per_s=rays / step_ms * 1e3,
                   steps=TRAIN_STEPS, warmup=TRAIN_WARMUP, launches=launches,
-                  launches_per_step={k: v / TRAIN_STEPS for k, v in launches.items()},
+                  pass_launches=passes,
+                  launches_per_step={k: v / TRAIN_STEPS
+                                     for k, v in {**launches, **passes}.items()},
                   max_memory_allocated=peak, first_losses=losses[0],
                   last_losses=losses[-1], rgb_loss=rgb)
     print(f"train samnerf_distill {rays} rays/step: median step {step_ms:.2f} ms over "
@@ -708,8 +790,10 @@ def train_phase(dev):
         raise AssertionError("a training loss is not finite")
     if not statistics.mean(rgb[-5:]) < statistics.mean(rgb[:5]):
         raise AssertionError(f"rgb loss did not fall: {rgb}")
-    if launches["F32-ENC"] == 0 or launches["F32-ENC-BWD"] == 0:
-        raise AssertionError(f"an encode kernel never launched on the train path: {launches}")
+    if launches["F32-ENC"] != F32_PER_STEP * TRAIN_STEPS \
+            or launches["F32-ENC-BWD"] != F32_PER_STEP * TRAIN_STEPS:
+        raise AssertionError(f"the train path launched {launches} in {TRAIN_STEPS} steps, "
+                             f"not {F32_PER_STEP} + {F32_PER_STEP} per step")
     if launches["Q-ENC"]:
         raise AssertionError("the train path ran a quantized encode")
     return result
@@ -1023,6 +1107,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from samnerf_tpu_torch.ops import cuda_build
     from samnerf_tpu_torch.scripts.bench_encode import capture_frame_positions
+    from samnerf_tpu_torch.scripts.profile_train import capture_step_encodes
     from samnerf_tpu_torch.utils.synthetic import write_scene
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1031,17 +1116,20 @@ def main() -> int:
     smi = _smi()
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
+    nvcc = cuda_build.nvcc_version()
     t0 = time.perf_counter()
     cuda_build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"build: {build_s:.1f} s", flush=True)
+    print(f"build: {build_s:.1f} s ({nvcc})", flush=True)
 
     resources = kernel_resources()
     frame_pos = capture_frame_positions(dev)     # scripts/bench_encode.py
     rows = kernel_phase(dev, frame_pos)
     qmlp_rows = qmlp_kernel_phase(dev, frame_pos)
     del frame_pos
-    train_rows = train_kernel_phase(dev)
+    step_calls = capture_step_encodes(dev)
+    train_rows = train_kernel_phase(dev, step_calls)
+    del step_calls
     serve = serve_phase(dev)
     reference = reference_phase(dev)
     view = view_phase(dev)
@@ -1078,13 +1166,31 @@ def main() -> int:
                         "max_abs_err": max(r["max_abs_err"] for r in mine),
                         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-                        "library_ms": None})
-        frame = [r for r in mine if r["shape"] == "nerfacto" and r["positions"] == "frame"
-                 and r["variant"] == "q8"]
-        if frame:
-            kernels[-1]["ms_frame_positions"] = frame[0]["ms"]
+                        "library_ms": None,
+                        "ms_frame_positions": next(
+                            r["ms"] for r in mine if r["shape"] == "nerfacto"
+                            and r["positions"] == "frame" and r["variant"] in ("f32", "q8"))})
     for k in kernels:
         k["launches_by_path"].update(serve_int8_fused=serve["int8_fused"]["launches"][k["name"]])
+    f32_enc = kernels[0]
+    f32_enc["max_abs_err"] = max(f32_enc["max_abs_err"],
+                                 max(r["fwd_max_abs_err"] for r in train_rows
+                                     if r["kernel"] == "F32-ENC-BWD"))
+    step_rep = next(r for r in train_rows if r["kernel"] == "F32-ENC-BWD"
+                    and r["shape"] == "nerfacto" and r["positions"] == "step")
+    f32_enc["ms_step_positions"] = step_rep["fwd_ms"]
+
+    def pass_entry(pass_name, paths):
+        """A layout pass of the f32 kernels, listed beside the kernel that
+        needs it: its launches on that kernel's paths, its SAM pyramid row."""
+        by_path = {p: r["pass_launches"][pass_name] for p, r in paths.items()}
+        prow = next(r for r in rows + train_rows if r["kernel"] == pass_name)
+        return {"name": pass_name, "source": source, "launches": max(by_path.values()),
+                "launches_by_path": by_path,
+                **{k: prow[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by")}}
+
+    f32_enc["passes"] = [pass_entry("BF16-PACK", {"serve_f32": serve["f32"], "train": train})]
     # the SAM head stands for FUSED-QMLP: its largest function per launch
     rep = next(r for r in qmlp_rows if r["shape"] == "sam" and r["variant"] == "q8"
                and r["positions"] == "uniform")
@@ -1101,15 +1207,18 @@ def main() -> int:
                     "ms_frame_positions": next(
                         r["ms"] for r in qmlp_rows if r["shape"] == "sam"
                         and r["variant"] == "q8" and r["positions"] == "frame")})
-    rep = next(r for r in train_rows if r["shape"] == "nerfacto" and r["hash_fn"] == "morton")
+    bwd_rows = [r for r in train_rows if r["kernel"] == "F32-ENC-BWD"]
+    rep = next(r for r in bwd_rows if r["shape"] == "nerfacto" and r["hash_fn"] == "morton"
+               and r["positions"] == "uniform")
     kernels.append({"name": "F32-ENC-BWD", "route": "cuda", "source": source,
                     "replaces": "samnerf_tpu/ops/hash_pallas.py:644",
                     "launches": train["launches"]["F32-ENC-BWD"],
                     "launches_by_path": {"train": train["launches"]["F32-ENC-BWD"]},
-                    "max_abs_err": max(r["max_abs_err"] for r in train_rows),
+                    "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-                    "library_ms": None})
+                    "library_ms": None, "ms_step_positions": step_rep["ms"],
+                    "passes": [pass_entry("GRAD-DEINTERLEAVE", {"train": train})]})
     rep = next(r for r in attn_rows if r["shape"] == "vit_h")
     kernels.append({"name": "FLASH-RELPOS", "route": "cuda",
                     "source": "samnerf_tpu_torch/csrc/attention_relpos.cu",
@@ -1125,7 +1234,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "build_s": build_s, "kernel_resources": resources, "kernel_rows": rows,
+         "nvcc": nvcc, "build_s": build_s, "kernel_resources": resources, "kernel_rows": rows,
          "qmlp_kernel_rows": qmlp_rows,
          "train_kernel_rows": train_rows, "serve": serve, "reference": reference,
          "view": view, "train": train,

@@ -11,15 +11,25 @@
 // Hopper every corner is one direct gather of row 8*hi+s, lane lo, and
 // every gradient contribution one atomic add there.
 //
-// What bounds F32-ENC on an H100: bytes.  Each (point, pack*level)
-// output pair does 8 random 8-byte (f32 pair) gathers and about 200
-// integer/float operations, far below the compute lines; the gathers are
-// the cost.  Design: one thread per (point, pack*level), a grid-stride
-// loop, no shared memory.  Consecutive threads take consecutive levels of
-// one point, so the position loads broadcast and the two output stores of
-// a warp fall in a few 32-byte sectors.  The f32 masters are rounded to
-// bf16 in registers (__float2bfloat16_rn), which equals the reference's
-// table.astype(bf16) without a per-frame pack pass over the table.
+// What bounds F32-ENC on an H100: bytes.  Each (point, pack*level) output
+// pair does 8 random gathers of an f32 pair and about 200 integer/float
+// operations, far below the compute lines; the cost is the 32-byte
+// sectors the gathers touch.  The P packs of a pyramid share every
+// corner index, so the design is Q-ENC's (below): a block per tile of
+// consecutive points, threads over (level, point) with the point
+// fastest, the index math once per (point, level) for all P packs, the
+// tile's output rows staged in shared memory and stored whole, and per
+// pack the 8-corner sum in one fixed order.  At 2 and 4 packs a corner
+// is read from a pack-interleaved bf16 copy [L, rows, 128, P] of JAX's
+// pack_table words (bf16(f0) << 16 | bf16(f1)), which pack_bf16_kernel
+// (BF16-PACK) makes on every call: one 8- or 16-byte load, one sector at
+// P = 4, where P float2 loads from the master's P slabs touch P sectors
+// (on an H100, SAM pyramid at uniform positions: 0.73 ms with the pack
+// against 2.74 ms from the master).  The copy is exact, since the kernel reads at bf16 either
+// way, and is never cached: the table changes in place on every
+// optimizer step.  At one pack the master is read directly and rounded
+// to bf16 in registers (__float2bfloat16_rn, the reference's
+// table.astype(bf16)).
 //
 // Q-ENC reads the pack-interleaved serve table [L, rows_q, 128, P] (an
 // exact permutation of the packed [P*L, rows_q, 128], made once when the
@@ -39,15 +49,26 @@
 //
 // F32-ENC-BWD is bound by its atomics: per (point, pack*level) 8 random
 // 8-byte read-modify-writes in L2 against about 200 integer/float
-// operations.  Same thread layout as the forward; the index math is the
-// forward's own point_level / corner, so a gradient cannot land on
-// another row than the value it came from.  A (point, level) whose two
-// cotangents are both 0 adds nothing and is skipped, which is exact and
-// removes the hot spot of points outside the unit cube, all moved to the
-// origin.  Sums stay in f32 and are not rounded to bf16 (the JAX CPU
-// reference rounds the accumulated gradient; the TPU v2 kernel rounds each
-// product): tests hold the two at rtol 1e-2 / atol 1e-4.  Atomics add in
-// an order that changes from run to run.
+// operations.  Same mapping as the forward: a thread per (point, level)
+// of a point-fastest tile, whose cotangent rows are staged in shared
+// memory first (one coalesced read); the index math is the forward's own
+// point_level / corner, so a gradient cannot land on another row than
+// the value it came from.  Before the atomics, the lanes of a warp that
+// hit one cell merge their sums (merge_peers: __match_any_sync and a
+// shuffle tree), so samples of a ray that share a coarse cell cost one
+// atomic, not one each.  The sums go to a zeroed [L, rows, 128, P, 2]
+// where the 2P sums of a cell are adjacent: at P = 4 one 32-byte sector,
+// two float4 atomics, where P float2 atomics into the master layout
+// touch P sectors (on an H100, SAM pyramid at uniform positions: 1.89 ms
+// with the de-interleave against 5.68 ms); deinterleave_grad_kernel (GRAD-DEINTERLEAVE) then writes the
+// gradient in the master layout.  At one pack that array is the master
+// layout.  A (point, level) whose 2P cotangents are all 0 adds nothing
+// and is skipped, which is exact and removes the hot spot of points
+// outside the unit cube, all moved to the origin.  Sums stay in f32 and
+// are not rounded to bf16 (the JAX CPU reference rounds the accumulated
+// gradient; the TPU v2 kernel rounds each product): tests hold the two
+// at rtol 1e-2 / atol 1e-4.  Atomics add in an order that changes from
+// run to run.
 //
 // FUSED-QMLP computes relu(enc @ w1 + b1) @ w2 + b2 for the serve heads,
 // enc the Q-ENC features of 1-4 stacked pyramids, without writing enc
@@ -174,40 +195,9 @@ __device__ __forceinline__ Corner corner(const PointLevel& q, int s, int l,
   return c;
 }
 
-__global__ void f32_encode_kernel(const float2* __restrict__ table,
-                                  const float* __restrict__ pos,
-                                  float* __restrict__ out, long long n,
-                                  const Plan p) {
-  const int L = p.num_levels;
-  const int PL = p.num_packed * L;
-  const long long total = n * PL;
-  for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       t < total; t += (long long)gridDim.x * blockDim.x) {
-    const long long pt = t / PL;
-    const int pl = (int)(t - pt * PL);
-    const int pk = pl / L, l = pl - pk * L;
-    const PointLevel q = point_level(pos, pt, p.scale[l]);
-    const float2* tab = table + (long long)pl * p.rows * kLanes;
-    float a0 = 0.0f, a1 = 0.0f;
-#pragma unroll
-    for (int s = 0; s < kParities; ++s) {
-      const Corner c = corner(q, s, l, p);
-      const uint32_t hi = c.entry >> 7, lo = c.entry & (kLanes - 1u);
-      const float2 v = __ldg(tab + ((long long)(kParities * hi + s) * kLanes + lo));
-      const float v0 = __bfloat162float(__float2bfloat16_rn(v.x));
-      const float v1 = __bfloat162float(__float2bfloat16_rn(v.y));
-      a0 = __fadd_rn(a0, __fmul_rn(v0, c.w));
-      a1 = __fadd_rn(a1, __fmul_rn(v1, c.w));
-    }
-    float* o = out + pt * (2LL * PL);
-    o[(2 * pk) * L + l] = a0;
-    o[(2 * pk + 1) * L + l] = a1;
-  }
-}
+// --- pack-interleaved tables and staged tiles, shared by the encodes
 
-// --- Q-ENC: the quantized encode over the pack-interleaved serve table
-
-// The P packed words of one (level, row, lane) of the interleaved table
+// The P packed words of one (level, row, lane) of an interleaved table
 // [L, rows, 128, P]: one 4-, 8- or 16-byte load.
 template <int P>
 __device__ __forceinline__ void load_packs(const uint32_t* __restrict__ tab,
@@ -222,6 +212,164 @@ __device__ __forceinline__ void load_packs(const uint32_t* __restrict__ tab,
     w[0] = __ldg(tab + idx);
   }
 }
+
+// Words of one level's slab of an interleaved table.
+__device__ __forceinline__ long long level_words(const Plan& p) {
+  return (long long)p.rows * kLanes * p.num_packed;
+}
+
+// Store a tile's staged output rows (cnt rows of C channels at row stride
+// cs in shared memory) to ``out``, where they are contiguous.
+__device__ __forceinline__ void store_tile(float* __restrict__ out, const float* stage,
+                                           int cnt, int C, int cs) {
+  int k = threadIdx.x;
+  int i = k / C, ch = k - i * C;
+  const int di = blockDim.x / C, dc = blockDim.x - di * C;
+  for (; k < cnt * C; k += blockDim.x) {
+    out[k] = stage[i * cs + ch];
+    i += di;
+    ch += dc;
+    if (ch >= C) {
+      ch -= C;
+      ++i;
+    }
+  }
+}
+
+// The reverse: stage cnt contiguous rows of C channels from ``src``.
+__device__ __forceinline__ void load_tile(float* stage, const float* __restrict__ src,
+                                          int cnt, int C, int cs) {
+  int k = threadIdx.x;
+  int i = k / C, ch = k - i * C;
+  const int di = blockDim.x / C, dc = blockDim.x - di * C;
+  for (; k < cnt * C; k += blockDim.x) {
+    stage[i * cs + ch] = __ldg(src + k);
+    i += di;
+    ch += dc;
+    if (ch >= C) {
+      ch -= C;
+      ++i;
+    }
+  }
+}
+
+constexpr int kTileThreads = 256;
+
+// The largest tile of at most 256 points, and at least 32, whose staged
+// rows (C channels at the odd stride C|1) fit 32 KB: a multiple of the
+// warp, so a warp's 32 lanes share one level.
+inline int tile_for(int channels) {
+  const int cs = channels | 1;
+  int tile = 256;
+  while (tile > 32 && tile * cs * 4 > 32 * 1024) tile /= 2;
+  return tile;
+}
+
+// --- F32-ENC: the f32 encode, one index computation per (point, level)
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// JAX's pack_table word of an f32 pair: bf16(f0) << 16 | bf16(f1).
+__device__ __forceinline__ uint32_t bf16_word(float2 x) {
+  return ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x.x)) << 16) |
+         (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(x.y));
+}
+
+// The P feature pairs of level l's table cell ``cell`` = (8*hi+s)*128+lo,
+// at bf16 precision: at one pack a float2 load from the master table
+// [L, rows, 128, 2], rounded in registers (a bf16 copy would touch as many
+// sectors); at 2 and 4 packs one load of the P words of the bf16 copy
+// [L, rows, 128, P].
+template <int P>
+__device__ __forceinline__ void load_f32_cell(const void* __restrict__ table,
+                                              const Plan& p, int l, long long cell,
+                                              float2 (&v)[P]) {
+  if constexpr (P == 1) {
+    const float2 x = __ldg(static_cast<const float2*>(table) +
+                           (long long)l * p.rows * kLanes + cell);
+    v[0] = make_float2(bf16_round(x.x), bf16_round(x.y));
+  } else {
+    uint32_t w[P];
+    load_packs<P>(static_cast<const uint32_t*>(table) + l * level_words(p), cell, w);
+#pragma unroll
+    for (int pk = 0; pk < P; ++pk)
+      v[pk] = make_float2(__uint_as_float(w[pk] & 0xFFFF0000u), __uint_as_float(w[pk] << 16));
+  }
+}
+
+// One block per tile of consecutive points, as q_encode_kernel: threads
+// walk (level, point) with the point fastest, so a warp gathers one level
+// for 32 neighbouring points (the samples of one ray share its coarse
+// cells); the 8 corners' index math runs once for all P packs; per pack
+// a += v*w over s = 0..7 in rounded f32, as the old one-pair-per-thread
+// kernel summed; the tile's rows are staged at an odd stride and stored
+// whole.
+template <int P>
+__global__ void __launch_bounds__(kTileThreads)
+f32_encode_kernel(const void* __restrict__ table, const float* __restrict__ pos,
+                  float* __restrict__ out, long long n, const Plan p, int tile) {
+  extern __shared__ float stage[];
+  const int L = p.num_levels;
+  const int C = 2 * P * L;
+  const int cs = C | 1;
+  const long long base = (long long)blockIdx.x * tile;
+  const int cnt = (int)min((long long)tile, n - base);
+  for (int t = threadIdx.x; t < L * tile; t += blockDim.x) {
+    const int l = t / tile, i = t - l * tile;
+    if (i >= cnt) continue;
+    const PointLevel q = point_level(pos, base + i, p.scale[l]);
+    float2 a[P];
+#pragma unroll
+    for (int pk = 0; pk < P; ++pk) a[pk] = make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int s = 0; s < kParities; ++s) {
+      const Corner c = corner(q, s, l, p);
+      float2 v[P];
+      load_f32_cell<P>(
+          table, p, l, (long long)(kParities * (c.entry >> 7) + s) * kLanes + (c.entry & 127u),
+          v);
+#pragma unroll
+      for (int pk = 0; pk < P; ++pk) {
+        a[pk].x = __fadd_rn(a[pk].x, __fmul_rn(v[pk].x, c.w));
+        a[pk].y = __fadd_rn(a[pk].y, __fmul_rn(v[pk].y, c.w));
+      }
+    }
+    float* st = stage + i * cs + l;
+#pragma unroll
+    for (int pk = 0; pk < P; ++pk) {
+      st[(2 * pk) * L] = a[pk].x;
+      st[(2 * pk + 1) * L] = a[pk].y;
+    }
+  }
+  __syncthreads();
+  store_tile(out + base * C, stage, cnt, C, cs);
+}
+
+// BF16-PACK: the master table [P*L, rows, 128, 2] f32 -> the bf16 copy
+// [L, rows, 128, P] of u32 words (P in {2, 4}); a thread per (level, row,
+// lane), P coalesced float2 reads and one 8- or 16-byte store.
+template <int P>
+__global__ void __launch_bounds__(kTileThreads)
+pack_bf16_kernel(const float2* __restrict__ table, uint32_t* __restrict__ out,
+                 long long per_level, int num_levels) {
+  const long long total = per_level * num_levels;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
+       e += (long long)gridDim.x * blockDim.x) {
+    const long long l = e / per_level, k = e - l * per_level;
+    uint32_t w[P];
+#pragma unroll
+    for (int pk = 0; pk < P; ++pk)
+      w[pk] = bf16_word(__ldg(table + (pk * num_levels + l) * per_level + k));
+    if constexpr (P == 4)
+      reinterpret_cast<uint4*>(out)[e] = make_uint4(w[0], w[1], w[2], w[3]);
+    else
+      reinterpret_cast<uint2*>(out)[e] = make_uint2(w[0], w[1]);
+  }
+}
+
+// --- Q-ENC: the quantized encode over the pack-interleaved serve table
 
 // Q-ENC's arithmetic for one (point, level): the dequantized, trilinearly
 // weighted feature pair of each of the P packs, from the level's slab
@@ -274,13 +422,6 @@ __device__ __forceinline__ void q_encode_packs(const uint32_t* __restrict__ tab,
   }
 }
 
-// Words of one level's slab of the interleaved table.
-__device__ __forceinline__ long long level_words(const Plan& p) {
-  return (long long)p.rows * kLanes * p.num_packed;
-}
-
-constexpr int kQencThreads = 256;
-
 // One block per tile of consecutive points; its threads walk (level,
 // point) with the point fastest, so a warp gathers one level for 32
 // neighbouring points.  Each (point, level) writes its 2P features into a
@@ -288,7 +429,7 @@ constexpr int kQencThreads = 256;
 // 32 banks), and the block then stores the tile's output rows, which are
 // contiguous in ``out``.
 template <int QBITS, int P>
-__global__ void __launch_bounds__(kQencThreads)
+__global__ void __launch_bounds__(kTileThreads)
 q_encode_kernel(const uint32_t* __restrict__ packed,
                 const float* __restrict__ qscales,
                 const float* __restrict__ pos, float* __restrict__ out,
@@ -313,19 +454,7 @@ q_encode_kernel(const uint32_t* __restrict__ packed,
     }
   }
   __syncthreads();
-  float* o = out + base * C;
-  int k = threadIdx.x;
-  int i = k / C, ch = k - i * C;
-  const int di = blockDim.x / C, dc = blockDim.x - di * C;
-  for (; k < cnt * C; k += blockDim.x) {
-    o[k] = stage[i * cs + ch];
-    i += di;
-    ch += dc;
-    if (ch >= C) {
-      ch -= C;
-      ++i;
-    }
-  }
+  store_tile(out + base * C, stage, cnt, C, cs);
 }
 
 // --- FUSED-QMLP: quantized encode of 1-4 stacked pyramids + a 1-hidden-layer MLP
@@ -780,41 +909,130 @@ qmlp_kernel(const float* __restrict__ pos, const float* __restrict__ w1,
     mlp_simt<T, TM1, TN1, TM2, TN2>(a, pipe, encT, hT, XS, b1, b2, out, base, n);
 }
 
+// --- F32-ENC-BWD: the table gradient
+
 // Add 2 floats at *dst.  sm_90 has 8-byte float2 atomics on global
 // memory from CUDA 12.1; older toolkits take two 4-byte ones.
-__device__ __forceinline__ void atomic_add2(float2* dst, float a, float b) {
+__device__ __forceinline__ void atomic_add2(float* dst, float a, float b) {
 #if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900 && CUDART_VERSION >= 12010
-  atomicAdd(dst, make_float2(a, b));
+  atomicAdd(reinterpret_cast<float2*>(dst), make_float2(a, b));
 #else
-  atomicAdd(&dst->x, a);
-  atomicAdd(&dst->y, b);
+  atomicAdd(dst, a);
+  atomicAdd(dst + 1, b);
 #endif
 }
 
-__global__ void f32_encode_bwd_kernel(const float* __restrict__ pos,
-                                      const float* __restrict__ gout,
-                                      float2* __restrict__ grad, long long n,
-                                      const Plan p) {
+// Add 4 floats at *dst (16-byte aligned): one float4 atomic on sm_90 from
+// CUDA 12.1, else four 4-byte ones.
+__device__ __forceinline__ void atomic_add4(float* dst, const float* v) {
+#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900 && CUDART_VERSION >= 12010
+  atomicAdd(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
+#else
+  for (int k = 0; k < 4; ++k) atomicAdd(dst + k, v[k]);
+#endif
+}
+
+// Sum v over the lanes of this warp that hold the same key.  Every lane
+// of the warp calls it (lanes with nothing to add pass keys no other lane
+// holds).  Returns true on the lowest lane of each group of equal keys,
+// which then holds the group's sums: a tree over the group's lanes in lane
+// order, log2(group size) rounds of shuffles, none when all keys differ.
+template <int K>
+__device__ __forceinline__ bool merge_peers(uint32_t key, float (&v)[K]) {
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned below = (1u << lane) - 1u;
+  unsigned peers = __match_any_sync(0xffffffffu, key);
+  const bool leader = (peers & below) == 0u;
+  unsigned rank = __popc(peers & below);     // position among the group's lanes
+  peers &= 0xfffffffeu << lane;              // the peers above this lane
+  while (__any_sync(0xffffffffu, peers != 0u)) {
+    const int next = __ffs(peers);           // 1 + the next peer still summing, or 0
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float x = __shfl_sync(0xffffffffu, v[k], (next - 1) & 31);
+      if (next) v[k] += x;
+    }
+    // lanes at odd rank have handed their sums down and stop
+    peers &= ~__ballot_sync(0xffffffffu, rank & 1u);
+    rank >>= 1;
+  }
+  return leader;
+}
+
+// One block per tile of consecutive points, the forward's mapping: the
+// tile's cotangent rows are staged in shared memory (one coalesced read),
+// then threads walk (level, point) with the point fastest, so a warp's 32
+// lanes are 32 neighbouring points at one level (tile is a multiple of
+// 32).  Per (point, level) the 8 corners come from the forward's
+// point_level / corner; per corner the lanes that hit one cell merge
+// their 2P products (merge_peers) and the group's lowest lane adds them
+// into ``grad`` [L, rows, 128, P, 2], where the 2P sums of a cell are
+// adjacent: one float2 atomic at one pack (the layout is then the master
+// layout), float4 atomics at 2 and 4 packs (the scratch, one 32-byte
+// sector a cell at 4).  A (point, level) with all 2P cotangents 0, or
+// beyond n, adds nothing; a warp with no such lane skips the level.
+template <int P>
+__global__ void __launch_bounds__(kTileThreads)
+f32_encode_bwd_kernel(const float* __restrict__ pos, const float* __restrict__ gout,
+                      float* __restrict__ grad, long long n, const Plan p, int tile) {
+  extern __shared__ float stage[];
   const int L = p.num_levels;
-  const int PL = p.num_packed * L;
-  const long long total = n * PL;
-  for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       t < total; t += (long long)gridDim.x * blockDim.x) {
-    const long long pt = t / PL;
-    const int pl = (int)(t - pt * PL);
-    const int pk = pl / L, l = pl - pk * L;
-    const float* g = gout + pt * (2LL * PL);
-    const float g0 = g[(2 * pk) * L + l];
-    const float g1 = g[(2 * pk + 1) * L + l];
-    if (g0 == 0.0f && g1 == 0.0f) continue;
-    const PointLevel q = point_level(pos, pt, p.scale[l]);
-    float2* tab = grad + (long long)pl * p.rows * kLanes;
+  const int C = 2 * P * L;
+  const int cs = C | 1;
+  const long long base = (long long)blockIdx.x * tile;
+  const int cnt = (int)min((long long)tile, n - base);
+  load_tile(stage, gout + base * C, cnt, C, cs);
+  __syncthreads();
+  const uint32_t lane = threadIdx.x & 31u;
+  const long long slab = (long long)p.rows * kLanes;     // cells of a level
+  for (int t = threadIdx.x; t < L * tile; t += blockDim.x) {
+    const int l = t / tile, i = t - l * tile;
+    float g[2 * P];
+    bool live = false;
+#pragma unroll
+    for (int k = 0; k < 2 * P; ++k) {
+      g[k] = i < cnt ? stage[i * cs + k * L + l] : 0.0f;
+      live |= g[k] != 0.0f;
+    }
+    if (!__any_sync(0xffffffffu, live)) continue;
+    const PointLevel q = point_level(pos, live ? base + i : base, p.scale[l]);
 #pragma unroll
     for (int s = 0; s < kParities; ++s) {
       const Corner c = corner(q, s, l, p);
-      const uint32_t hi = c.entry >> 7, lo = c.entry & (kLanes - 1u);
-      atomic_add2(tab + ((long long)(kParities * hi + s) * kLanes + lo),
-                  __fmul_rn(g0, c.w), __fmul_rn(g1, c.w));
+      const uint32_t cell = (kParities * (c.entry >> 7) + s) * kLanes + (c.entry & 127u);
+      float v[2 * P];
+#pragma unroll
+      for (int k = 0; k < 2 * P; ++k) v[k] = __fmul_rn(g[k], c.w);
+      if (!merge_peers<2 * P>(live ? cell : 0x80000000u | lane, v) || !live) continue;
+      float* dst = grad + ((long long)l * slab + cell) * (2 * P);
+      if constexpr (P == 1) {
+        atomic_add2(dst, v[0], v[1]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 2 * P; k += 4)
+          if (v[k] != 0.0f || v[k + 1] != 0.0f || v[k + 2] != 0.0f || v[k + 3] != 0.0f)
+            atomic_add4(dst + k, v + k);
+      }
+    }
+  }
+}
+
+// GRAD-DEINTERLEAVE: the scratch [L, rows, 128, P, 2] -> the gradient in
+// the master layout [P*L, rows, 128, 2]; a thread per (level, row, lane),
+// P/2 float4 reads and P coalesced float2 stores.
+template <int P>
+__global__ void __launch_bounds__(kTileThreads)
+deinterleave_grad_kernel(const float4* __restrict__ scratch, float2* __restrict__ grad,
+                         long long per_level, int num_levels) {
+  const long long total = per_level * num_levels;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
+       e += (long long)gridDim.x * blockDim.x) {
+    const long long l = e / per_level, k = e - l * per_level;
+#pragma unroll
+    for (int h = 0; h < P / 2; ++h) {
+      const float4 x = __ldg(scratch + e * (P / 2) + h);
+      grad[((2 * h) * num_levels + l) * per_level + k] = make_float2(x.x, x.y);
+      grad[((2 * h + 1) * num_levels + l) * per_level + k] = make_float2(x.z, x.w);
     }
   }
 }
@@ -844,13 +1062,49 @@ unsigned int grid_for(long long total, int threads) {
   return (unsigned int)(blocks < 1 ? 1 : blocks);
 }
 
+// The f32 kernels' launches at P packs.
+template <int P>
+int launch_f32_fwd(const void* table, const void* pos, void* out, long long n, const Plan& p,
+                   cudaStream_t stream) {
+  const int tile = tile_for(2 * P * p.num_levels);
+  const int smem = tile * ((2 * P * p.num_levels) | 1) * 4;
+  f32_encode_kernel<P><<<(unsigned int)((n + tile - 1) / tile), kTileThreads, smem, stream>>>(
+      table, (const float*)pos, (float*)out, n, p, tile);
+  return (int)cudaGetLastError();
+}
+
+template <int P>
+int launch_f32_bwd(const void* pos, const void* gout, void* grad, long long n, const Plan& p,
+                   cudaStream_t stream) {
+  const int tile = tile_for(2 * P * p.num_levels);
+  const int smem = tile * ((2 * P * p.num_levels) | 1) * 4;
+  f32_encode_bwd_kernel<P><<<(unsigned int)((n + tile - 1) / tile), kTileThreads, smem,
+                             stream>>>((const float*)pos, (const float*)gout, (float*)grad, n,
+                                       p, tile);
+  return (int)cudaGetLastError();
+}
+
+// Checks shared by the f32 launchers; 0 when the call may proceed.
+int check_f32(long long n, int num_levels, int num_packed, int num_steps) {
+  if (num_packed != 1 && num_packed != 2 && num_packed != 4) return (int)cudaErrorInvalidValue;
+  // cell keys of the backward's warp merge stay below 2^31
+  if ((long long)num_steps * kParities * kLanes >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  const int tile = tile_for(2 * num_packed * num_levels);
+  if ((n + tile - 1) / tile > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  Pointers are device pointers
 // except the per-level plan arrays (scale, inv, dense, half), which are
 // host arrays copied into the kernel's parameter block.  Returns the
-// cudaError_t of the launch.  Outputs are allocated by the caller; the
-// gradient table must arrive zeroed.
+// cudaError_t of the launch.  Outputs and scratch are allocated by the
+// caller.
+
+// F32-ENC.  ``table`` is, at one pack, the master [L, steps*8, 128, 2]
+// f32, and at 2 and 4 packs its bf16 copy [L, steps*8, 128, P] from
+// parity_hash_pack_bf16, 16-byte aligned.
 extern "C" int parity_hash_encode_f32(const void* table, const void* pos,
                                       void* out, long long n, int num_levels,
                                       int num_packed, int num_steps,
@@ -861,13 +1115,31 @@ extern "C" int parity_hash_encode_f32(const void* table, const void* pos,
   Plan p;
   int err = make_plan(&p, num_levels, num_packed, num_steps, table_bits,
                       key_bits, num_steps * kParities, scale, inv, dense, half);
+  if (!err) err = check_f32(n, num_levels, num_packed, num_steps);
   if (err) return err;
-  const long long total = n * num_packed * num_levels;
-  if (total == 0) return 0;
-  const int threads = 256;
-  f32_encode_kernel<<<grid_for(total, threads), threads, 0,
-                      (cudaStream_t)stream>>>(
-      (const float2*)table, (const float*)pos, (float*)out, n, p);
+  if (n == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (num_packed) {
+    case 1: return launch_f32_fwd<1>(table, pos, out, n, p, st);
+    case 2: return launch_f32_fwd<2>(table, pos, out, n, p, st);
+    default: return launch_f32_fwd<4>(table, pos, out, n, p, st);
+  }
+}
+
+// BF16-PACK.  ``table`` [P*L, rows, 128, 2] f32 -> ``out`` [L, rows, 128,
+// P] u32 words bf16(f0) << 16 | bf16(f1) (P in {2, 4}, 16-byte aligned).
+extern "C" int parity_hash_pack_bf16(const void* table, void* out, int num_levels,
+                                     int num_packed, long long rows, void* stream) {
+  if (num_levels < 1 || (num_packed != 2 && num_packed != 4)) return (int)cudaErrorInvalidValue;
+  const long long per_level = rows * kLanes;
+  const unsigned int grid = grid_for(per_level * num_levels, kTileThreads);
+  cudaStream_t st = (cudaStream_t)stream;
+  const float2* t = (const float2*)table;
+  uint32_t* o = (uint32_t*)out;
+  if (num_packed == 4)
+    pack_bf16_kernel<4><<<grid, kTileThreads, 0, st>>>(t, o, per_level, num_levels);
+  else
+    pack_bf16_kernel<2><<<grid, kTileThreads, 0, st>>>(t, o, per_level, num_levels);
   return (int)cudaGetLastError();
 }
 
@@ -876,7 +1148,7 @@ void launch_q_encode(const void* packed, const void* qscales, const void* pos,
                      void* out, long long n, const Plan& p, int tile, int smem,
                      cudaStream_t stream) {
   const long long blocks = (n + tile - 1) / tile;
-  q_encode_kernel<QBITS, P><<<(unsigned int)blocks, kQencThreads, smem, stream>>>(
+  q_encode_kernel<QBITS, P><<<(unsigned int)blocks, kTileThreads, smem, stream>>>(
       (const uint32_t*)packed, (const float*)qscales, (const float*)pos, (float*)out, n,
       p, tile);
 }
@@ -898,10 +1170,8 @@ extern "C" int parity_hash_encode_q(const void* packed, const void* qscales,
       (num_packed != 1 && num_packed != 2 && num_packed != 4))
     return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  // the largest tile of at most 256 points whose staged rows fit 32 KB
   const int cs = (2 * num_packed * num_levels) | 1;
-  int tile = 256;
-  while (tile > 32 && tile * cs * 4 > 32 * 1024) tile /= 2;
+  const int tile = tile_for(2 * num_packed * num_levels);
   const int smem = tile * cs * 4;
   if ((n + tile - 1) / tile > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
@@ -1029,6 +1299,10 @@ extern "C" int parity_hash_encode_qmlp(
                     : dispatch_qmlp<4>(a, pos, w1, b1, w2, b2, out, n, st);
 }
 
+// F32-ENC-BWD.  ``grad`` [L, steps*8, 128, P, 2] f32 must arrive zeroed
+// (the master layout at one pack, else the scratch for
+// parity_hash_deinterleave_grad), 16-byte aligned.  gout [n, 2PL] f32.
+// P in {1, 2, 4}.
 extern "C" int parity_hash_encode_f32_bwd(const void* pos, const void* gout,
                                           void* grad, long long n,
                                           int num_levels, int num_packed,
@@ -1039,12 +1313,30 @@ extern "C" int parity_hash_encode_f32_bwd(const void* pos, const void* gout,
   Plan p;
   int err = make_plan(&p, num_levels, num_packed, num_steps, table_bits,
                       key_bits, num_steps * kParities, scale, inv, dense, half);
+  if (!err) err = check_f32(n, num_levels, num_packed, num_steps);
   if (err) return err;
-  const long long total = n * num_packed * num_levels;
-  if (total == 0) return 0;
-  const int threads = 256;
-  f32_encode_bwd_kernel<<<grid_for(total, threads), threads, 0,
-                          (cudaStream_t)stream>>>(
-      (const float*)pos, (const float*)gout, (float2*)grad, n, p);
+  if (n == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (num_packed) {
+    case 1: return launch_f32_bwd<1>(pos, gout, grad, n, p, st);
+    case 2: return launch_f32_bwd<2>(pos, gout, grad, n, p, st);
+    default: return launch_f32_bwd<4>(pos, gout, grad, n, p, st);
+  }
+}
+
+// GRAD-DEINTERLEAVE.  ``scratch`` [L, rows, 128, P, 2] f32 -> ``grad``
+// [P*L, rows, 128, 2] f32, P in {2, 4}.
+extern "C" int parity_hash_deinterleave_grad(const void* scratch, void* grad, int num_levels,
+                                             int num_packed, long long rows, void* stream) {
+  if (num_levels < 1 || (num_packed != 2 && num_packed != 4)) return (int)cudaErrorInvalidValue;
+  const long long per_level = rows * kLanes;
+  const unsigned int grid = grid_for(per_level * num_levels, kTileThreads);
+  cudaStream_t st = (cudaStream_t)stream;
+  const float4* src = (const float4*)scratch;
+  float2* dst = (float2*)grad;
+  if (num_packed == 4)
+    deinterleave_grad_kernel<4><<<grid, kTileThreads, 0, st>>>(src, dst, per_level, num_levels);
+  else
+    deinterleave_grad_kernel<2><<<grid, kTileThreads, 0, st>>>(src, dst, per_level, num_levels);
   return (int)cudaGetLastError();
 }

@@ -95,6 +95,15 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def nvcc_version() -> str:
+    """The toolkit's release line (``nvcc --version``), e.g. "Cuda
+    compilation tools, release 12.4, V12.4.131"."""
+    out = subprocess.run([_nvcc(), "--version"], check=True, capture_output=True,
+                         text=True).stdout
+    return next((line.strip() for line in out.splitlines() if "release" in line),
+                out.strip())
+
+
 def kernel_resources(name: str) -> List[dict]:
     """Per kernel of ``csrc/<name>.cu`` (mangled name), as ``ptxas``
     reported them when this build of the source was compiled: registers

@@ -20,8 +20,12 @@ gradient :func:`parity_hash_encode_bwd` (F32-ENC-BWD) into autograd for
 training.  Q-ENC and FUSED-QMLP read the packed tables in the serve
 layout of :func:`interleave_packs`, ``[L, rows_q, 128, P]``, where the P
 packs of one (level, row, lane) sit side by side; the packed
-``[P*L, rows_q, 128]`` stays the checkpoint format.  Each wrapper runs
-its plain PyTorch version
+``[P*L, rows_q, 128]`` stays the checkpoint format.  At 2 and 4 packs
+F32-ENC reads the same layout of bf16 words, which :func:`pack_bf16_table`
+(BF16-PACK) makes from the master on every call, and F32-ENC-BWD adds
+into a scratch of that layout, which :func:`deinterleave_table_grad`
+(GRAD-DEINTERLEAVE) turns into the master layout; both passes count their
+launches apart.  Each wrapper runs its plain PyTorch version
 (:func:`parity_hash_encode_ref`, :func:`_parity_hash_encode_q8_ref`,
 :func:`_parity_hash_encode_qmlp_ref`, :func:`parity_hash_encode_bwd_ref`)
 for CPU tensors and launches the kernel for CUDA tensors; ``launches`` on
@@ -303,6 +307,79 @@ def deinterleave_packs(table: torch.Tensor) -> torch.Tensor:
         torch.float32)
 
 
+def _bf16_words(table: torch.Tensor) -> torch.Tensor:
+    """[..., 2] f32 pairs -> [...] f32 holding JAX's ``pack_table`` word
+    of each pair, ``bf16(f0) << 16 | bf16(f1)`` (``hash_pallas.py:323``)."""
+    b = table.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
+    u32 = (b[..., 0] << 16) | b[..., 1]
+    return torch.where(u32 >= 1 << 31, u32 - (1 << 32), u32).to(torch.int32).view(
+        torch.float32)
+
+
+def pack_bf16_table(table: torch.Tensor, num_levels: int) -> torch.Tensor:
+    """BF16-PACK: the f32 master table [P*L, rows, 128, 2] -> its
+    pack-interleaved bf16 copy [L, rows, 128, P], f32 holding the u32 word
+    ``bf16(f0) << 16 | bf16(f1)`` of JAX's ``pack_table``, permuted as
+    :func:`interleave_packs` permutes the packed q8 words: the P words of
+    one (level, row, lane) are adjacent, so F32-ENC gathers a corner of
+    all packs in one 8- or 16-byte load.  Exact, since F32-ENC reads the
+    table at bf16 either way.  P in {2, 4}.  A fresh tensor on every
+    call: the master changes in place on every optimizer step.  CPU
+    tensors run the plain version; CUDA tensors launch
+    ``pack_bf16_kernel``."""
+    if table.dtype != torch.float32 or table.ndim != 4 or table.shape[0] % num_levels \
+            or table.shape[2:] != (LANES, 2) or not table.is_contiguous():
+        raise ValueError(f"table must be a contiguous [P*L, rows, 128, 2] float32 tensor "
+                         f"with L = {num_levels}, got {table.dtype} {tuple(table.shape)}")
+    num_packed = table.shape[0] // num_levels
+    if num_packed not in (2, 4):
+        raise ValueError(f"the bf16 copy takes 2 or 4 packs, got {num_packed}")
+    if table.device.type == "cpu":
+        return interleave_packs(_bf16_words(table), num_levels)
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    rows = table.shape[1]
+    out = torch.empty((num_levels, rows, LANES, num_packed), dtype=torch.float32,
+                      device=table.device)
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    _launch(_lib().parity_hash_pack_bf16, _ptr(table), _ptr(out), num_levels, num_packed,
+            rows, ctypes.c_void_p(stream))
+    pack_bf16_table.launches += 1
+    return out
+
+
+pack_bf16_table.launches = 0
+
+
+def deinterleave_table_grad(scratch: torch.Tensor) -> torch.Tensor:
+    """GRAD-DEINTERLEAVE: a table gradient accumulated in the
+    pack-interleaved layout [L, rows, 128, P, 2] -> the master layout
+    [P*L, rows, 128, 2] (row ``p*L + l``), exact; P in {2, 4}.  CPU
+    tensors run the plain version (a permuted copy); CUDA tensors launch
+    ``deinterleave_grad_kernel``."""
+    if scratch.dtype != torch.float32 or scratch.ndim != 5 or scratch.shape[2] != LANES \
+            or scratch.shape[3] not in (2, 4) or scratch.shape[4] != 2 \
+            or not scratch.is_contiguous():
+        raise ValueError("scratch must be a contiguous [L, rows, 128, P, 2] float32 tensor "
+                         f"with P in {{2, 4}}, got {scratch.dtype} {tuple(scratch.shape)}")
+    num_levels, rows, _, num_packed, _ = scratch.shape
+    if scratch.device.type == "cpu":
+        return scratch.permute(3, 0, 1, 2, 4).reshape(num_packed * num_levels, rows,
+                                                      LANES, 2)
+    if scratch.device.type != "cuda":
+        raise ValueError(f"unsupported device {scratch.device}")
+    grad = torch.empty((num_packed * num_levels, rows, LANES, 2), dtype=torch.float32,
+                       device=scratch.device)
+    stream = torch.cuda.current_stream(scratch.device).cuda_stream
+    _launch(_lib().parity_hash_deinterleave_grad, _ptr(scratch), _ptr(grad), num_levels,
+            num_packed, rows, ctypes.c_void_p(stream))
+    deinterleave_table_grad.launches += 1
+    return grad
+
+
+deinterleave_table_grad.launches = 0
+
+
 def is_parity_table(leaf) -> bool:
     """True for a master table leaf ([PL, steps*8, 128, 2] f32)."""
     return (isinstance(leaf, torch.Tensor) and leaf.ndim == 4
@@ -414,6 +491,8 @@ def _np_ptr(a: np.ndarray) -> ctypes.c_void_p:
 
 _F32_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 5
                  + [ctypes.c_void_p] * 5)
+_PASS_ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_longlong,
+                                                                ctypes.c_void_p]
 _Q_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 7
                + [ctypes.c_void_p] * 5)
 _QMLP_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_longlong]
@@ -432,7 +511,15 @@ def _lib():
     lib.parity_hash_encode_f32_bwd.restype = ctypes.c_int
     lib.parity_hash_encode_qmlp.argtypes = _QMLP_ARGTYPES
     lib.parity_hash_encode_qmlp.restype = ctypes.c_int
+    for fn in (lib.parity_hash_pack_bf16, lib.parity_hash_deinterleave_grad):
+        fn.argtypes = _PASS_ARGTYPES
+        fn.restype = ctypes.c_int
     return lib
+
+
+def _check_f32_packs(num_packed: int) -> None:
+    if num_packed not in (1, 2, 4):
+        raise ValueError(f"the f32 kernels take 1, 2 or 4 packs, got {num_packed}")
 
 
 def parity_hash_encode(table: torch.Tensor, positions: torch.Tensor,
@@ -444,7 +531,9 @@ def parity_hash_encode(table: torch.Tensor, positions: torch.Tensor,
     Replaces ``hash_pallas.py`` ``_fwd_kernel`` / ``_fwd_kernel_v2`` /
     ``_fwd_kernel_v4`` (one function, three TPU schedules).  CPU tensors
     run :func:`parity_hash_encode_ref`; CUDA tensors launch
-    ``f32_encode_kernel`` on the current stream."""
+    ``f32_encode_kernel<P>`` on the current stream (P in {1, 2, 4}); at 2
+    and 4 packs it reads the bf16 copy :func:`pack_bf16_table` makes in
+    this call, one load per corner of all packs."""
     _check_common(positions, scalings, num_steps, hash_fn)
     num_levels = len(scalings)
     if table.dtype != torch.float32 or table.ndim != 4 \
@@ -459,15 +548,17 @@ def parity_hash_encode(table: torch.Tensor, positions: torch.Tensor,
                                       hash_fn)
     if positions.device.type != "cuda":
         raise ValueError(f"unsupported device {positions.device}")
+    num_packed = table.shape[0] // num_levels
+    _check_f32_packs(num_packed)
     plan = _level_plan(scalings, num_steps)
     scale, inv, dense, half, key_bits, table_bits = _plan_arrays(
         plan, num_steps, hash_fn)
-    num_packed = table.shape[0] // num_levels
+    src = pack_bf16_table(table, num_levels) if num_packed > 1 else table
     n = positions.shape[0]
     out = torch.empty((n, num_packed * 2 * num_levels), dtype=torch.float32,
                       device=positions.device)
     stream = torch.cuda.current_stream(positions.device).cuda_stream
-    _launch(_lib().parity_hash_encode_f32, _ptr(table), _ptr(positions),
+    _launch(_lib().parity_hash_encode_f32, _ptr(src), _ptr(positions),
             _ptr(out), n, num_levels, num_packed, num_steps, table_bits,
             key_bits, _np_ptr(scale), _np_ptr(inv), _np_ptr(dense),
             _np_ptr(half), ctypes.c_void_p(stream))
@@ -599,8 +690,11 @@ def parity_hash_encode_bwd(grad_out: torch.Tensor, positions: torch.Tensor,
 
     Replaces ``hash_pallas.py`` ``_bwd_kernel`` / ``_bwd_kernel_v2`` /
     ``_bwd_kernel_v4``.  CPU tensors run :func:`parity_hash_encode_bwd_ref`;
-    CUDA tensors launch ``f32_encode_bwd_kernel`` on the current stream,
-    which sums in f32 with atomics (no bf16 rounding, run-to-run order)."""
+    CUDA tensors launch ``f32_encode_bwd_kernel<P>`` on the current stream
+    (P in {1, 2, 4}), which sums in f32 with atomics (no bf16 rounding,
+    run-to-run order) into a zeroed [L, steps*8, 128, P, 2]; at 2 and 4
+    packs :func:`deinterleave_table_grad` turns that scratch into the
+    master layout, at one pack it is the master layout."""
     _check_common(positions, scalings, num_steps, hash_fn)
     num_levels = len(scalings)
     if grad_out.dtype != torch.float32 or grad_out.ndim != 2 \
@@ -616,18 +710,22 @@ def parity_hash_encode_bwd(grad_out: torch.Tensor, positions: torch.Tensor,
                                           num_steps, hash_fn)
     if positions.device.type != "cuda":
         raise ValueError(f"unsupported device {positions.device}")
+    _check_f32_packs(num_packed)
     plan = _level_plan(scalings, num_steps)
     scale, inv, dense, half, key_bits, table_bits = _plan_arrays(
         plan, num_steps, hash_fn)
-    grad = torch.zeros((num_packed * num_levels, num_steps * PARITIES, LANES, 2),
-                       dtype=torch.float32, device=positions.device)
+    rows = num_steps * PARITIES
+    grad = torch.zeros((num_levels, rows, LANES, num_packed, 2), dtype=torch.float32,
+                       device=positions.device)
     stream = torch.cuda.current_stream(positions.device).cuda_stream
     _launch(_lib().parity_hash_encode_f32_bwd, _ptr(positions), _ptr(grad_out),
             _ptr(grad), positions.shape[0], num_levels, num_packed, num_steps,
-            table_bits, key_bits, _np_ptr(scale), _np_ptr(inv), _np_ptr(dense),
-            _np_ptr(half), ctypes.c_void_p(stream))
+            table_bits, key_bits, _np_ptr(scale), _np_ptr(inv),
+            _np_ptr(dense), _np_ptr(half), ctypes.c_void_p(stream))
     parity_hash_encode_bwd.launches += 1
-    return grad
+    if num_packed > 1:
+        return deinterleave_table_grad(grad)
+    return grad.view(num_levels, rows, LANES, 2)
 
 
 parity_hash_encode_bwd.launches = 0

@@ -1,17 +1,22 @@
-"""Time the quantized encode kernels (Q-ENC and FUSED-QMLP) of a checkout
-of the port, at uniform positions and at the positions a 512x512 static
-frame feeds each serve head, so two checkouts can be compared on one card.
+"""Time the hash kernels of a checkout of the port, so two checkouts can
+be compared on one card: the quantized encodes (Q-ENC and FUSED-QMLP) at
+uniform positions and at the positions a 512x512 static frame feeds each
+serve head, and the f32 encode and its backward (F32-ENC, F32-ENC-BWD) at
+the serve and training shapes, at uniform positions and at those of a
+frame or of a training step (with the step's cotangents).
 
 Run from the repository root on a machine with an NVIDIA GPU::
 
-    # the positions of one full-width int8 fused frame (random weights, seed 0)
+    # the positions of one full-width int8 fused frame (random weights,
+    # seed 0) and the encodes of one full-width training step
     python3 -m samnerf_tpu_torch.scripts.bench_encode --capture POS.pt
     # the kernels of the checkout at ROOT (default: this one) on them
     python3 -m samnerf_tpu_torch.scripts.bench_encode --positions POS.pt \\
-        [--root ROOT] [--tag NAME]
+        [--root ROOT] [--tag NAME] [--only f32|quantized]
 
 A checkout whose wrappers take the packed table layout (before
-``interleave_packs``) is timed on that layout.  Writes
+``interleave_packs``) is timed on that layout.  The f32 times include
+the layout passes the wrappers launch.  Writes
 ``chiprun_out/bench_encode_<tag>.json``.
 """
 from __future__ import annotations
@@ -38,6 +43,17 @@ QENC_SHAPES = [("nerfacto", 16, 1, 19, 1 << 20, 16, 2048, "nerfacto", 8),
                ("proposal", 5, 1, 17, 1 << 21, 16, 128, "proposal", 8),
                ("sam_pyramid", 12, 4, 19, 1 << 18, 128, 512, "sam", 8),
                ("sam_pyramid", 12, 4, 19, 1 << 18, 128, 512, "sam", 4)]
+# F32-ENC (and F32-ENC-BWD where ``step``) (name, levels, packs, log2
+# table size, uniform points, min res, max res, where): one 32768-ray
+# chunk of the static preset (frame positions of the head of that name),
+# and the encodes of one 16384-ray training step (step positions)
+F32_SHAPES = [("nerfacto", 16, 1, 19, 1 << 20, 16, 2048, "frame"),
+              ("proposal", 5, 1, 17, 1 << 21, 16, 128, "frame"),
+              ("sam_pyramid", 12, 4, 19, 1 << 18, 128, 512, "frame"),
+              ("proposal", 5, 1, 17, 16384 * 64, 16, 128, "step"),
+              ("nerfacto", 16, 1, 19, 16384 * 32, 16, 2048, "step"),
+              ("sam_pyramid", 12, 4, 19, 16384 * 16, 128, 512, "step")]
+FRAME_HEAD = {"nerfacto": "nerfacto", "proposal": "proposal", "sam_pyramid": "sam"}
 # FUSED-QMLP (head, uniform points, pyramids as (levels, packs, min res,
 # max res), log2 table size, hidden, out, qbits)
 QMLP_SHAPES = [("proposal", 1 << 21, [(5, 1, 16, 128)], 17, 16, 1, 8),
@@ -110,9 +126,67 @@ def _time_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def step_encodes(calls):
+    """Of the encodes of a training step (``capture_step_encodes``), the
+    first of each F32_SHAPES step shape, by name."""
+    from samnerf_tpu_torch.ops.encodings import hash_grid_scalings
+
+    out = {}
+    for name, L, P, log2, _, lo, hi, where in F32_SHAPES:
+        if where == "step":
+            scalings = hash_grid_scalings(L, lo, hi)
+            out[name] = next({k: c[k] for k in ("positions", "cotangent", "hash_fn")}
+                             for c in calls if c["levels"] == L and c["packs"] == P
+                             and c["num_steps"] == (1 << log2) // 1024
+                             and np.allclose(c["scalings"], scalings))
+    return out
+
+
+def bench_f32(dev, frame_pos, step_enc):
+    """Rows of (kernel, shape, positions, points, ms, max abs err or
+    tolerance ratio against the plain version) of F32-ENC and, at the
+    training shapes, F32-ENC-BWD."""
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    from samnerf_tpu_torch.ops.encodings import hash_grid_scalings
+
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for name, L, P, log2, n, lo, hi, where in F32_SHAPES:
+        steps = (1 << log2) // 1024
+        scalings = tuple(hash_grid_scalings(L, lo, hi).tolist())
+        table = hg.init_parity_table(gen, L, steps, P, scale=0.5, device=dev)
+        g = torch.randn((n, P * 2 * L), generator=gen, device=dev)
+        g *= (torch.rand((n,), generator=gen, device=dev) >= 0.1)[:, None]
+        cases = [("uniform", torch.rand((n, 3), generator=gen, device=dev), g, "morton")]
+        if where == "frame":
+            cases.append(("frame", frame_pos[FRAME_HEAD[name]], None, "morton"))
+        else:
+            c = step_enc[name]
+            cases.append(("step", c["positions"], c["cotangent"], c["hash_fn"]))
+        for positions, pos, cot, hash_fn in cases:
+            run = lambda: hg.parity_hash_encode(table, pos, scalings, steps, hash_fn)
+            ref = hg.parity_hash_encode_ref(table, pos, scalings, steps, hash_fn)
+            rows.append(dict(kernel="F32-ENC", shape=name, positions=positions,
+                             points=pos.shape[0], ms=_time_ms(run),
+                             max_abs_err=(run() - ref).abs().max().item()))
+            print(rows[-1], flush=True)
+            if where == "frame":
+                continue
+            run = lambda: hg.parity_hash_encode_bwd(cot, pos, scalings, steps, hash_fn)
+            ref = hg.parity_hash_encode_bwd_ref(cot, pos, scalings, steps, hash_fn)
+            ratio = ((run() - ref).abs() / (1e-4 + 1e-2 * ref.abs())).max().item()
+            rows.append(dict(kernel="F32-ENC-BWD", shape=name, positions=positions,
+                             points=pos.shape[0], ms=_time_ms(run), tol_ratio=ratio))
+            print(rows[-1], flush=True)
+            del ref
+        del table, g
+    return rows
+
+
 def bench(dev, frame_pos):
     """Rows of (kernel, shape, qbits, positions, points, ms, max abs err
-    against the plain version) for this process's ``samnerf_tpu_torch``."""
+    against the plain version) of Q-ENC and FUSED-QMLP for this process's
+    ``samnerf_tpu_torch``."""
     from samnerf_tpu_torch.fields.mlp import MLP
     from samnerf_tpu_torch.ops import hash_grid as hg
     from samnerf_tpu_torch.ops.encodings import hash_grid_scalings
@@ -187,6 +261,8 @@ def main() -> None:
     ap.add_argument("--positions", help="time the kernels on these frame positions")
     ap.add_argument("--root", default=None, help="the checkout whose kernels to time")
     ap.add_argument("--tag", default="this")
+    ap.add_argument("--only", choices=("f32", "quantized"), default=None,
+                    help="time only the f32 or only the quantized kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_encode: no CUDA device")
@@ -201,14 +277,26 @@ def main() -> None:
                          text=True).stdout.strip()
     print(smi, flush=True)
     if args.capture:
+        from samnerf_tpu_torch.scripts.profile_train import capture_step_encodes
         frame = capture_frame_positions(dev)
-        torch.save({k: v.cpu() for k, v in frame.items()}, args.capture)
+        step = step_encodes(capture_step_encodes(dev))
+        torch.save({"frame": {k: v.cpu() for k, v in frame.items()},
+                    "step": {k: {f: (v.cpu() if torch.is_tensor(v) else v)
+                                 for f, v in c.items()} for k, c in step.items()}},
+                   args.capture)
         return
     from samnerf_tpu_torch.ops import cuda_build
     print(f"kernels of {Path(cuda_build.__file__).resolve().parents[2]}", flush=True)
     cuda_build.build_all()
-    frame = {k: v.to(dev) for k, v in torch.load(args.positions).items()}
-    rows = bench(dev, frame)
+    saved = torch.load(args.positions)
+    frame = {k: v.to(dev) for k, v in saved["frame"].items()}
+    rows = []
+    if args.only != "quantized":
+        step = {k: {f: (v.to(dev) if torch.is_tensor(v) else v) for f, v in c.items()}
+                for k, c in saved["step"].items()}
+        rows += bench_f32(dev, frame, step)
+    if args.only != "f32":
+        rows += bench(dev, frame)
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     (out / f"bench_encode_{args.tag}.json").write_text(

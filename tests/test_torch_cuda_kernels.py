@@ -11,7 +11,9 @@ without the conftest::
 Max abs error, not allclose, so a flipped corner index shows: features
 are O(0.5) and a wrong corner moves one by O(0.1).  The table gradient is
 held at rtol 1e-2 / atol 1e-4: the kernel sums in f32 with atomics, the
-plain version rounds the sum to bf16, as JAX's CPU vjp does.
+plain version rounds the sum to bf16, as JAX's CPU vjp does.  The f32
+layout passes (BF16-PACK, GRAD-DEINTERLEAVE) are permutations and are
+held to equality.
 FUSED-QMLP is held at rtol 1e-4 / atol 1e-4 (the JAX kernel test's
 tolerance): its MLP sums in another order than the plain matmuls, and
 the wide heads' in 3xTF32 on the tensor cores (about 1e-6 relative).
@@ -113,6 +115,109 @@ def test_cuda_backward_kernel_matches_plain_version(hash_fn):
     torch.testing.assert_close(table.grad, ref, rtol=1e-2, atol=1e-4)
 
 
+def _f32_case(dev, packs, n, where, seed):
+    """A 6-level table with dense and hashed levels, positions (uniform,
+    all at one point, or all at the origin as outside points are) and
+    O(1) cotangents with a tenth of the rows zero and, in another tenth,
+    the first pack's channels zero."""
+    steps = 64
+    scalings = tuple(hash_grid_scalings(6, 16, 512).tolist())
+    rng = np.random.default_rng(seed)
+    table = rng.uniform(-0.5, 0.5, (packs * 6, steps * 8, 128, 2)).astype(np.float32)
+    if where == "uniform":
+        pos = rng.uniform(0.0, 1.0, (n, 3))
+    else:
+        pos = np.broadcast_to(rng.uniform(0.0, 1.0, 3) if where == "one_point"
+                              else np.zeros(3), (n, 3))
+    g = rng.normal(0.0, 1.0, (n, packs * 2 * 6)).astype(np.float32)
+    u = rng.uniform(size=n)
+    g[u < 0.1] = 0.0
+    g[(u >= 0.1) & (u < 0.2), :12] = 0.0
+    return (scalings, steps, *(torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+                               for a in (table, pos, g)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", (5, 70_001))
+@pytest.mark.parametrize("packs", (1, 2, 4))
+def test_f32_kernels_match_plain_versions(packs, n):
+    """F32-ENC and F32-ENC-BWD at 1, 2 and 4 packs, for fewer points than
+    one tile and a ragged last tile; at 2 and 4 packs each call launches
+    its layout pass once."""
+    dev = _cuda()
+    scalings, steps, table, pos, g = _f32_case(dev, packs, n, "uniform", 4)
+    before = (th.parity_hash_encode.launches, th.pack_bf16_table.launches,
+              th.parity_hash_encode_bwd.launches, th.deinterleave_table_grad.launches)
+    out = th.parity_hash_encode(table, pos, scalings, steps, "morton")
+    grad = th.parity_hash_encode_bwd(g, pos, scalings, steps, "morton")
+    torch.cuda.synchronize()
+    after = (th.parity_hash_encode.launches, th.pack_bf16_table.launches,
+             th.parity_hash_encode_bwd.launches, th.deinterleave_table_grad.launches)
+    passes = int(packs > 1)
+    assert [a - b for a, b in zip(after, before)] == [1, passes, 1, passes]
+    ref = th.parity_hash_encode_ref(table, pos, scalings, steps, "morton")
+    assert out.shape == (n, 2 * packs * 6)
+    assert (out - ref).abs().max().item() < 1e-5
+    ref = th.parity_hash_encode_bwd_ref(g, pos, scalings, steps, "morton")
+    torch.testing.assert_close(grad, ref, rtol=1e-2, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ("one_point", "origin"))
+@pytest.mark.parametrize("packs", (1, 2, 4))
+def test_f32_backward_merges_lanes_that_share_cells(packs, where):
+    """Every point at one interior position, or every point at the origin
+    (where outside points go) with nonzero cotangents: each warp's 32
+    lanes hit the same 8 cells, so the warp merge carries every sum and
+    the atomics contend; rows with zero cotangents mixed in."""
+    dev = _cuda()
+    scalings, steps, _, pos, g = _f32_case(dev, packs, 20_001, where, 5)
+    grad = th.parity_hash_encode_bwd(g, pos, scalings, steps, "morton")
+    ref = th.parity_hash_encode_bwd_ref(g, pos, scalings, steps, "morton")
+    torch.cuda.synchronize()
+    assert ref.abs().max().item() > 10.0
+    torch.testing.assert_close(grad, ref, rtol=1e-2, atol=1e-4)
+    zero = th.parity_hash_encode_bwd(torch.zeros_like(g), pos, scalings, steps, "morton")
+    assert not zero.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packs", (2, 4))
+def test_f32_layout_passes_match_plain_versions(packs):
+    """BF16-PACK and GRAD-DEINTERLEAVE against their plain versions, bit
+    for bit."""
+    dev = _cuda()
+    _, _, table, _, _ = _f32_case(dev, packs, 5, "uniform", 6)
+    packed = th.pack_bf16_table(table, 6)
+    plain = th.interleave_packs(th._bf16_words(table), 6)
+    assert torch.equal(packed.view(torch.int32), plain.view(torch.int32))
+    scratch = torch.randn((6, table.shape[1], 128, packs, 2), device=dev)
+    assert torch.equal(th.deinterleave_table_grad(scratch),
+                       scratch.permute(3, 0, 1, 2, 4).reshape(table.shape))
+
+
+@pytest.mark.cuda
+def test_encoding_module_on_the_card_reads_a_table_updated_in_place():
+    """``ParityHashEncoding`` (4 packs, so F32-ENC reads the bf16 copy)
+    after the table changes in place between two calls gives the new
+    table's features: the copy is made on every call."""
+    from samnerf_tpu_torch.fields.hash_encoding import ParityHashEncoding
+
+    dev = _cuda()
+    mod = ParityHashEncoding(num_levels=6, min_res=16, max_res=512, log2_hashmap_size=16,
+                             features_per_level=8, hash_fn="morton", device=dev)
+    rng = np.random.default_rng(7)
+    pos = torch.from_numpy(rng.uniform(0.0, 1.0, (1000, 3)).astype(np.float32)).to(dev)
+    for _ in range(2):
+        with torch.no_grad():
+            mod.table.copy_(torch.from_numpy(
+                rng.uniform(-0.5, 0.5, tuple(mod.table.shape)).astype(np.float32)))
+            out = mod(pos)
+        ref = th.parity_hash_encode_ref(mod.table.detach(), pos, mod.scalings,
+                                        mod.num_steps, "morton")
+        assert (out - ref).abs().max().item() < 1e-5
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     dev = _cuda()
@@ -126,6 +231,8 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):                    # cotangent of another width
         th.parity_hash_encode_bwd(torch.zeros((256, 6), device=dev), pos,
                                   scalings, 4)
+    with pytest.raises(ValueError):                    # 3 packs
+        th.parity_hash_encode(torch.zeros((12, 32, 128, 2), device=dev), pos, scalings, 4)
 
 
 @pytest.mark.cuda

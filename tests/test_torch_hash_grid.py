@@ -93,6 +93,54 @@ def test_interleave_packs_is_an_exact_permutation(qbits, P):
         th.interleave_packs(torch.zeros((3 * L, 8, 128)), L)
 
 
+@pytest.mark.parametrize("P", (2, 4))
+def test_pack_bf16_table_is_jax_pack_table_interleaved(P):
+    """BF16-PACK's plain version: word (l, r, lane, p) is JAX's
+    ``pack_table`` word of master row p*L + l, bit for bit, and unpacks
+    (hi half feature 0, lo half feature 1) to the table at bf16 precision;
+    1 and 3 packs are refused."""
+    L = 3
+    _, table, _ = _inputs(L, 8, P, 4, 64)
+    table[0, 0, 0] = (1.0 + 2.0 ** -8, -(1.0 + 3 * 2.0 ** -8))     # ties round to even
+    inter = th.pack_bf16_table(torch.from_numpy(table), L)
+    assert inter.shape == (L, 64, 128, P) and inter.is_contiguous()
+    words = np.asarray(hp.pack_table(jnp.asarray(table))).view(np.uint32)
+    np.testing.assert_array_equal(
+        inter.numpy().view(np.uint32),
+        words.reshape(P, L, *words.shape[1:]).transpose(1, 2, 3, 0))
+    back = th.deinterleave_packs(inter).numpy().view(np.uint32)
+    f0 = (back & np.uint32(0xFFFF0000)).view(np.float32)
+    f1 = (back << np.uint32(16)).view(np.float32)
+    bf16 = torch.from_numpy(table).to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(np.stack([f0, f1], -1), bf16)
+    for packs in (1, 3):
+        with pytest.raises(ValueError):
+            th.pack_bf16_table(torch.zeros((packs * L, 8, 128, 2)), L)
+
+
+def test_encoding_module_reads_a_table_updated_in_place():
+    """``ParityHashEncoding``'s f32 encode after the table changes in
+    place between two calls (as Adam updates it) gives the new table's
+    features, against JAX on each table: no copy of the table is kept."""
+    from samnerf_tpu_torch.fields.hash_encoding import ParityHashEncoding
+
+    kw = dict(num_levels=6, min_res=16, max_res=512, log2_hashmap_size=16,
+              features_per_level=8, hash_fn="morton")
+    mod = ParityHashEncoding(device="cpu", **kw)
+    scalings, t0, pos = _inputs(6, mod.num_steps, 4, 16, 512, n=200, seed=4)
+    t1 = np.random.default_rng(5).uniform(-0.5, 0.5, t0.shape).astype(np.float32)
+    mod.table.data.copy_(torch.from_numpy(t0))
+    outs = []
+    for t in (t0, t1):
+        with torch.no_grad():
+            mod.table.copy_(torch.from_numpy(t))
+            outs.append(mod(torch.from_numpy(pos)))
+        ref = hp.parity_hash_encode(jnp.asarray(t), jnp.asarray(pos), scalings,
+                                    mod.num_steps, 0, "morton")
+        np.testing.assert_allclose(outs[-1].numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+    assert (outs[0] - outs[1]).abs().max() > 0.1
+
+
 @pytest.mark.parametrize("hash_fn", HASH_FNS)
 def test_index_math_is_exact(hash_fn):
     """lo / hi agree exactly on dense and hashed levels, and the weights."""

@@ -80,6 +80,23 @@ def test_encoding_module_gradient_matches_jax():
                                np.asarray(jgrad["params"]["table"]), **TOL)
 
 
+@pytest.mark.parametrize("P", (2, 4))
+def test_deinterleave_table_grad_is_exact(P):
+    """GRAD-DEINTERLEAVE's plain version: scratch cell (l, row, lane) holds
+    the 2P sums of pack p, feature f at [p, f]; the master layout gets
+    them at row p*L + l, bit for bit."""
+    L, rows = 3, 16
+    g = np.random.default_rng(6).normal(size=(P * L, rows, 128, 2)).astype(np.float32)
+    scratch = np.ascontiguousarray(g.reshape(P, L, rows, 128, 2).transpose(1, 2, 3, 0, 4))
+    out = th.deinterleave_table_grad(torch.from_numpy(scratch))
+    assert out.shape == g.shape and out.is_contiguous()
+    np.testing.assert_array_equal(out.numpy(), g)
+    with pytest.raises(ValueError):                 # the master layout
+        th.deinterleave_table_grad(torch.from_numpy(g))
+    with pytest.raises(ValueError):                 # one pack: already the master
+        th.deinterleave_table_grad(torch.zeros((L, rows, 128, 1, 2)))
+
+
 def test_cpu_backward_counts_no_launch():
     scalings, table, pos = _inputs(4, 4, 1, 4, 64)
     before = th.parity_hash_encode_bwd.launches
