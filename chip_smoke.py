@@ -9,7 +9,8 @@ which raises on failure:
 2. build the CUDA kernels from ``samnerf_tpu_torch/csrc`` (one ``nvcc``
    per source, all at once; the toolkit's release printed) and print
    ``ptxas``'s registers, spills and shared memory of the F32-ENC,
-   F32-ENC-BWD, Q-ENC and FUSED-QMLP kernels (raises on a spill);
+   F32-ENC-BWD, Q-ENC, FUSED-QMLP and FLASH-RELPOS kernels (raises on a
+   spill);
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card at the serve path's shapes (max abs error, time, bound), the
    quantized encodes on the pack-interleaved serve table, F32-ENC and the
@@ -44,9 +45,11 @@ which raises on failure:
    small model on the card against the same step on the CPU (losses and
    gradients);
 7. attn_kernel: FLASH-RELPOS against its plain version at SAM ViT-H's
-   and ViT-B's global-attention shapes and a small ragged one (max abs
-   error, time, bound, and ``scaled_dot_product_attention`` with the
-   materialised bias as a yardstick);
+   and ViT-B's global-attention shapes, a small ragged one and ViT-H's
+   with a peaky softmax (q scaled by 8, logits to about +-30): max abs
+   error, time, the 3xTF32 tensor-core bound and the f32 CUDA-core one,
+   and ``scaled_dot_product_attention`` with the materialised bias as a
+   yardstick;
 8. encode: SAM ViT-H at full width (seeded weights, saved once as a
    reference-layout checkpoint and loaded through ``build_sam``) through
    ``SamPredictor.set_image`` on 512x512 frames (ms per image, peak
@@ -83,6 +86,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 F32_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12         # H100 SXM dense TF32 on the tensor cores
 TOL_KERNEL = 1e-5               # features are O(0.5); a flipped index is O(0.1)
 # FUSED-QMLP: the JAX kernel test's tolerance; the MLP sums in another
 # order than the plain version's matmuls, the wide heads in 3xTF32
@@ -123,6 +127,10 @@ ENCODE_IMAGES = 6               # the first is the warm-up
 # SAM ViT-H's and ViT-B's global layers and a small ragged one
 ATTN_SHAPES = [("vit_h", 16, 64, 64, 80), ("vit_b", 12, 64, 64, 64),
                ("ragged", 3, 12, 20, 20)]
+# the peaky case: ViT-H's shape with q scaled by this (logits to about
+# +-30), where a single TF32 pass would miss TOL_ATTN
+ATTN_PEAKY = ("vit_h_peaky", 16, 64, 64, 80)
+ATTN_PEAKY_GAIN = 8.0
 SMALL_ENCODER = dict(img_size=256, patch_size=16, embed_dim=160, depth=4,
                      num_heads=2, mlp_ratio=4.0, out_chans=256, window_size=7,
                      global_attn_indexes=(2,), flash_min_tokens=256)
@@ -352,31 +360,33 @@ def qmlp_kernel_phase(dev, frame_pos):
     return rows
 
 
-# the hash kernels whose ptxas report is printed and held to no spills
-RESOURCE_KERNELS = ("f32_encode_kernel", "f32_encode_bwd_kernel", "q_encode_kernel",
-                    "qmlp_kernel")
+# the kernels (by source) whose ptxas report is printed and held to no spills
+RESOURCE_KERNELS = {"hash_encode": ("f32_encode_kernel", "f32_encode_bwd_kernel",
+                                    "q_encode_kernel", "qmlp_kernel"),
+                    "attention_relpos": ("flash_relpos_kernel",)}
 
 
 def kernel_resources():
     """``ptxas``'s registers, spills and shared memory of F32-ENC,
-    F32-ENC-BWD, Q-ENC and FUSED-QMLP, named by their template arguments;
-    raises if one of them spills."""
+    F32-ENC-BWD, Q-ENC, FUSED-QMLP and FLASH-RELPOS, named by their
+    template arguments; raises if one of them spills."""
     import re
 
     from samnerf_tpu_torch.ops import cuda_build
 
     rows = []
-    for r in cuda_build.kernel_resources("hash_encode"):
-        m = re.search(r"(%s)I((?:L[ib]\d+E)+)E" % "|".join(RESOURCE_KERNELS), r["kernel"])
-        if m:
-            args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
-            rows.append(dict(r, name=f"{m.group(1)}<{args}>"))
+    for source, names in RESOURCE_KERNELS.items():
+        for r in cuda_build.kernel_resources(source):
+            m = re.search(r"(%s)I((?:L[ib]\d+E)+)E" % "|".join(names), r["kernel"])
+            if m:
+                args = ",".join(re.findall(r"L[ib](\d+)E", m.group(2)))
+                rows.append(dict(r, name=f"{m.group(1)}<{args}>"))
     for r in rows:
         print(f"ptxas {r['name']:34s} {r['registers']:3d} registers, spill stores "
               f"{r['spill_stores']} B, spill loads {r['spill_loads']} B, stack "
               f"{r['stack']} B, static smem {r['static_smem']} B", flush=True)
-    missing = [k for k in RESOURCE_KERNELS if not any(r["name"].startswith(k + "<")
-                                                      for r in rows)]
+    missing = [k for names in RESOURCE_KERNELS.values() for k in names
+               if not any(r["name"].startswith(k + "<") for r in rows)]
     if missing:
         raise AssertionError(f"no ptxas report of {missing}")
     spills = [r["name"] for r in rows if r["spill_stores"] or r["spill_loads"]]
@@ -865,27 +875,53 @@ def train_reference_phase(dev):
     return report
 
 
-def attn_kernel_phase(dev):
-    """FLASH-RELPOS against its plain version.  q, k, v ~ N(0, 1), as a
-    seeded layer's LayerNorm and lecun-normal qkv give them; rel-pos
-    tables N(0, 0.02) (``init_state``) contracted with q by the encoder's
-    own ``decomposed_rel_terms``."""
+def attn_inputs(dev, gen, b, gh, gw, d, q_gain=1.0):
+    """q, k, v ~ N(0, 1), as a seeded layer's LayerNorm and lecun-normal
+    qkv give them (q times ``q_gain``); rel-pos tables N(0, 0.02)
+    (``init_state``) contracted with q by the encoder's own
+    ``decomposed_rel_terms`` -> (q, k, v, rel_h, rel_w, scale)."""
+    from samnerf_tpu_torch.perception.sam.image_encoder import decomposed_rel_terms
+
+    n = gh * gw
+    q, k, v = (torch.randn((b, n, d), generator=gen, device=dev) for _ in range(3))
+    q *= q_gain
+    tables = [torch.randn((2 * s - 1, d), generator=gen, device=dev) * 0.02
+              for s in (gh, gw)]
+    rel_h, rel_w = decomposed_rel_terms(q, *tables, (gh, gw), (gh, gw))
+    return (q, k, v, rel_h.reshape(b, n, gh).contiguous(),
+            rel_w.reshape(b, n, gw).contiguous(), d ** -0.5)
+
+
+def attn_bound(b, n, d, gh, gw) -> dict:
+    """FLASH-RELPOS's least time.  Operations: q.k and p.v, a multiply-add
+    per (query, key, dim) each, three TF32 passes apiece at f32 precision
+    (3xTF32) on the tensor cores; bytes: q, k, v, rel_h, rel_w read once,
+    the output written.  ``f32_core_bound_ms`` is the same work at the f32
+    rate outside the tensor cores (the first design's yardstick)."""
+    flops = 4 * b * n * n * d
+    nbytes = 4 * (4 * b * n * d + b * n * (gh + gw))
+    t_ops, t_bytes = 3 * flops / TF32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                f32_core_bound_ms=max(flops / F32_OPS_PER_S, t_bytes) * 1e3,
+                gflop=flops / 1e9)
+
+
+def attn_kernel_phase(dev, reps: int = 20, ref_reps: int = 5):
+    """FLASH-RELPOS against its plain version at ``ATTN_SHAPES`` and the
+    peaky case, timed (``reps`` calls; ``ref_reps`` of the plain version
+    and of the library call) beside the plain version and one library
+    call."""
     import torch.nn.functional as F
 
     from samnerf_tpu_torch.ops import attention as ta
-    from samnerf_tpu_torch.perception.sam.image_encoder import decomposed_rel_terms
 
     gen = torch.Generator(device=dev).manual_seed(4)
     rows = []
-    for name, b, gh, gw, d in ATTN_SHAPES:
+    cases = [(*shape, 1.0) for shape in ATTN_SHAPES] + [(*ATTN_PEAKY, ATTN_PEAKY_GAIN)]
+    for name, b, gh, gw, d, q_gain in cases:
         n = gh * gw
-        q, k, v = (torch.randn((b, n, d), generator=gen, device=dev) for _ in range(3))
-        tables = [torch.randn((2 * s - 1, d), generator=gen, device=dev) * 0.02
-                  for s in (gh, gw)]
-        rel_h, rel_w = decomposed_rel_terms(q, *tables, (gh, gw), (gh, gw))
-        rel_h = rel_h.reshape(b, n, gh).contiguous()
-        rel_w = rel_w.reshape(b, n, gw).contiguous()
-        scale = d ** -0.5
+        q, k, v, rel_h, rel_w, scale = attn_inputs(dev, gen, b, gh, gw, d, q_gain)
         run = lambda: ta.flash_attention_relpos(q, k, v, rel_h, rel_w, scale)
         plain = lambda: ta.reference_attention_relpos(q, k, v, rel_h, rel_w, scale)
         out, ref = run(), plain()
@@ -899,28 +935,25 @@ def attn_kernel_phase(dev):
         library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias,
                                                          scale=scale)
         library_err = (library() - ref).abs().max().item()
+        logit_absmax = (torch.matmul(q[:1] * scale, k[:1].transpose(-2, -1))
+                        .abs().max().item())
         del out, ref
-        ms = _time_ms(run, reps=20)
-        plain_ms = _time_ms(plain, reps=5)
-        library_ms = _time_ms(library, reps=5)
+        ms = _time_ms(run, reps=reps)
+        plain_ms = _time_ms(plain, reps=ref_reps)
+        library_ms = _time_ms(library, reps=ref_reps)
         del bias
-        # operations: q.k and p.v, a multiply-add per (query, key, dim)
-        # each; bytes: q, k, v, rel_h, rel_w read once, the output written
-        flops = 4 * b * n * n * d
-        nbytes = 4 * (4 * b * n * d + b * n * (gh + gw))
-        t_ops, t_bytes = flops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
         row = dict(kernel="FLASH-RELPOS", shape=name, heads=b, tokens=n, head_dim=d,
-                   grid=(gh, gw), max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, library_max_abs_err=library_err,
-                   bound_ms=max(t_ops, t_bytes) * 1e3,
-                   bound_by="operations" if t_ops >= t_bytes else "bytes",
-                   tflops=flops / ms / 1e9)
+                   grid=(gh, gw), q_gain=q_gain, logit_absmax_head0=logit_absmax,
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   library_max_abs_err=library_err, **attn_bound(b, n, d, gh, gw))
+        row["tflops"] = row["gflop"] / ms
         rows.append(row)
-        print(f"attn kernel FLASH-RELPOS {name:6s} B={b:2d} N={n:5d} D={d:2d} "
-              f"err={err:.3e} (tol {TOL_ATTN:g}) ms={ms:.4f} plain_ms={plain_ms:.3f} "
-              f"library_ms={library_ms:.3f} (err {library_err:.1e}) "
-              f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}), "
-              f"{row['tflops']:.1f} TFLOP/s", flush=True)
+        print(f"attn kernel FLASH-RELPOS {name:11s} B={b:2d} N={n:5d} D={d:2d} "
+              f"err={err:.3e} (tol {TOL_ATTN:g}, |logit| max {logit_absmax:.1f}) "
+              f"ms={ms:.4f} plain_ms={plain_ms:.3f} library_ms={library_ms:.3f} "
+              f"(err {library_err:.1e}) bound_ms={row['bound_ms']:.4f} "
+              f"({row['bound_by']}, 3xTF32) f32_core_bound_ms="
+              f"{row['f32_core_bound_ms']:.4f}, {row['tflops']:.1f} TFLOP/s", flush=True)
         del q, k, v, rel_h, rel_w
     return rows
 

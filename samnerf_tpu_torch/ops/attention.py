@@ -22,8 +22,8 @@ import functools
 
 import torch
 
-MAX_HEAD_DIM = 128        # the kernel's register tile: ceil(D / 16) <= 8
-MAX_REL_SUM = 256         # Kh + Kw rows of bias staged in shared memory
+MAX_HEAD_DIM = 128        # the kernel pads D to 8 KD, KD <= 16 mma k-steps
+MAX_REL_SUM = 256         # Kh + Kw: the first kernel's limit, kept as the contract
 
 
 def reference_attention_relpos(q, k, v, rel_h, rel_w, scale: float):

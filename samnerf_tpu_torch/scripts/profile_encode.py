@@ -7,12 +7,14 @@ of a synthetic scene through ``SamPredictor.set_image`` (each resized to
 synchronised), then profiles as many under ``torch.profiler`` and prints
 the device busy time per image (the sum of its kernels: one stream, so
 they do not overlap), the idle share (1 - busy / unprofiled image time)
-and device time per kernel name with launches per image, largest first.
-Run from the repository root on a machine with an NVIDIA GPU::
+and device time per kernel name with launches per image, largest first,
+FLASH-RELPOS's time in use and launches per image, and the peak memory
+of the unprofiled images.  Run from the repository root on a machine with
+an NVIDIA GPU::
 
-    python3 -m samnerf_tpu_torch.scripts.profile_encode [--images 3]
+    python3 -m samnerf_tpu_torch.scripts.profile_encode [--images 3] [--tag NAME]
 
-Writes ``chiprun_out/profile_encode.json``.
+Writes ``chiprun_out/profile_encode[_NAME].json``.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ from torch.profiler import ProfilerActivity, profile
 from samnerf_tpu_torch.ops import cuda_build
 from samnerf_tpu_torch.perception.sam.build_sam import build_sam
 from samnerf_tpu_torch.perception.sam.predictor import SamPredictor
-from samnerf_tpu_torch.scripts.profile_serve import _kernel_name
+from samnerf_tpu_torch.scripts.profile_serve import _kernel_name, port_kernel_totals
 from samnerf_tpu_torch.utils.init import init_state
 from samnerf_tpu_torch.utils.synthetic import write_scene
 
@@ -41,6 +43,7 @@ from samnerf_tpu_torch.utils.synthetic import write_scene
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--images", type=int, default=3)
+    ap.add_argument("--tag", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_encode: no CUDA device")
@@ -65,11 +68,13 @@ def main() -> None:
         predictor = SamPredictor(build_sam("vit_h", checkpoint=str(ckpt), device=dev))
     predictor.set_image(images[0])                                   # warm-up
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for img in images[1:n + 1]:
         predictor.set_image(img)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    peak = torch.cuda.max_memory_allocated()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for img in images[n + 1:]:
@@ -86,18 +91,23 @@ def main() -> None:
     busy = sum(per_kernel.values())
     rows = [dict(kernel=k, ms_per_image=v, launches_per_image=launches[k] / n,
                  share=v / busy) for k, v in per_kernel.most_common()]
+    in_use = port_kernel_totals(rows, "image")
     report = dict(card=smi, wall_ms_per_image=wall_ms, profiled_ms_per_image=profiled_ms,
                   busy_ms_per_image=busy, idle_share=1.0 - busy / wall_ms,
+                  max_memory_allocated=peak, port_kernels=in_use,
                   launches_per_image=sum(launches.values()) / n, kernels=rows)
     print(f"vit_h image: wall {wall_ms:.2f} ms (unprofiled), {profiled_ms:.2f} ms "
           f"(profiled); device busy {busy:.2f} ms/image, idle share "
-          f"{report['idle_share']:.3f}, {report['launches_per_image']:.0f} launches/image")
+          f"{report['idle_share']:.3f}, {report['launches_per_image']:.0f} launches/image, "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB; in use: "
+          + ", ".join(f"{k} {v['ms']:.3f} ms x{v['launches']:g}" for k, v in in_use.items()))
     for r in rows[:20]:
         print(f"  {r['ms_per_image']:8.3f} ms {100 * r['share']:5.1f}% "
               f"x{r['launches_per_image']:6.1f}  {r['kernel']}")
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
-    (out / "profile_encode.json").write_text(json.dumps(report, indent=1))
+    name = f"profile_encode_{args.tag}.json" if args.tag else "profile_encode.json"
+    (out / name).write_text(json.dumps(report, indent=1))
 
 
 if __name__ == "__main__":

@@ -18,8 +18,10 @@ FUSED-QMLP is held at rtol 1e-4 / atol 1e-4 (the JAX kernel test's
 tolerance): its MLP sums in another order than the plain matmuls, and
 the wide heads' in 3xTF32 on the tensor cores (about 1e-6 relative).
 FLASH-RELPOS is held at max abs error 1e-4: outputs are softmax averages
-of O(1) values, f32 sums over the keys in another order differ by about
-1e-6, and a wrong key tile or bias index moves an output by 1e-2 or more.
+of O(1) values, its products are 3xTF32 on the tensor cores (about f32
+precision: 7e-6 at the ViT-H layer, 4e-5 with logits to +-30 on the
+H100), a single TF32 pass would err by about 2^-11 |v| ~ 5e-4 there, and
+a wrong key tile or bias index moves an output by 1e-2 or more.
 """
 import numpy as np
 import pytest
@@ -316,17 +318,35 @@ def _attention_inputs(dev, b, kh, kw, d, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(3, 12, 20, 20), (2, 5, 7, 33), (16, 64, 64, 80)])
-def test_flash_relpos_kernel_matches_plain_version(shape):
-    """(B*heads, Kh, Kw, D): ragged tiles (N = 240, 35), D not a power of
-    two, and the ViT-H global layer (N = 4096, D = 80)."""
+@pytest.mark.parametrize("inputs", ["normal", "peaky", "flat"])
+@pytest.mark.parametrize("shape", [
+    (3, 12, 20, 20), (2, 5, 7, 33), (16, 64, 64, 80),
+    # D padded to a multiple of 8 (1, 20), a whole k-step (8), the widest (128)
+    (2, 6, 9, 1), (2, 6, 9, 8), (2, 16, 16, 128), (2, 64, 64, 128),
+    # Kw = 64: a key tile is one kh row (ViT-B and ViT-L's D = 64)
+    (4, 64, 64, 64), (3, 5, 64, 20),
+    # ragged tiles that straddle kh rows (Kw = 7, 33); N < 64; N % 64 != 0
+    (2, 9, 33, 16), (3, 4, 5, 24), (2, 10, 13, 40)])
+def test_flash_relpos_kernel_matches_plain_version(shape, inputs):
+    """(B*heads, Kh, Kw, D): ragged tiles (N = 240, 35, 297, 130), D not a
+    power of two and from 1 to 128, N < 64, the ViT tile (Kw = 64), and
+    the ViT-H global layer (N = 4096, D = 80).  ``peaky``: q scaled by 8,
+    so the logits reach about +-30 (the running max and sum are rescaled
+    often; one TF32 pass per product would miss 1e-4); ``flat``: all keys
+    equal, so the softmax is almost uniform."""
     dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
     b, kh, kw, d = shape
-    args = _attention_inputs(dev, b, kh, kw, d)
+    q, k, v, rel_h, rel_w = _attention_inputs(dev, b, kh, kw, d)
+    if inputs == "peaky":
+        q = q * 8.0
+    elif inputs == "flat":
+        k = k[:, :1].expand_as(k).contiguous()
+    args = (q, k, v, rel_h, rel_w, d ** -0.5)
     before = ta.flash_attention_relpos.launches
-    out = ta.flash_attention_relpos(*args, d ** -0.5)
+    out = ta.flash_attention_relpos(*args)
     assert ta.flash_attention_relpos.launches == before + 1
-    ref = ta.reference_attention_relpos(*args, d ** -0.5)
+    ref = ta.reference_attention_relpos(*args)
     torch.cuda.synchronize()
     assert (out - ref).abs().max().item() < 1e-4
 
