@@ -60,7 +60,27 @@ which raises on failure:
    .get_image_embeddings`` (its ``main``) with that checkpoint on a
    synthetic 24-image 512x512 scene, the port's feature loader on the
    files, and 3 ``Trainer`` steps on them;
-10. one ``{"kernels": [...]}`` line (the f32 kernels' layout passes
+10. clipseg_checkpoint: seeded CLIP ViT-B/16 and ``rd64-uni`` weights in
+   the reference layouts and a small merges file, in the same temporary
+   directory; clipseg: ``ClipSegPredictor`` at full width on the card
+   (ms per ``encode_text`` of 3 prompts, ``segment``,
+   ``reduced_activations``, ``decode_rendered``; peak memory) and against
+   the CPU on one frame;
+11. preprocess_clipseg: ``python -m samnerf_tpu_torch.preprocessing
+   .get_clipseg_embeddings`` (its ``main``) on the same scene, the
+   feature loader on its files, and 3 ``samnerf_distill`` steps on the
+   SAM and ClipSeg targets the port wrote;
+12. text_view: the view phase with a ``ClipSegPredictor`` and a text
+   prompt in every view (``clipseg_feature`` in [0, 1], the heatmap's
+   points reach the mask decode after the pins);
+13. no_distill_view: ``render_view`` of the ``samnerf_no_distill``
+   preset's model at full width with a ``LanguageSAM`` (the ViT-H
+   checkpoint and the seeded ClipSeg): a click view, three moved views
+   with the click locked, a text-prompt view; 4 FLASH-RELPOS launches per
+   view, the locked point in every mask decode;
+14. no_distill_train: 10 full-width ``samnerf_no_distill`` steps through
+   ``Trainer`` on the scene;
+15. one ``{"kernels": [...]}`` line (the f32 kernels' layout passes
    listed under ``passes`` beside the kernel that needs them), then
    ``{"ok": true, "device": ...}`` as the last line.
 
@@ -134,6 +154,14 @@ ATTN_PEAKY_GAIN = 8.0
 SMALL_ENCODER = dict(img_size=256, patch_size=16, embed_dim=160, depth=4,
                      num_heads=2, mlp_ratio=4.0, out_chans=256, window_size=7,
                      global_attn_indexes=(2,), flash_min_tokens=256)
+CLIPSEG_PROMPTS = ["a man is cooking", "a photo of a ball", "the wooden table"]
+CLIPSEG_CALLS = 6               # per timed function; the first is the warm-up
+# ClipSeg card vs CPU: text embeddings, reduced activations and logits are
+# O(1); f32 sums in other orders through CLIP's 12 blocks and the decoder's
+# 3 move them by ~1e-5 (the encoder's TOL_ENCODE reasoning); a wrong weight,
+# token or position-grid resize moves them by 1e-2 or more
+TOL_CLIPSEG = dict(rtol=1e-3, atol=1e-3)
+NO_DISTILL_TRAIN_STEPS = 10
 
 
 def _smi() -> str:
@@ -560,15 +588,19 @@ def reference_phase(dev):
     return report
 
 
-def view_phase(dev, cfg=None, size=VIEW_SIZE, chunk=1 << 15):
+def view_phase(dev, cfg=None, size=VIEW_SIZE, chunk=1 << 15, clipseg=None):
     """``render_view`` with baked int8 tables through FUSED-QMLP (full
     ``samnerf_distill`` width unless ``cfg`` is given): a click in view 0
     is locked in 3D, three further cameras re-project it, then one view
     with a crop box.  Raises if a locked pin that lies in bounds and in
-    front of the depth is not drawn."""
+    front of the depth is not drawn.  With ``clipseg`` (the paths of
+    :func:`clipseg_checkpoint`) a ``ClipSegPredictor`` joins the renderer
+    and every view carries a text prompt: raises unless
+    ``clipseg_feature`` is [512, 512, 1] in [0, 1] and the mask decode
+    got the in-bounds pins followed by the heatmap's points."""
     from samnerf_tpu_torch.engine.render_pipeline import (SamNerfRenderer,
                                                           cameras_from_intrin_c2w, project,
-                                                          visible_mask)
+                                                          pooled_heatmap_points, visible_mask)
     from samnerf_tpu_torch.models.sam_model import SAMModel, SAMModelConfig, init_params
     from samnerf_tpu_torch.ops import hash_grid as hg
     from samnerf_tpu_torch.perception.sam.predictor import SamPredictor
@@ -582,9 +614,12 @@ def view_phase(dev, cfg=None, size=VIEW_SIZE, chunk=1 << 15):
     model.load_state_dict(init_params(cfg, gen, device=dev))
     sam = Sam(device=dev)
     sam.load_state_dict(init_decoder_params(gen, device=dev))
+    text = None if clipseg is None else CLIPSEG_PROMPTS[1]
     snr = SamNerfRenderer(model, sam_predictor=SamPredictor(sam), chunk=chunk,
-                          serve_preset="static")
+                          serve_preset="static", clipseg_predictor=None if clipseg is None
+                          else _clipseg_predictor(clipseg, dev))
     snr.bake_serve_tables()
+    decoded = _record_points(snr.predictor)
     intrin = VIEW_INTRIN * (size / VIEW_SIZE)
     intrin[2, 2] = 1.0
     # a generic position (the visibility test divides by each axis of a
@@ -600,8 +635,9 @@ def view_phase(dev, cfg=None, size=VIEW_SIZE, chunk=1 << 15):
         c2w = views[i]
         cams = cameras_from_intrin_c2w(intrin, c2w, size, size, device=dev)
         _reset_encode_launches(hg)
+        decoded.clear()
         t0 = time.perf_counter()
-        out = snr.render_view(cams, 0, intrin, c2w, points=points, **crop)
+        out = snr.render_view(cams, 0, intrin, c2w, points=points, text_prompt=text, **crop)
         ms = (time.perf_counter() - t0) * 1e3
         launches = _encode_launches(hg)
         for k in ("rgb", "depth", "masked_rgb"):
@@ -620,11 +656,27 @@ def view_phase(dev, cfg=None, size=VIEW_SIZE, chunk=1 << 15):
         row = dict(view=i, crop="crop_aabb" in crop, ms=ms, locked=len(snr.prompts),
                    pins=pins.tolist(), in_bounds=legal.tolist(), visible=vis.tolist(),
                    drawn=drawn, mask_fraction=float(changed.mean()), launches=launches)
+        if text is not None:
+            heat = out.get("clipseg_feature")
+            if heat is None or heat.shape != (VIEW_SIZE, VIEW_SIZE, 1) or not (
+                    np.isfinite(heat).all() and heat.min() >= 0.0 and heat.max() <= 1.0):
+                raise AssertionError(f"view {i}: clipseg_feature "
+                                     f"{None if heat is None else heat.shape} or not in [0, 1]")
+            text_pts = pooled_heatmap_points(heat[..., 0], (size, size))
+            want = np.concatenate([pins[legal].astype(np.float64)]
+                                  + ([] if text_pts is None else [text_pts]))
+            n_text = 0 if text_pts is None else len(text_pts)
+            if len(decoded) != 1 or not np.array_equal(decoded[0], want):
+                raise AssertionError(f"view {i}: the mask decode got {len(decoded)} prompts, "
+                                     f"not the {int(legal.sum())} pins and {n_text} text points")
+            row.update(text_points=n_text, heat_mean=float(heat.mean()))
         rows.append(row)
-        print(f"view {i}{' crop' if row['crop'] else ''} {size}x{size}: {ms:.1f} ms, "
+        print(f"{'text_' if text else ''}view {i}{' crop' if row['crop'] else ''} "
+              f"{size}x{size}: {ms:.1f} ms, "
               f"{row['locked']} locked, pins {row['pins']} in bounds {row['in_bounds']} "
               f"visible {row['visible']} drawn {drawn}, mask covers "
-              f"{100 * row['mask_fraction']:.1f} % of the frame; launches "
+              f"{100 * row['mask_fraction']:.1f} % of the frame"
+              + (f", {row['text_points']} text points" if text else "") + "; launches "
               + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
         if launches["FUSED-QMLP"] != FUSED_PER_FRAME or launches["Q-ENC"] \
                 or launches["F32-ENC"]:
@@ -640,17 +692,32 @@ def view_phase(dev, cfg=None, size=VIEW_SIZE, chunk=1 << 15):
     if len(snr.prompts) != 1 or not all(r["drawn"] == [True] for r in rows[:4]):
         raise AssertionError("the click is not locked as one point drawn in view 0 and "
                              f"the three further views: {rows[:4]}")
+    if text is not None and not all(r["text_points"] for r in rows[:4]):
+        raise AssertionError(f"a view's heatmap gave no text point: {rows[:4]}")
     timed = [r["ms"] for r in rows[1:4]]
     result = dict(views=rows, view_ms=statistics.median(timed), view_ms_all=timed,
                   click_view_ms=rows[0]["ms"], crop_view_ms=rows[4]["ms"],
-                  launches_per_view=FUSED_PER_FRAME,
+                  launches_per_view=FUSED_PER_FRAME, text_prompt=text,
                   launches=sum(r["launches"]["FUSED-QMLP"] for r in rows))
-    print(f"view: median {result['view_ms']:.1f} ms per moved view "
+    print(f"{'text_' if text else ''}view: median {result['view_ms']:.1f} ms per moved view "
           f"({', '.join(f'{t:.1f}' for t in timed)}), click view {rows[0]['ms']:.1f} ms, "
           f"crop view {rows[4]['ms']:.1f} ms; FUSED-QMLP {FUSED_PER_FRAME} launches per "
           f"view", flush=True)
     del snr, model, sam
     return result
+
+
+def _record_points(predictor):
+    """Wrap ``predictor.predict`` to keep the point prompts of each call
+    (the list it returns)."""
+    calls, predict = [], predictor.predict
+
+    def wrapped(**kw):
+        calls.append(np.asarray(kw["point_coords"]))
+        return predict(**kw)
+
+    predictor.predict = wrapped
+    return calls
 
 
 def _tol_ratio(out, ref, rtol, atol) -> float:
@@ -1133,6 +1200,316 @@ def preprocess_phase(dev, checkpoint: Path, root: Path):
     return result
 
 
+def write_merges(path: Path, texts) -> None:
+    """A gzip merges file in CLIP's format (a header line, one merge per
+    line) whose merges build each word of ``texts`` left to right, so the
+    tokenizer's byte-pair merges run without CLIP's published vocabulary."""
+    import gzip
+
+    from samnerf_tpu_torch.perception.clipseg.tokenizer import bytes_to_unicode
+
+    enc = bytes_to_unicode()
+    merges = []
+    for word in " ".join(texts).lower().split():
+        sym = ["".join(enc[b] for b in ch.encode("utf-8")) for ch in word]
+        sym[-1] += "</w>"
+        acc = sym[0]
+        for s in sym[1:]:
+            if (acc, s) not in merges:
+                merges.append((acc, s))
+            acc += s
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(f"{a} {b}" for a, b in merges) + "\n")
+
+
+def clipseg_checkpoint(dev, root: Path):
+    """Seeded CLIP ViT-B/16 and ``rd64-uni`` weights (``init_state``, drawn
+    on the card) saved once in the reference layouts (OpenAI's keys, the
+    visual tower's under ``visual.``, with ``logit_scale``; the decoder
+    keys of ``rd64-uni.pth``), and a merges file for the prompts -> the
+    three paths.  The decoder's output bias is raised by 2: the random
+    field renders an almost uniform ClipSeg grid, which the drawn decoder
+    turns into a heatmap near 0.33 everywhere, below ``render_view``'s
+    0.7, so no text point would reach the mask decode; raised, every cell
+    passes (and the 1000 highest are the points)."""
+    from samnerf_tpu_torch.perception.clipseg.clip_model import CLIPText, CLIPVisual
+    from samnerf_tpu_torch.perception.clipseg.clipseg import CLIPDensePredT
+    from samnerf_tpu_torch.utils.init import init_state
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    visual = init_state(CLIPVisual(device="meta"), gen, device="cpu")
+    clip = {**{f"visual.{k}": v for k, v in visual.items()},
+            **init_state(CLIPText(device="meta"), gen, device="cpu"),
+            "logit_scale": torch.tensor(4.6052)}
+    decoder = init_state(CLIPDensePredT(device="meta"), gen, device="cpu")
+    decoder["trans_conv.bias"] += 2.0
+    paths = (root / "ViT-B-16_seeded.pt", root / "rd64-uni_seeded.pth",
+             root / "bpe_prompts.txt.gz")
+    torch.save(clip, paths[0])
+    torch.save(decoder, paths[1])
+    write_merges(paths[2], CLIPSEG_PROMPTS)
+    print(f"clipseg checkpoints: CLIP {sum(t.numel() for t in clip.values()) / 1e6:.1f} M "
+          f"parameters ({paths[0].stat().st_size / 2**20:.0f} MiB), decoder "
+          f"{sum(t.numel() for t in decoder.values()) / 1e6:.2f} M", flush=True)
+    return paths
+
+
+def _clipseg_predictor(paths, dev):
+    """A ``ClipSegPredictor`` on ``dev`` over :func:`clipseg_checkpoint`'s
+    files."""
+    from samnerf_tpu_torch.perception.clipseg.pipeline import ClipSegPredictor
+
+    clip, decoder, bpe = map(str, paths)
+    return ClipSegPredictor(clipseg_checkpoint=decoder, clip_checkpoint=clip, bpe_path=bpe,
+                            device=dev)
+
+
+def clipseg_phase(dev, paths, frames):
+    """ClipSeg at full width on the card: ``encode_text`` of the 3 prompts,
+    ``segment`` and ``reduced_activations`` of distinct 512x512 frames,
+    ``decode_rendered`` of a 32x32x192 N(0, 1) grid (median ms over
+    ``CLIPSEG_CALLS`` - 1 synchronised calls after a warm-up, peak memory);
+    then the card against the same checkpoints on the CPU, one frame."""
+    pred = _clipseg_predictor(paths, dev)
+    grid = torch.randn((32, 32, 192), generator=torch.Generator().manual_seed(8)).numpy()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, outs = {}, {}
+    cond = pred.encode_text(CLIPSEG_PROMPTS)
+    calls = {"encode_text": lambda i: pred.encode_text(CLIPSEG_PROMPTS),
+             "segment": lambda i: pred.segment(frames[i % len(frames)], cond[:1]),
+             "reduced_activations": lambda i: pred.reduced_activations(frames[i % len(frames)]),
+             "decode_rendered": lambda i: pred.decode_rendered(grid, cond[:1])}
+    for name, fn in calls.items():
+        times[name] = []
+        for i in range(CLIPSEG_CALLS):
+            t0 = time.perf_counter()
+            outs[name] = fn(i)
+            torch.cuda.synchronize()
+            if i:
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    shapes = {"encode_text": [(3, 512)], "segment": [(512, 512)],
+              "reduced_activations": [(1025, 1, 64)] * 3, "decode_rendered": [(512, 512)]}
+    for name, want in shapes.items():
+        got = outs[name] if isinstance(outs[name], list) else [outs[name]]
+        if [tuple(t.shape) for t in got] != want or not all(
+                np.isfinite(np.asarray(t.cpu() if torch.is_tensor(t) else t)).all()
+                for t in got):
+            raise AssertionError(f"clipseg {name}: {[tuple(t.shape) for t in got]} or not finite")
+    cpu = _clipseg_predictor(paths, "cpu")
+    cpu_cond = cpu.encode_text(CLIPSEG_PROMPTS)
+    pairs = {"encode_text": (cond.cpu(), cpu_cond),
+             "segment": (pred.segment(frames[0], cond[:1]).cpu(),
+                         cpu.segment(frames[0], cpu_cond[:1])),
+             "decode_rendered": (pred.decode_rendered(grid, cond[:1]).cpu(),
+                                 cpu.decode_rendered(grid, cpu_cond[:1]))}
+    for i, (a, b) in enumerate(zip(pred.reduced_activations(frames[0]),
+                                   cpu.reduced_activations(frames[0]))):
+        pairs[f"reduced_activations_{i}"] = (torch.from_numpy(a), torch.from_numpy(b))
+    errs = {k: (a - b).abs().max().item() for k, (a, b) in pairs.items()}
+    ratios = {k: _tol_ratio(a, b, **TOL_CLIPSEG) for k, (a, b) in pairs.items()}
+    absmax = {k: b.abs().max().item() for k, (_, b) in pairs.items()}
+    result = dict(ms={k: statistics.median(v) for k, v in times.items()}, ms_all=times,
+                  max_memory_allocated=peak, card_vs_cpu_max_abs_err=errs,
+                  card_vs_cpu_tol_ratio=ratios, cpu_absmax=absmax,
+                  logits_mean=float(outs["segment"].mean()))
+    print("clipseg ViT-B/16 + rd64-uni 512x512: median ms "
+          + ", ".join(f"{k} {v:.2f}" for k, v in result["ms"].items())
+          + f"; max_memory_allocated={peak / 2**30:.2f} GiB; card vs CPU max abs err "
+          + ", ".join(f"{k} {v:.2e} ({ratios[k]:.3f} x tol, |ref| max {absmax[k]:.2f})"
+                      for k, v in errs.items()), flush=True)
+    if not all(math.isfinite(r) and r <= 1.0 for r in ratios.values()):
+        raise AssertionError(f"card and CPU ClipSeg disagree: {ratios} (tol {TOL_CLIPSEG})")
+    del pred, cpu
+    return result
+
+
+def preprocess_clipseg_phase(dev, paths, scene: Path, root: Path):
+    """``python -m samnerf_tpu_torch.preprocessing.get_clipseg_embeddings``
+    (its ``main``) on the scene whose SAM targets ``preprocess_phase``
+    extracted, the port's feature loader on its files, and 3
+    ``samnerf_distill`` steps on both targets the port wrote."""
+    import shutil
+
+    from samnerf_tpu_torch.data.feature_loader import clipseg_pt_to_grid, load_features
+    from samnerf_tpu_torch.preprocessing import get_clipseg_embeddings
+    from samnerf_tpu_torch.scripts.profile_train import build_trainer
+
+    shutil.rmtree(scene / "clipseg_features")        # the synthetic targets
+    t0 = time.perf_counter()
+    get_clipseg_embeddings.main([str(scene), "--clipseg-checkpoint", str(paths[1]),
+                                 "--clip-checkpoint", str(paths[0])])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    files = sorted((scene / "clipseg_features").glob("*.pt"))
+    obj = torch.load(files[0], map_location="cpu", weights_only=False)
+    if len(files) != 24 or obj["visual_q"] is not None or [
+            (tuple(a.shape), a.dtype) for a in obj["activations"]] != \
+            [((1025, 1, 64), torch.float32)] * 3:
+        raise AssertionError(f"{len(files)} ClipSeg files, the first {obj}")
+    grids = load_features(files, get_feature=clipseg_pt_to_grid)
+    if grids.shape != (24, 32, 32, 192) or not np.isfinite(grids).all():
+        raise AssertionError(f"ClipSeg grids {grids.shape} or not finite")
+    sam = load_features(sorted((scene / "sam_features").glob("*.npy")))
+    trainer = build_trainer(scene, root / "out_clipseg", dev)
+    if not (np.array_equal(trainer.datamanager.clipseg_features, grids)
+            and np.array_equal(trainer.datamanager.sam_features, sam)):
+        raise AssertionError("the trainer's targets are not the extracted features")
+    losses = []
+    trainer.cfg.max_num_iterations = 3
+    trainer.train(step_callback=lambda step, m: losses.append(
+        {k: float(v) for k, v in m.items()}))
+    del trainer
+    if len(losses) != 3 or not all(math.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError(f"train steps on the extracted features: {losses}")
+    result = dict(files=len(files), seconds=seconds, grid_std=float(grids.std()),
+                  losses=losses)
+    print(f"preprocess_clipseg: get_clipseg_embeddings wrote {len(files)} files of 3 x "
+          f"[1025, 1, 64] f32 in {seconds:.1f} s; 3 samnerf_distill steps on the SAM and "
+          f"ClipSeg targets the port wrote, clipseg_loss "
+          f"{losses[0].get('clipseg_loss', float('nan')):.4f} -> "
+          f"{losses[-1].get('clipseg_loss', float('nan')):.4f}", flush=True)
+    return result
+
+
+def no_distill_view_phase(dev, checkpoint: Path, paths, size=VIEW_SIZE, chunk=1 << 15):
+    """``render_view`` of the ``samnerf_no_distill`` preset's model at full
+    width (seeded, ``static`` preset) with a ``LanguageSAM`` over the seeded
+    ViT-H checkpoint and the seeded ClipSeg: a click view, three moved views
+    with the click locked, one further view with a text prompt.  Raises
+    unless FLASH-RELPOS runs 4 times in each view (ViT-H on the rendered
+    rgb) and the mask decode got the heatmap's points followed by the
+    locked point wherever it lies in bounds.  The branch draws no pins,
+    as the JAX package's does not."""
+    from samnerf_tpu_torch.configs.methods import method_configs
+    from samnerf_tpu_torch.engine.render_pipeline import (SamNerfRenderer,
+                                                          cameras_from_intrin_c2w, project)
+    from samnerf_tpu_torch.models.sam_model import SAMModel, init_params
+    from samnerf_tpu_torch.ops import attention as ta
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    from samnerf_tpu_torch.perception.langsam import LanguageSAM
+    from samnerf_tpu_torch.perception.sam.build_sam import build_sam
+    from samnerf_tpu_torch.perception.sam.predictor import SamPredictor
+    from samnerf_tpu_torch.utils.synthetic import look_at_c2w
+
+    cfg = method_configs()["samnerf_no_distill"].model
+    model = SAMModel(cfg, device=dev)
+    model.load_state_dict(init_params(cfg, torch.Generator().manual_seed(0), device=dev))
+    lang = LanguageSAM(SamPredictor(build_sam("vit_h", checkpoint=str(checkpoint), device=dev)),
+                       _clipseg_predictor(paths, dev))
+    snr = SamNerfRenderer(model, lang_sam=lang, chunk=chunk, serve_preset="static")
+    decoded = _record_points(lang.predictor)
+    intrin = VIEW_INTRIN * (size / VIEW_SIZE)
+    intrin[2, 2] = 1.0
+    p0 = np.array([1.2 * np.cos(0.3), 1.2 * np.sin(0.3), 0.45])
+    click = np.array([[float(int(0.45 * size)), float(int(0.55 * size))]])
+    rows = []
+
+    def view(i, c2w, text=None):
+        cams = cameras_from_intrin_c2w(intrin, c2w, size, size, device=dev)
+        ta.flash_attention_relpos.launches = 0
+        _reset_encode_launches(hg)
+        decoded.clear()
+        t0 = time.perf_counter()
+        out = snr.render_view(cams, 0, intrin, c2w, points=click, text_prompt=text)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(_encode_launches(hg), **{"FLASH-RELPOS": ta.flash_attention_relpos.launches})
+        for k in ("rgb", "depth", "masked_rgb"):
+            if out[k].shape[:2] != (size, size) or not np.isfinite(out[k]).all():
+                raise AssertionError(f"no-distill view {i} {k}: {out[k].shape} or not finite")
+        heat = out.get("clipseg_feature")
+        if heat is None or heat.shape != (512, 512, 1) or heat.min() < 0.0 or heat.max() > 1.0:
+            raise AssertionError(f"no-distill view {i}: clipseg_feature "
+                                 f"{None if heat is None else heat.shape} or not in [0, 1]")
+        pins = project(intrin, c2w, snr.prompts)
+        legal = ((pins >= 0) & (pins < size)).all(-1)
+        got = decoded[0] if len(decoded) == 1 else np.zeros((0, 2))
+        n_legal = int(legal.sum())
+        if len(decoded) != 1 or not np.array_equal(got[len(got) - n_legal:],
+                                                   pins[legal].astype(np.float64)):
+            raise AssertionError(f"no-distill view {i}: the mask decode got {got.tolist()}, "
+                                 f"not the heatmap's points and the pins {pins[legal].tolist()}")
+        changed = np.abs(out["masked_rgb"] - out["rgb"]).max(-1) > 1e-6
+        row = dict(view=i, text_prompt=text, ms=ms, pins=pins.tolist(), in_bounds=legal.tolist(),
+                   heat_points=len(got) - n_legal, mask_fraction=float(changed.mean()),
+                   launches=launches)
+        rows.append(row)
+        print(f"no_distill view {i} {size}x{size}{' text' if text else ''}: {ms:.1f} ms, pins "
+              f"{row['pins']} in bounds {row['in_bounds']}, {row['heat_points']} heatmap "
+              f"points, mask covers {100 * row['mask_fraction']:.1f} % of the frame; launches "
+              + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
+        if launches["FLASH-RELPOS"] != 4:
+            raise AssertionError(f"no-distill view {i}: {launches['FLASH-RELPOS']} "
+                                 "FLASH-RELPOS launches, not 4")
+
+    c2w0 = look_at_c2w(p0, np.zeros(3))
+    view(0, c2w0)
+    step = (snr.prompts[0] - p0) / np.linalg.norm(snr.prompts[0] - p0)
+    for i in (1, 2, 3):
+        view(i, look_at_c2w(p0 + 0.05 * i * step + [0.0, 0.0, 0.02 * i], np.zeros(3)))
+    view(4, look_at_c2w(p0 + 0.2 * step + [0.0, 0.0, 0.1], np.zeros(3)), CLIPSEG_PROMPTS[1])
+    if not all(r["in_bounds"] == [True] for r in rows[:4]):
+        raise AssertionError(f"the locked click left the frame: {rows[:4]}")
+    timed = [r["ms"] for r in rows[1:4]]
+    launches = sum(r["launches"]["FLASH-RELPOS"] for r in rows)
+    result = dict(views=rows, view_ms=statistics.median(timed), view_ms_all=timed,
+                  click_view_ms=rows[0]["ms"], text_view_ms=rows[4]["ms"],
+                  launches=launches, launches_per_view=launches / len(rows))
+    print(f"no_distill view: median {result['view_ms']:.1f} ms per moved view "
+          f"({', '.join(f'{t:.1f}' for t in timed)}), click view {rows[0]['ms']:.1f} ms, "
+          f"text view {rows[4]['ms']:.1f} ms; FLASH-RELPOS 4 launches per view", flush=True)
+    del snr, model, lang
+    return result
+
+
+def no_distill_train_phase(dev, scene: Path, root: Path):
+    """``NO_DISTILL_TRAIN_STEPS`` full-width ``samnerf_no_distill`` steps
+    through ``Trainer`` on the synthetic scene: losses finite, ms per step
+    after the first, launches per step."""
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    from samnerf_tpu_torch.scripts.profile_train import build_trainer
+
+    trainer = build_trainer(scene, root / "out_no_distill", dev, method="samnerf_no_distill")
+    losses, times, t_prev = [], [], [0.0]
+
+    def on_step(step, metrics):
+        losses.append({k: float(v) for k, v in metrics.items()})
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if step == 1:
+            torch.cuda.reset_peak_memory_stats()
+            _reset_encode_launches(hg)
+        else:
+            times.append((now - t_prev[0]) * 1e3)
+        t_prev[0] = now
+
+    trainer.cfg.max_num_iterations = NO_DISTILL_TRAIN_STEPS
+    trainer.train(step_callback=on_step)
+    steps = len(times)
+    launches = {"F32-ENC": hg.parity_hash_encode.launches,
+                "F32-ENC-BWD": hg.parity_hash_encode_bwd.launches}
+    peak = torch.cuda.max_memory_allocated()
+    rays = trainer.datamanager.config.train_num_rays_per_batch
+    del trainer
+    result = dict(steps=len(losses), step_ms=statistics.median(times), step_ms_all=times,
+                  rays_per_s=rays / statistics.median(times) * 1e3, launches=launches,
+                  launches_per_step={k: v / steps for k, v in launches.items()},
+                  max_memory_allocated=peak, first_losses=losses[0], last_losses=losses[-1])
+    print(f"train samnerf_no_distill {rays} rays/step: {len(losses)} steps, median step "
+          f"{result['step_ms']:.2f} ms over the last {steps}, "
+          f"{result['rays_per_s']:,.0f} rays/s; launches/step "
+          + ", ".join(f"{k}={v:g}" for k, v in result["launches_per_step"].items())
+          + f"; max_memory_allocated={peak / 2**30:.2f} GiB; losses first {losses[0]} "
+          f"last {losses[-1]}", flush=True)
+    if len(losses) != NO_DISTILL_TRAIN_STEPS or not all(
+            math.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError(f"samnerf_no_distill train losses: {losses}")
+    if not launches["F32-ENC"] or not launches["F32-ENC-BWD"]:
+        raise AssertionError(f"the no-distill train path launched {launches}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1178,6 +1555,12 @@ def main() -> int:
         encode = encode_phase(dev, checkpoint, frames)
         encode_reference = encode_reference_phase(dev)
         preprocess = preprocess_phase(dev, checkpoint, root)
+        clip_paths = clipseg_checkpoint(dev, root)
+        clipseg = clipseg_phase(dev, clip_paths, frames)
+        preprocess_clipseg = preprocess_clipseg_phase(dev, clip_paths, root / "scene", root)
+        text_view = view_phase(dev, clipseg=clip_paths)
+        no_distill_view = no_distill_view_phase(dev, checkpoint, clip_paths)
+        no_distill_train = no_distill_train_phase(dev, root / "scene", root)
 
     source = "samnerf_tpu_torch/csrc/hash_encode.cu"
     kernels = []
@@ -1195,7 +1578,12 @@ def main() -> int:
                         "launches": serve[run]["launches"][name],
                         "launches_by_path": {"serve_f32": serve["f32"]["launches"][name],
                                              "serve_int8": serve["int8"]["launches"][name],
-                                             "train": train["launches"][name]},
+                                             "train": train["launches"][name],
+                                             "view_no_distill": sum(
+                                                 r["launches"][name]
+                                                 for r in no_distill_view["views"]),
+                                             "train_no_distill":
+                                                 no_distill_train["launches"].get(name, 0)},
                         "max_abs_err": max(r["max_abs_err"] for r in mine),
                         "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                         "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
@@ -1232,7 +1620,7 @@ def main() -> int:
                     "launches": serve["int8_fused"]["launches"]["FUSED-QMLP"],
                     "launches_by_path": {
                         "serve_int8_fused": serve["int8_fused"]["launches"]["FUSED-QMLP"],
-                        "view": view["launches"]},
+                        "view": view["launches"], "view_text": text_view["launches"]},
                     "max_abs_err": max(r["max_abs_err"] for r in qmlp_rows),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
@@ -1246,7 +1634,9 @@ def main() -> int:
     kernels.append({"name": "F32-ENC-BWD", "route": "cuda", "source": source,
                     "replaces": "samnerf_tpu/ops/hash_pallas.py:644",
                     "launches": train["launches"]["F32-ENC-BWD"],
-                    "launches_by_path": {"train": train["launches"]["F32-ENC-BWD"]},
+                    "launches_by_path": {
+                        "train": train["launches"]["F32-ENC-BWD"],
+                        "train_no_distill": no_distill_train["launches"]["F32-ENC-BWD"]},
                     "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
@@ -1258,7 +1648,8 @@ def main() -> int:
                     "replaces": "samnerf_tpu/ops/attention_pallas.py:32",
                     "launches": encode["launches"],
                     "launches_by_path": {"encode": encode["launches"],
-                                         "preprocess": preprocess["launches"]},
+                                         "preprocess": preprocess["launches"],
+                                         "view_no_distill": no_distill_view["launches"]},
                     "max_abs_err": max(r["max_abs_err"] for r in attn_rows),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
@@ -1273,7 +1664,10 @@ def main() -> int:
          "view": view, "train": train,
          "train_reference": train_reference, "attn_kernel_rows": attn_rows,
          "encode": encode, "encode_reference": encode_reference,
-         "preprocess": preprocess, "kernels": kernels}, indent=1))
+         "preprocess": preprocess, "clipseg": clipseg,
+         "preprocess_clipseg": preprocess_clipseg, "text_view": text_view,
+         "no_distill_view": no_distill_view, "no_distill_train": no_distill_train,
+         "kernels": kernels}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

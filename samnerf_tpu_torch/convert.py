@@ -22,6 +22,12 @@ Both packages then compute the same function.
 - hash ``table``, ``qtable{b}``, ``qscales{b}``, the encoder's
   ``pos_embed`` ([1, 64, 64, C] in both) and ``rel_pos_*`` and
   everything else pass through unchanged.
+
+``clip_state_dict_from_jax`` and ``clipseg_state_dict_from_jax`` go the
+other way for CLIP and ClipSeg, whose modules keep the reference names:
+JAX params -> the reference layouts (OpenAI CLIP's state dict,
+``rd64-uni.pth``'s decoder keys), the exact inverses of the JAX package's
+``convert_clip_state_dict`` and ``convert_clipseg_state_dict``.
 """
 from __future__ import annotations
 
@@ -63,10 +69,13 @@ def _leaf(path, key: str, value: np.ndarray):
     return key, torch.from_numpy(np.array(value, order="C"))   # a writable copy
 
 
+def _unwrap(tree: Mapping[str, Any]) -> Mapping[str, Any]:
+    return tree["params"] if set(tree) == {"params"} else tree
+
+
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax param tree (nested dicts of numpy arrays) -> flat state dict."""
-    if set(tree) == {"params"}:
-        tree = tree["params"]
+    tree = _unwrap(tree)
     state: Dict[str, torch.Tensor] = {}
 
     def walk(node, path):
@@ -79,3 +88,78 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
     walk(tree, ())
     return state
+
+
+# --- ClipSeg: the inverses of the JAX package's ``convert_clip_state_dict``
+# and ``convert_clipseg_state_dict``, back to the reference layouts --------
+
+
+def _tensor(value) -> torch.Tensor:
+    return torch.from_numpy(np.array(value, dtype=np.float32, order="C"))
+
+
+def _dense(node, name: str) -> Dict[str, torch.Tensor]:
+    return {f"{name}.weight": _tensor(np.asarray(node["kernel"]).T),
+            f"{name}.bias": _tensor(node["bias"])}
+
+
+def _norm(node, name: str) -> Dict[str, torch.Tensor]:
+    return {f"{name}.weight": _tensor(node["scale"]), f"{name}.bias": _tensor(node["bias"])}
+
+
+def _attention(in_proj, out_proj, name: str) -> Dict[str, torch.Tensor]:
+    return {f"{name}.in_proj_weight": _tensor(np.asarray(in_proj["kernel"]).T),
+            f"{name}.in_proj_bias": _tensor(in_proj["bias"]),
+            **_dense(out_proj, f"{name}.out_proj")}
+
+
+def _indexed(tree: Mapping[str, Any], name: str) -> int:
+    return sum(1 for k in tree if _INDEXED.match(k) and k.rsplit("_", 1)[0] == name)
+
+
+def clip_state_dict_from_jax(visual_params: Mapping[str, Any],
+                             text_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``CLIPVisual`` and ``CLIPText`` params -> an OpenAI CLIP state
+    dict (the visual tower under ``visual.``): Dense kernels transposed
+    back, the patch conv HWIO -> OIHW."""
+    vis, txt = _unwrap(visual_params), _unwrap(text_params)
+
+    def blocks(tree, prefix):
+        out = {}
+        for i in range(_indexed(tree, "resblocks")):
+            b, name = tree[f"resblocks_{i}"], f"{prefix}transformer.resblocks.{i}"
+            out.update(_norm(b["ln_1"], f"{name}.ln_1"), **_norm(b["ln_2"], f"{name}.ln_2"),
+                       **_attention(b["attn_in_proj"], b["attn_out_proj"], f"{name}.attn"),
+                       **_dense(b["mlp_c_fc"], f"{name}.mlp.c_fc"),
+                       **_dense(b["mlp_c_proj"], f"{name}.mlp.c_proj"))
+        return out
+
+    return {"visual.conv1.weight": _tensor(np.asarray(vis["conv1"]["kernel"]).transpose(3, 2, 0, 1)),
+            "visual.class_embedding": _tensor(vis["class_embedding"]),
+            "visual.positional_embedding": _tensor(vis["positional_embedding"]),
+            **_norm(vis["ln_pre"], "visual.ln_pre"), **_norm(vis["ln_post"], "visual.ln_post"),
+            "visual.proj": _tensor(vis["proj"]), **blocks(vis, "visual."),
+            "token_embedding.weight": _tensor(txt["token_embedding"]["embedding"]),
+            "positional_embedding": _tensor(txt["positional_embedding"]),
+            **_norm(txt["ln_final"], "ln_final"),
+            "text_projection": _tensor(txt["text_projection"]), **blocks(txt, "")}
+
+
+def clipseg_state_dict_from_jax(decoder_params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``CLIPDensePredT`` params -> ``rd64-uni.pth``'s decoder keys:
+    Dense kernels transposed back, ``trans_conv`` flipped back to the
+    reference ``ConvTranspose2d``'s [in, out, kh, kw]."""
+    p = _unwrap(decoder_params)
+    sd = {**_dense(p["film_mul"], "film_mul"), **_dense(p["film_add"], "film_add"),
+          "trans_conv.weight": _tensor(
+              np.asarray(p["trans_conv"]["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1)),
+          "trans_conv.bias": _tensor(p["trans_conv"]["bias"])}
+    for i in range(_indexed(p, "reduces")):
+        b, name = p[f"blocks_{i}"], f"blocks.{i}"
+        sd.update(_dense(p[f"reduces_{i}"], f"reduces.{i}"),
+                  **_attention(b["self_attn_in_proj"], b["self_attn_out_proj"],
+                               f"{name}.self_attn"),
+                  **_dense(b["linear1"], f"{name}.linear1"),
+                  **_dense(b["linear2"], f"{name}.linear2"),
+                  **_norm(b["norm1"], f"{name}.norm1"), **_norm(b["norm2"], f"{name}.norm2"))
+    return sd

@@ -5,9 +5,10 @@ Counterpart of ``samnerf_tpu/engine/render_pipeline.py``: ``serve_model``,
 the geometry of 3D prompt locking (``backproject``, ``project``,
 ``visible_mask``, ``pooled_heatmap_points``, ``draw_pins``) and
 ``SamNerfRenderer`` with ``serve_frame_fn`` (the all-device frame),
-``render_view`` (the viewer's flow, which locks clicks as 3D points) and
-``bake_serve_tables``.  ``render_view``'s ClipSeg text prompts and the
-no-distill LanguageSAM branch wait for ClipSeg.
+``render_view`` (the viewer's flow, which locks clicks as 3D points,
+decodes ClipSeg text prompts on the rendered ClipSeg grid, and runs
+LanguageSAM on the rendered rgb for a model that distills nothing) and
+``bake_serve_tables``.
 """
 from __future__ import annotations
 
@@ -162,8 +163,13 @@ def cameras_from_intrin_c2w(intrin: np.ndarray, c2w: np.ndarray, height: int,
 class SamNerfRenderer:
     """The viewer's serve backend over one model.  ``sam_predictor`` (a
     :class:`~samnerf_tpu_torch.perception.sam.predictor.SamPredictor`)
-    decodes :meth:`render_view`'s masks; ``prompts`` [M, 3] holds the
-    locked 3D points."""
+    decodes :meth:`render_view`'s masks on a distilling model's rendered
+    SAM embedding, ``clipseg_predictor`` (a
+    :class:`~samnerf_tpu_torch.perception.clipseg.pipeline.ClipSegPredictor`)
+    its text prompts; ``lang_sam`` (a
+    :class:`~samnerf_tpu_torch.perception.langsam.LanguageSAM`) segments
+    the rendered rgb of a model that distills nothing.  ``prompts`` [M, 3]
+    holds the locked 3D points."""
 
     #: "static" trims the SAM-field top-k to 8; "move" also halves the nerf
     #: and proposal counts (the renderer for a moving camera).
@@ -171,12 +177,14 @@ class SamNerfRenderer:
                      "static": dict(k=8),
                      "move": dict(nerf=16, props=32, k=2)}
 
-    def __init__(self, model: SAMModel, sam_predictor=None,
-                 chunk: int = 1 << 15, serve_preset: str = "full"):
+    def __init__(self, model: SAMModel, sam_predictor=None, clipseg_predictor=None,
+                 lang_sam=None, chunk: int = 1 << 15, serve_preset: str = "full"):
         model = serve_model(model, **self.SERVE_PRESETS[serve_preset])
         self.renderer = ImageRenderer(model, chunk=chunk)
         self.cfg = model.config
         self.predictor = sam_predictor
+        self.clipseg = clipseg_predictor
+        self.lang_sam = lang_sam
         self.prompts: Optional[np.ndarray] = None
         self._move_renderer: Optional[ImageRenderer] = None
         if serve_preset == "static":
@@ -249,6 +257,7 @@ class SamNerfRenderer:
     def render_view(self, cameras: Cameras, camera_index: int,
                     intrin: np.ndarray, c2w: np.ndarray,
                     points: Optional[np.ndarray] = None,
+                    text_prompt: Optional[str] = None, topk: int = 5, thresh: float = 0.5,
                     width: Optional[int] = None, height: Optional[int] = None,
                     crop_aabb: Optional[np.ndarray] = None,
                     crop_bg: Optional[np.ndarray] = None,
@@ -256,17 +265,26 @@ class SamNerfRenderer:
         """The viewer's flow (``samnerf_tpu`` ``render_view``), host numpy
         out: render rgb, depth and the SAM / ClipSeg grids; back-project
         each new click through the depth into a locked 3D point; project
-        every locked point into this view, keep those in bounds, decode a
-        mask from them on the rendered SAM embedding and composite it, and
-        draw the pins that the depth does not hide.
+        every locked point into this view and keep those in bounds.
+
+        A distilling model decodes a mask on the rendered SAM embedding
+        from those points and, with ``text_prompt`` and a ClipSeg
+        predictor, from the ClipSeg heatmap of the prompt decoded on the
+        rendered ClipSeg grid (``clipseg_feature`` [512, 512, 1]; its
+        points are ``pooled_heatmap_points`` at their defaults, 1000 and
+        0.7: ``topk`` and ``thresh`` do not reach them, as in the JAX
+        package), composites it and draws the pins that the depth does
+        not hide.  A model that distills nothing runs LanguageSAM on the
+        rendered rgb with the prompt (default "a man is cooking"), ``topk``
+        heatmap points above ``thresh`` and the projected points; it draws
+        no pins.
 
         points: [N, 2] (x, y), all clicks so far; those beyond the locked
         count are new.  None or empty clears the locked points.
         crop_aabb [2, 3] / crop_bg [3]: the viewer's crop box and its
         background.  preset "move" renders through the reduced-sample
         renderer when there is one.  Adds ``masked_rgb`` to the render's
-        outputs.  ClipSeg text prompts and the no-distill LanguageSAM
-        branch are not ported (they wait for ClipSeg)."""
+        outputs."""
         cfg = self.cfg
         feats = ("sam", "clipseg") if cfg.distill_sam else ()
         outputs = self._renderer_for(preset).render_image(
@@ -274,6 +292,7 @@ class SamNerfRenderer:
             crop_aabb=crop_aabb, crop_bg=crop_bg)
         h, w = outputs["rgb"].shape[:2]
         outputs["masked_rgb"] = outputs["rgb"]
+        prompt = text_prompt if text_prompt is not None else "a man is cooking"
 
         if points is None or len(points) == 0:
             self.prompts = None
@@ -285,23 +304,44 @@ class SamNerfRenderer:
                 self.prompts = (new_3d if self.prompts is None else
                                 np.concatenate([self.prompts, new_3d], axis=0))
 
-        if self.predictor is None or "sam" not in outputs:
-            return outputs
-        self.predictor.set_feature(outputs["sam"], original_image_size=(h, w))
-        if self.prompts is None:
-            return outputs
-        prompts_2d = project(intrin, c2w, self.prompts)
-        legal = np.logical_and(prompts_2d >= 0, prompts_2d < np.array([[w, h]])).all(-1)
-        prompts_2d = prompts_2d[legal]
-        if len(prompts_2d) == 0:
-            return outputs
-        masks, _, _ = self.predictor.predict(
-            point_coords=prompts_2d.astype(np.float64),
-            point_labels=np.ones(len(prompts_2d), np.int64), multimask_output=False)
-        outputs["masked_rgb"] = composite_mask(
-            masks[0], outputs["rgb"], rng=np.random.default_rng(0)).astype(np.float32)
-        vis = visible_mask(prompts_2d.astype(np.float64), self.prompts[legal],
-                           outputs["depth"], intrin, c2w)
-        outputs["masked_rgb"] = draw_pins(outputs["masked_rgb"], prompts_2d[vis],
-                                          radius=max(1, int(4 * h / 840)))
+        input_points = legal_3d = prompts_2d = None
+        if self.prompts is not None:
+            prompts_2d = project(intrin, c2w, self.prompts)
+            legal = np.logical_and(prompts_2d >= 0,
+                                   prompts_2d < np.array([[w, h]])).all(axis=-1)
+            prompts_2d = prompts_2d[legal]
+            legal_3d = self.prompts[legal]
+            input_points = prompts_2d.astype(np.float64)
+
+        if cfg.distill_sam and "sam" in outputs and self.predictor is not None:
+            self.predictor.set_feature(outputs["sam"], original_image_size=(h, w))
+            if cfg.use_clipseg_feature and self.clipseg is not None \
+                    and text_prompt is not None:
+                cond = self.clipseg.encode_text([prompt])
+                heat = self.clipseg.decode_rendered(outputs["clipseg"], cond).cpu().numpy()
+                heat = 1.0 / (1.0 + np.exp(-heat))
+                outputs["clipseg_feature"] = heat[..., None]
+                clip_points = pooled_heatmap_points(heat, (h, w))
+                if clip_points is not None:
+                    input_points = (clip_points if input_points is None else
+                                    np.concatenate([input_points, clip_points]))
+            if input_points is not None and len(input_points) > 0:
+                masks, _, _ = self.predictor.predict(
+                    point_coords=input_points,
+                    point_labels=np.ones(len(input_points), np.int64),
+                    multimask_output=False)
+                outputs["masked_rgb"] = composite_mask(
+                    masks[0], outputs["rgb"], rng=np.random.default_rng(0)).astype(np.float32)
+                if prompts_2d is not None and len(prompts_2d) > 0:
+                    vis = visible_mask(prompts_2d.astype(np.float64), legal_3d,
+                                       outputs["depth"], intrin, c2w)
+                    outputs["masked_rgb"] = draw_pins(outputs["masked_rgb"], prompts_2d[vis],
+                                                      radius=max(1, int(4 * h / 840)))
+        elif not cfg.distill_sam and self.lang_sam is not None:
+            rgb_uint8 = (outputs["rgb"] * 255).astype(np.uint8)
+            outputs["masked_rgb"] = self.lang_sam.set_and_segment(
+                rgb_uint8, prompt, pts=topk, thres=thresh,
+                points=input_points).astype(np.float32)
+            if self.lang_sam.clipseg_feature is not None:
+                outputs["clipseg_feature"] = self.lang_sam.clipseg_feature[..., None]
         return outputs

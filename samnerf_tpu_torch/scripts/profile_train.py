@@ -39,9 +39,10 @@ from samnerf_tpu_torch.scripts.profile_serve import _kernel_name, port_kernel_to
 from samnerf_tpu_torch.utils.synthetic import write_scene
 
 
-def build_trainer(scene: Path, output_dir: Path, device, seed: int = 0) -> Trainer:
-    """The ``samnerf_distill`` trainer at full width on ``scene``."""
-    method = method_configs()["samnerf_distill"]
+def build_trainer(scene: Path, output_dir: Path, device, seed: int = 0,
+                  method: str = "samnerf_distill") -> Trainer:
+    """The trainer of ``method`` at full width on ``scene``."""
+    method = method_configs()[method]
     method.datamanager.dataparser.data = scene
     dm = DataManager(method.datamanager)
     tcfg = dataclasses.replace(method.trainer, seed=seed, output_dir=output_dir,

@@ -31,8 +31,14 @@ from samnerf_tpu_torch.perception.sam.predictor import SamPredictor
 from samnerf_tpu_torch.perception.sam.sam import Sam
 from samnerf_tpu_torch.utils.synthetic import look_at_c2w
 
+from samnerf_tpu.perception import langsam as jls
+from samnerf_tpu_torch.perception import langsam as tls
+
 from test_model import TINY
+from test_torch_clipseg import tiny_predictors
 from test_torch_convert import decoder_state
+from test_torch_langsam import (HEAT_TOL, MARGIN, check_top_cells_apart, record_predict,
+                                sam_predictors, seeded_default_rng)
 from test_torch_serve_slice import _model_params
 
 H = W = 64
@@ -120,13 +126,14 @@ def renderers():
     return jsnr, params, snr
 
 
-def _view(renderers, c2w, points, **crop):
+def _view(renderers, c2w, points, text_prompt=None, **crop):
     jsnr, params, snr = renderers
     jcams = jrp.cameras_from_intrin_c2w(INTRIN, c2w, H, W)
-    ref = jsnr.render_view(params, jcams, 0, INTRIN, c2w, points=points, width=W,
-                           height=H, **crop)
+    ref = jsnr.render_view(params, jcams, 0, INTRIN, c2w, points=points,
+                           text_prompt=text_prompt, width=W, height=H, **crop)
     cams = trp.cameras_from_intrin_c2w(INTRIN, c2w, H, W, device="cpu")
-    out = snr.render_view(cams, 0, INTRIN, c2w, points=points, width=W, height=H,
+    out = snr.render_view(cams, 0, INTRIN, c2w, points=points, text_prompt=text_prompt,
+                          width=W, height=H,
                           **{k: None if v is None else np.asarray(v) for k, v in crop.items()})
     return ref, out
 
@@ -202,3 +209,117 @@ def test_render_view_crop_box_matches_jax(renderers):
     assert np.abs(out["rgb"] - np.asarray(plain["rgb"])).max() > 0.05
     renderers[2].clear_prompts()
     renderers[0].clear_prompts()
+
+
+# --- the text and no-distill branches -----------------------------------------------
+
+
+def _same_points(a, b):
+    """Point prompts equal up to their order (cells of equal rank may come
+    in either order; the decoder's output does not depend on it)."""
+    np.testing.assert_array_equal(a[np.lexsort(a.T)], b[np.lexsort(b.T)])
+
+
+def test_render_view_text_prompt_matches_jax(renderers, tmp_path, monkeypatch):
+    """A click and a text prompt on the distilling model: the ClipSeg
+    heatmap of the prompt decoded on the rendered ClipSeg grid, its
+    pooled cells above 0.7 as extra points after the locked one."""
+    jsnr, _, snr = renderers
+    jclip, tclip = tiny_predictors(tmp_path, logit_shift=0.8, flat_trans_conv=True)
+    monkeypatch.setattr(jsnr, "clipseg", jclip)
+    monkeypatch.setattr(snr, "clipseg", tclip)
+    ref_calls = record_predict(monkeypatch, jsnr.predictor)
+    calls = record_predict(monkeypatch, snr.predictor)
+    try:
+        ref, out = _view(renderers, VIEWS[0], CLICKS[0], text_prompt="a photo of a ball")
+        pin = trp.project(INTRIN, VIEWS[0], snr.prompts)[0]
+    finally:
+        snr.clear_prompts()
+        jsnr.clear_prompts()
+    np.testing.assert_allclose(out["clipseg"], np.asarray(ref["clipseg"]), **GRID_TOL)
+    heat = out["clipseg_feature"]
+    assert heat.shape == (512, 512, 1) and heat.min() >= 0.0 and heat.max() <= 1.0
+    np.testing.assert_allclose(heat, ref["clipseg_feature"], rtol=0, atol=HEAT_TOL)
+    pooled = heat[..., 0].reshape(32, 16, 32, 16).mean(axis=(1, 3))
+    assert np.abs(pooled - 0.7).min() > MARGIN      # before the points
+    n_text = int((pooled > 0.7).sum())
+    assert 0 < n_text < pooled.size
+    (pts, mask), = calls
+    (ref_pts, ref_mask), = ref_calls
+    assert pts.shape == (1 + n_text, 2)
+    np.testing.assert_array_equal(pts[0], pin)
+    _same_points(pts, ref_pts)
+    same = mask[0] == ref_mask[0]
+    assert same.mean() >= 0.999
+    np.testing.assert_allclose(out["masked_rgb"][same], np.asarray(ref["masked_rgb"])[same],
+                               rtol=0, atol=1e-4)
+
+
+@pytest.fixture(scope="module")
+def no_distill_renderers(tmp_path_factory):
+    """(JAX renderer, its params, port renderer) of a model that distills
+    nothing, each with a LanguageSAM over the small SAM and tiny ClipSeg."""
+    cfg = dataclasses.replace(TINY, hash_fn="morton", distill_sam=False,
+                              use_clipseg_feature=False)
+    params = _model_params(cfg)
+    jclip, tclip = tiny_predictors(tmp_path_factory.mktemp("no_distill"), logit_shift=0.3,
+                                   flat_trans_conv=True)
+    jpred, tpred = sam_predictors()
+    jsnr = jrp.SamNerfRenderer(JaxModel(cfg), lang_sam=jls.LanguageSAM(jpred, jclip),
+                               chunk=1024, serve_preset="static")
+    model = SAMModel(SAMModelConfig(**{f: getattr(cfg, f) for f in
+                                       SAMModelConfig.__dataclass_fields__}),
+                     device="cpu")
+    model.load_state_dict(params_from_jax(params))
+    snr = trp.SamNerfRenderer(model, lang_sam=tls.LanguageSAM(tpred, tclip), chunk=1024,
+                              serve_preset="static")
+    return jsnr, params, snr
+
+
+def test_render_view_no_distill_matches_jax(no_distill_renderers, monkeypatch):
+    """A click, then a moved camera with the click locked and a text
+    prompt: LanguageSAM on the rendered rgb with ``topk`` heatmap points
+    above ``thresh`` and the projected locked point.
+
+    The rendered rgb agrees to 1e-4, but its uint8 copy may then differ by
+    one step at a pixel whose value lies that close to a rounding edge,
+    and the tiny CLIP's global attention carries one such step into every
+    heatmap pixel (1.6e-3 at the second view).  So the two ``render_view``
+    calls are held to each other at that level, and the branch itself is
+    held at the tolerances of ``test_torch_langsam.py`` against JAX's
+    ``LanguageSAM`` given the port's own uint8 render and projected pin."""
+    seeded_default_rng(monkeypatch)
+    jsnr, _, snr = no_distill_renderers
+    ref_calls = record_predict(monkeypatch, jsnr.lang_sam.predictor)
+    calls = record_predict(monkeypatch, snr.lang_sam.predictor)
+    for c2w, prompt in ((VIEWS[0], None), (VIEWS[1], "a photo of a ball")):
+        ref, out = _view(no_distill_renderers, c2w, CLICKS[0], text_prompt=prompt)
+        for k, tol in (("depth", dict(rtol=1e-4, atol=1e-6)), ("rgb", GRID_TOL)):
+            np.testing.assert_allclose(out[k], np.asarray(ref[k]), err_msg=k, **tol)
+        assert "sam" not in out and "clipseg" not in out
+        np.testing.assert_allclose(snr.prompts, jsnr.prompts, rtol=0, atol=1e-4)
+        img = (out["rgb"] * 255).astype(np.uint8)
+        np.testing.assert_array_equal(snr.lang_sam.image, img)
+        steps = np.abs(img.astype(int) - jsnr.lang_sam.image.astype(int))
+        assert steps.max() <= 1 and (steps == 0).mean() >= 0.999
+        heat = out["clipseg_feature"]
+        assert heat.shape == (512, 512, 1)
+        np.testing.assert_allclose(heat, ref["clipseg_feature"], rtol=0, atol=5e-3)
+
+        pins = trp.project(INTRIN, c2w, snr.prompts)
+        ref_masked = jsnr.lang_sam.set_and_segment(
+            img, prompt or "a man is cooking", pts=5, thres=0.5, points=pins.astype(np.float64))
+        np.testing.assert_allclose(heat[..., 0], jsnr.lang_sam.clipseg_feature, rtol=0,
+                                   atol=HEAT_TOL)
+        n_heat = check_top_cells_apart(heat[..., 0], 5, 0.5)     # before the points
+        pts, mask = calls[-1]
+        ref_pts, ref_mask = ref_calls[-1]
+        assert pts.shape == (min(5, n_heat) + 1, 2)
+        np.testing.assert_array_equal(pts[-1], pins[0])
+        np.testing.assert_array_equal(pts, ref_pts)
+        same = mask[0] == ref_mask[0]        # (test_torch_langsam.py decodes a real mask)
+        assert same.mean() >= 0.999
+        np.testing.assert_allclose(out["masked_rgb"][same], ref_masked[same], rtol=0, atol=1e-4)
+    assert len(calls) == 2 and len(ref_calls) == 4
+    snr.clear_prompts()
+    jsnr.clear_prompts()
