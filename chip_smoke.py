@@ -9,8 +9,8 @@ which raises on failure:
 2. build the CUDA kernels from ``samnerf_tpu_torch/csrc`` (one ``nvcc``
    per source, all at once; the toolkit's release printed) and print
    ``ptxas``'s registers, spills and shared memory of the F32-ENC,
-   F32-ENC-BWD, Q-ENC, FUSED-QMLP and FLASH-RELPOS kernels (raises on a
-   spill);
+   F32-ENC-BWD, Q-ENC, FUSED-QMLP and FLASH-RELPOS kernels, f32 and bf16
+   (raises on a spill);
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card at the serve path's shapes (max abs error, time, bound), the
    quantized encodes on the pack-interleaved serve table, F32-ENC and the
@@ -32,6 +32,11 @@ which raises on failure:
    view: ``SamNerfRenderer.render_view`` at 512x512, full width, int8
    fused, with a ``SamPredictor``: a click locked in 3D in view 0, three
    further cameras that re-project it, and one view with a crop box;
+   serve_bf16: the same model with ``compute_dtype=torch.bfloat16``:
+   512x512 frames with f32 tables, baked int8, and baked int8 with
+   ``serve_fuse_mlp`` (Q-ENC and the unfused bf16 MLPs: FUSED-QMLP
+   computes in f32 only), ``render_view`` with one click, and a small bf16
+   model's grids on the card against the CPU;
 5. train_kernels: the encode backward F32-ENC-BWD against its plain
    version, and F32-ENC, at the three encode shapes of a
    ``samnerf_distill`` training step (16384 rays), at uniform positions
@@ -49,13 +54,19 @@ which raises on failure:
    with a peaky softmax (q scaled by 8, logits to about +-30): max abs
    error, time, the 3xTF32 tensor-core bound and the f32 CUDA-core one,
    and ``scaled_dot_product_attention`` with the materialised bias as a
-   yardstick;
+   yardstick; attn_bf16_kernel: the bf16 FLASH-RELPOS against its plain
+   version on bf16 operands at ViT-H's, ViT-B's and the ragged shape,
+   within one bf16 ulp, with its bf16 bounds, plain and library times;
 8. encode: SAM ViT-H at full width (seeded weights, saved once as a
    reference-layout checkpoint and loaded through ``build_sam``) through
    ``SamPredictor.set_image`` on 512x512 frames (ms per image, peak
    memory, FLASH-RELPOS launches per image, click -> mask ms), and the
    kernel route's embedding against the plain route's; then a small
-   encoder on the card against the same encoder on the CPU;
+   encoder on the card against the same encoder on the CPU; encode_bf16:
+   ``build_sam_vit_h(checkpoint, compute_dtype=torch.bfloat16)`` through
+   ``set_image`` (ms per image, peak memory, 4 bf16 FLASH-RELPOS launches
+   per image, the embedding's error against the f32 encode, the kernel
+   route against the plain version in its place);
 9. preprocess: ``python -m samnerf_tpu_torch.preprocessing
    .get_image_embeddings`` (its ``main``) with that checkpoint on a
    synthetic 24-image 512x512 scene, the port's feature loader on the
@@ -79,18 +90,24 @@ which raises on failure:
    with the click locked, a text-prompt view; 4 FLASH-RELPOS launches per
    view, the locked point in every mask decode;
 14. no_distill_train: 10 full-width ``samnerf_no_distill`` steps through
-   ``Trainer`` on the scene;
+   ``Trainer`` on the scene; train_bf16: ``samnerf_distill
+   --model.compute-dtype bfloat16`` through the train entry at full width
+   on the train phase's synthetic scene (ms per step, rays/s, peak
+   memory, 6 F32-ENC and 6 F32-ENC-BWD launches per step);
 15. one ``{"kernels": [...]}`` line (the f32 kernels' layout passes
-   listed under ``passes`` beside the kernel that needs them), then
+   listed under ``passes`` beside the kernel that needs them; the bf16
+   FLASH-RELPOS as ``FLASH-RELPOS-BF16``), then
    ``{"ok": true, "device": ...}`` as the last line.
 
 Float32 matmuls and convolutions run in full f32 (TF32 off) so the card
-and the CPU compute the same function.  Exits non-zero without a result
+and the CPU compute the same function; bf16 GEMMs keep PyTorch's default
+reduction settings.  Exits non-zero without a result
 when no CUDA device is present.  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -162,6 +179,16 @@ CLIPSEG_CALLS = 6               # per timed function; the first is the warm-up
 # token or position-grid resize moves them by 1e-2 or more
 TOL_CLIPSEG = dict(rtol=1e-3, atol=1e-3)
 NO_DISTILL_TRAIN_STEPS = 10
+BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 on the tensor cores
+# the bf16 FLASH-RELPOS against its plain version (both f32 inside, the
+# output rounded once): one bf16 ulp, |d| <= 2^-7 |ref| + 1e-5 max |ref|;
+# the absolute term covers outputs near 0, where the two f32 values (the
+# kernel's tensor-core sums and hi/lo P against cuBLAS f32) differ by up
+# to ~2e-6 max |ref| (the f32 kernel's own level) before they are rounded
+BF16_ULP = 2.0 ** -7
+BF16_ULP_ABS = 1e-5
+BF16_TRAIN_WARMUP, BF16_TRAIN_STEPS = 3, 10
+BF16_FRAMES = 3                 # timed frames per bf16 serve run, after a warm-up
 
 
 def _smi() -> str:
@@ -391,13 +418,13 @@ def qmlp_kernel_phase(dev, frame_pos):
 # the kernels (by source) whose ptxas report is printed and held to no spills
 RESOURCE_KERNELS = {"hash_encode": ("f32_encode_kernel", "f32_encode_bwd_kernel",
                                     "q_encode_kernel", "qmlp_kernel"),
-                    "attention_relpos": ("flash_relpos_kernel",)}
+                    "attention_relpos": ("flash_relpos_kernel", "flash_relpos_bf16_kernel")}
 
 
 def kernel_resources():
     """``ptxas``'s registers, spills and shared memory of F32-ENC,
-    F32-ENC-BWD, Q-ENC, FUSED-QMLP and FLASH-RELPOS, named by their
-    template arguments; raises if one of them spills."""
+    F32-ENC-BWD, Q-ENC, FUSED-QMLP and FLASH-RELPOS (f32 and bf16), named
+    by their template arguments; raises if one of them spills."""
     import re
 
     from samnerf_tpu_torch.ops import cuda_build
@@ -942,6 +969,202 @@ def train_reference_phase(dev):
     return report
 
 
+def train_bf16_phase(dev, root: Path):
+    """``samnerf_distill`` with ``--model.compute-dtype bfloat16`` through
+    the port's train entry (``train.parse``, ``train.train_loop``) at full
+    width on the train phase's synthetic scene: ms per step over
+    ``BF16_TRAIN_STEPS`` after ``BF16_TRAIN_WARMUP``, rays/s, peak memory,
+    finite losses, and 6 F32-ENC and 6 F32-ENC-BWD launches per step (the
+    hash encodes stay f32; their cotangents arrive in f32)."""
+    from samnerf_tpu_torch import train as train_entry
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    from samnerf_tpu_torch.utils.synthetic import write_scene
+
+    scene = write_scene(root / "scene_bf16", num_train=24, num_test=2, h=512, w=512,
+                        with_features=True, feature_long_side=64)
+    config = train_entry.parse([
+        "samnerf_distill", "--data", str(scene), "--model.compute-dtype", "bfloat16",
+        "--trainer.max-num-iterations", str(BF16_TRAIN_WARMUP + BF16_TRAIN_STEPS),
+        "--trainer.save-final", "false", "--trainer.output-dir", str(root / "out_bf16")])
+    if config.model.compute_dtype != torch.bfloat16:
+        raise AssertionError(f"the CLI gave compute_dtype {config.model.compute_dtype}")
+    losses, times, t_prev = [], [], [0.0]
+
+    def on_step(step, metrics):
+        losses.append({k: float(v) for k, v in metrics.items()})
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if step == BF16_TRAIN_WARMUP:
+            torch.cuda.reset_peak_memory_stats()
+            _reset_encode_launches(hg)
+        elif step > BF16_TRAIN_WARMUP:
+            times.append((now - t_prev[0]) * 1e3)
+        t_prev[0] = now
+
+    trainer = train_entry.train_loop(config, device=dev, step_callback=on_step)
+    if trainer.model.fields.mlp_base.compute_dtype != torch.bfloat16:
+        raise AssertionError("the trained model is not bf16")
+    launches = {"F32-ENC": hg.parity_hash_encode.launches,
+                "F32-ENC-BWD": hg.parity_hash_encode_bwd.launches,
+                "Q-ENC": hg.parity_hash_encode_q8.launches}
+    peak = torch.cuda.max_memory_allocated()
+    rays = trainer.datamanager.config.train_num_rays_per_batch
+    del trainer
+    step_ms = statistics.median(times)
+    result = dict(step_ms=step_ms, step_ms_all=times, rays_per_s=rays / step_ms * 1e3,
+                  steps=len(times), launches=launches,
+                  launches_per_step={k: v / len(times) for k, v in launches.items()},
+                  max_memory_allocated=peak, first_losses=losses[0], last_losses=losses[-1])
+    print(f"train_bf16 samnerf_distill --model.compute-dtype bfloat16, {rays} rays/step: "
+          f"median step {step_ms:.2f} ms over {len(times)} steps ({min(times):.1f}-"
+          f"{max(times):.1f}), {result['rays_per_s']:,.0f} rays/s; launches/step "
+          + ", ".join(f"{k}={v:g}" for k, v in result["launches_per_step"].items())
+          + f"; max_memory_allocated={peak / 2**30:.2f} GiB; losses first {losses[0]} "
+          f"last {losses[-1]}", flush=True)
+    if len(losses) != BF16_TRAIN_WARMUP + BF16_TRAIN_STEPS or not all(
+            math.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError(f"bf16 train losses: {losses}")
+    if launches["F32-ENC"] != F32_PER_STEP * len(times) \
+            or launches["F32-ENC-BWD"] != F32_PER_STEP * len(times) or launches["Q-ENC"]:
+        raise AssertionError(f"the bf16 train path launched {launches} in {len(times)} "
+                             f"steps, not {F32_PER_STEP} + {F32_PER_STEP} per step")
+    return result
+
+
+# bf16 serve runs (tag, hash_q8_serve, serve_fuse_mlp) and the encodes
+# each must launch: FUSED-QMLP computes in f32 only, so a bf16 model with
+# serve_fuse_mlp serves through Q-ENC and its bf16 MLPs, as JAX does
+BF16_SERVE_RUNS = (("f32_tables", False, False, {"F32-ENC"}),
+                   ("int8", True, False, {"Q-ENC"}),
+                   ("int8_fuse_mlp", True, True, {"Q-ENC"}))
+
+
+def serve_bf16_phase(dev, cfg=None, size=VIEW_SIZE):
+    """A ``compute_dtype=bfloat16`` model at full ``samnerf_distill`` width
+    unless ``cfg`` is given (seed 0): 512x512 ``serve_frame_fn`` frames with f32 tables, baked
+    int8, and baked int8 with ``serve_fuse_mlp`` (Q-ENC, no FUSED-QMLP),
+    ms per frame and peak memory; ``render_view`` with one click; then a
+    small bf16 model's 64x64 grids on the card against the CPU.  The card
+    and the CPU round the same bf16 products after sums taken in other
+    orders (cuBLAS may also reduce bf16 GEMMs in reduced precision), so
+    the pair is held at a mean absolute difference of at most half the
+    card's own bf16-against-f32 one, per grid."""
+    from samnerf_tpu_torch.engine.render_pipeline import (SamNerfRenderer,
+                                                          cameras_from_intrin_c2w)
+    from samnerf_tpu_torch.models.sam_model import SAMModel, SAMModelConfig, init_params
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    from samnerf_tpu_torch.perception.sam.predictor import SamPredictor
+    from samnerf_tpu_torch.perception.sam.sam import Sam, init_decoder_params
+    from samnerf_tpu_torch.utils.init import init_state
+    from samnerf_tpu_torch.utils.synthetic import look_at_c2w
+
+    H = W = size
+    cfg = dataclasses.replace(cfg or SAMModelConfig(hash_fn="morton"),
+                              compute_dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(0)
+    params = init_params(cfg, gen, device=dev)
+    sam = Sam(device=dev)
+    sam.load_state_dict(init_decoder_params(gen, device=dev))
+    clicks = [(x * size / VIEW_SIZE, y * size / VIEW_SIZE)
+              for x, y in ((256.0, 256.0), (100.0, 300.0), (400.0, 120.0), (320.0, 420.0))]
+    focal = 400.0 * size / VIEW_SIZE
+    results = {}
+    for tag, q8, fuse, kernels in BF16_SERVE_RUNS:
+        model = SAMModel(dataclasses.replace(cfg, hash_q8_serve=q8, serve_fuse_mlp=fuse),
+                         device=dev)
+        model.load_state_dict(params)
+        snr = SamNerfRenderer(model, sam_predictor=SamPredictor(sam) if fuse else None,
+                              serve_preset="static")
+        if q8:
+            snr.bake_serve_tables()
+        serve = snr.serve_frame_fn(sam, H, W)
+        serve(_cameras(dev, 0, H, W, focal), 0, clicks[0])        # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_encode_launches(hg)
+        times = []
+        for i, click in enumerate(clicks[1:BF16_FRAMES + 1], start=1):
+            t0 = time.perf_counter()
+            img = serve(_cameras(dev, i, H, W, focal), 0, click)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if img.dtype != torch.uint8 or tuple(img.shape) != (H, W, 3):
+                raise AssertionError(f"bf16 frame {img.dtype} {tuple(img.shape)}")
+        launches = _encode_launches(hg)
+        results[tag] = dict(frame_ms=statistics.median(times), frame_ms_all=times,
+                            launches=launches,
+                            max_memory_allocated=torch.cuda.max_memory_allocated())
+        print(f"serve_bf16 {tag:13s} 512x512 static: median frame "
+              f"{results[tag]['frame_ms']:.2f} ms over {len(times)} frames "
+              f"({', '.join(f'{t:.1f}' for t in times)}); launches/frame "
+              + " ".join(f"{k}={v / len(times):g}" for k, v in launches.items())
+              + f"; max_memory_allocated="
+              f"{results[tag]['max_memory_allocated'] / 2**30:.2f} GiB", flush=True)
+        ran = {k for k, v in launches.items() if v}
+        if ran != kernels:
+            raise AssertionError(f"the bf16 {tag} serve path launched {launches}")
+        del serve
+        if fuse:
+            intrin = VIEW_INTRIN * (size / VIEW_SIZE)
+            intrin[2, 2] = 1.0
+            c2w = look_at_c2w(np.array([1.2 * np.cos(0.3), 1.2 * np.sin(0.3), 0.45]),
+                              np.zeros(3))
+            cams = cameras_from_intrin_c2w(intrin, c2w, H, W, device=dev)
+            _reset_encode_launches(hg)
+            t0 = time.perf_counter()
+            out = snr.render_view(cams, 0, intrin, c2w,
+                                  points=np.array([[0.45 * size, 0.55 * size]]))
+            view_ms = (time.perf_counter() - t0) * 1e3
+            for k in ("rgb", "depth", "masked_rgb"):
+                if out[k].shape[:2] != (H, W) or not np.isfinite(out[k]).all():
+                    raise AssertionError(f"bf16 view {k}: {out[k].shape} or not finite")
+            results["view"] = dict(ms=view_ms, launches=_encode_launches(hg),
+                                   locked=len(snr.prompts))
+            print(f"serve_bf16 render_view {H}x{W} one click: {view_ms:.1f} ms, "
+                  f"{len(snr.prompts)} locked; launches {results['view']['launches']}",
+                  flush=True)
+            if not results["view"]["launches"]["Q-ENC"] \
+                    or results["view"]["launches"]["FUSED-QMLP"]:
+                raise AssertionError(f"the bf16 view launched {results['view']['launches']}")
+        del model, snr
+
+    small = SAMModelConfig(
+        num_levels=8, max_res=256, log2_hashmap_size=14,
+        num_proposal_samples_per_ray=(16,), num_nerf_samples_per_ray=16,
+        proposal_net_args=({"hidden_dim": 16, "log2_hashmap_size": 12,
+                            "num_levels": 4, "max_res": 64},),
+        hashgrid_layers=(4, 4), hashgrid_resolutions=((16, 64), (64, 128)),
+        hashgrid_sizes=(14, 14), num_sam_samples=4, patch_size=2, hash_fn="morton")
+    grids = {}
+    for tag, d, dt in (("card_bf16", dev, torch.bfloat16), ("cpu_bf16", "cpu", torch.bfloat16),
+                       ("card_f32", dev, torch.float32)):
+        c = dataclasses.replace(small, compute_dtype=dt)
+        model = SAMModel(c, device=d)
+        model.load_state_dict(init_state(SAMModel(c, device="meta"),
+                                         torch.Generator().manual_seed(1), device=d,
+                                         table_scale=0.5))
+        snr = SamNerfRenderer(model, chunk=1024, serve_preset="static")
+        out = snr.renderer.render_image_device(_cameras(d, 1, 64, 64, 50.0), 0, 64, 64,
+                                               ("sam", "clipseg"), minimal=True)
+        grids[tag] = {k: out[k].float().cpu() for k in ("rgb", "sam", "clipseg")}
+    reference = {}
+    for k in ("rgb", "sam", "clipseg"):
+        diff = (grids["card_bf16"][k] - grids["cpu_bf16"][k]).abs()
+        bf16_diff = (grids["card_bf16"][k] - grids["card_f32"][k]).abs()
+        reference[k] = dict(mean_abs_diff=diff.mean().item(), max_abs_diff=diff.max().item(),
+                            bf16_vs_f32_mean=bf16_diff.mean().item())
+    results["reference"] = reference
+    print("serve_bf16 reference: small bf16 model 64x64 card vs CPU "
+          + "; ".join(f"{k} mean {r['mean_abs_diff']:.3e} max {r['max_abs_diff']:.3e} "
+                      f"(bf16 vs f32 mean {r['bf16_vs_f32_mean']:.3e})"
+                      for k, r in reference.items()), flush=True)
+    for k, r in reference.items():
+        if not (r["mean_abs_diff"] <= 0.5 * r["bf16_vs_f32_mean"]
+                and r["bf16_vs_f32_mean"] > 0):
+            raise AssertionError(f"bf16 card and CPU {k} grids disagree: {r}")
+    return results
+
+
 def attn_inputs(dev, gen, b, gh, gw, d, q_gain=1.0):
     """q, k, v ~ N(0, 1), as a seeded layer's LayerNorm and lecun-normal
     qkv give them (q times ``q_gain``); rel-pos tables N(0, 0.02)
@@ -1021,6 +1244,81 @@ def attn_kernel_phase(dev, reps: int = 20, ref_reps: int = 5):
               f"(err {library_err:.1e}) bound_ms={row['bound_ms']:.4f} "
               f"({row['bound_by']}, 3xTF32) f32_core_bound_ms="
               f"{row['f32_core_bound_ms']:.4f}, {row['tflops']:.1f} TFLOP/s", flush=True)
+        del q, k, v, rel_h, rel_w
+    return rows
+
+
+def attn_bf16_bound(b, n, d, gh, gw) -> dict:
+    """The bf16 FLASH-RELPOS's least time: bytes (bf16 q, k, v, rel_h,
+    rel_w read once, the output written) at 3.35 TB/s against q.k and p.v,
+    a multiply-add per (query, key, dim) each, at the dense bf16 rate;
+    ``design_bound_ms`` counts this design's MMAs (p.v twice, P as a hi
+    and a lo bf16 part)."""
+    flops = 4 * b * n * n * d
+    nbytes = 2 * (4 * b * n * d + b * n * (gh + gw))
+    t_ops, t_bytes = flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                design_bound_ms=max(1.5 * t_ops, t_bytes) * 1e3, gflop=flops / 1e9,
+                mbytes=nbytes / 1e6)
+
+
+def bf16_ulp_excess(out, ref) -> tuple:
+    """(largest |out - ref| - (2^-7 |ref| + 1e-5 max|ref|), the share of
+    elements over it); ``out`` within one bf16 ulp of ``ref`` where the
+    first is <= 0."""
+    out, ref = out.float(), ref.float()
+    excess = (out - ref).abs() - (BF16_ULP * ref.abs() + BF16_ULP_ABS * ref.abs().max())
+    return excess.max().item(), (excess > 0).float().mean().item()
+
+
+def attn_bf16_kernel_phase(dev, reps: int = 20, ref_reps: int = 5):
+    """The bf16 FLASH-RELPOS against its plain version on the same bf16
+    operands at ``ATTN_SHAPES``, within one bf16 ulp; timed beside the
+    plain version and ``scaled_dot_product_attention`` in bf16 with the
+    bias materialised."""
+    import torch.nn.functional as F
+
+    from samnerf_tpu_torch.ops import attention as ta
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = []
+    for name, b, gh, gw, d in ATTN_SHAPES:
+        n = gh * gw
+        *ops, scale = attn_inputs(dev, gen, b, gh, gw, d)
+        q, k, v, rel_h, rel_w = (t.bfloat16() for t in ops)
+        del ops
+        before = ta.flash_attention_relpos.launches_bf16
+        run = lambda: ta.flash_attention_relpos(q, k, v, rel_h, rel_w, scale)
+        plain = lambda: ta.reference_attention_relpos(q, k, v, rel_h, rel_w, scale)
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        if ta.flash_attention_relpos.launches_bf16 != before + 1 or out.dtype != torch.bfloat16:
+            raise AssertionError(f"bf16 FLASH-RELPOS {name}: not the bf16 kernel")
+        err = (out.float() - ref.float()).abs().max().item()
+        excess, share = bf16_ulp_excess(out, ref)
+        if not math.isfinite(err) or excess > 0:
+            raise AssertionError(f"bf16 FLASH-RELPOS {name}: {share:.2e} of the outputs "
+                                 f"beyond one bf16 ulp (by up to {excess:.2e})")
+        bias = (rel_h[:, :, :, None] + rel_w[:, :, None, :]).reshape(b, n, n)
+        library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale)
+        library_err = (library().float() - ref.float()).abs().max().item()
+        del out, ref
+        ms = _time_ms(run, reps=reps)
+        plain_ms = _time_ms(plain, reps=ref_reps)
+        library_ms = _time_ms(library, reps=ref_reps)
+        del bias
+        row = dict(kernel="FLASH-RELPOS-BF16", shape=name, heads=b, tokens=n, head_dim=d,
+                   grid=(gh, gw), max_abs_err=err, ulp_excess=excess, ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms, library_max_abs_err=library_err,
+                   **attn_bf16_bound(b, n, d, gh, gw))
+        row["tflops"] = row["gflop"] / ms
+        rows.append(row)
+        print(f"attn kernel FLASH-RELPOS-BF16 {name:6s} B={b:2d} N={n:5d} D={d:2d} "
+              f"err={err:.3e} (within one bf16 ulp) ms={ms:.4f} plain_ms={plain_ms:.3f} "
+              f"library_ms={library_ms:.3f} (err {library_err:.1e}) bound_ms="
+              f"{row['bound_ms']:.4f} ({row['bound_by']}, bf16) design_bound_ms="
+              f"{row['design_bound_ms']:.4f}, {row['tflops']:.1f} TFLOP/s", flush=True)
         del q, k, v, rel_h, rel_w
     return rows
 
@@ -1151,6 +1449,87 @@ def encode_reference_phase(dev):
     if not math.isfinite(err) or err > TOL_ENCODE:
         raise AssertionError(f"card and CPU encoders disagree: {err}")
     return dict(max_abs_err=err)
+
+
+def encode_bf16_phase(dev, checkpoint: Path, images):
+    """ViT-H with ``compute_dtype=torch.bfloat16`` from the same seeded
+    checkpoint through ``SamPredictor.set_image``: ms per image after a
+    warm-up, peak memory, 4 bf16 FLASH-RELPOS launches per image and no
+    f32 one; the bf16 embedding's relative error against the f32 encode of
+    the same frame (information); and the kernel route against the same
+    bf16 encoder with the kernel's plain version in its place.  That last
+    pair is held at a mean absolute difference no larger than the bf16
+    embedding's mean distance from the f32 one: one-ulp flips of bf16
+    products spread through 32 blocks, so the two bf16 routes differ by
+    bf16 noise, and a wrong kernel would put them further apart than bf16
+    is from f32."""
+    from samnerf_tpu_torch.ops import attention as ta
+    from samnerf_tpu_torch.perception.sam.build_sam import build_sam_vit_h
+    from samnerf_tpu_torch.perception.sam.predictor import SamPredictor
+
+    frame = images[ENCODE_IMAGES - 1]
+    f32_predictor = SamPredictor(build_sam_vit_h(str(checkpoint), device=dev))
+    f32_predictor.set_image(frame)
+    f32_emb = f32_predictor.get_image_embedding().clone()
+    del f32_predictor
+    sam = build_sam_vit_h(str(checkpoint), device=dev, compute_dtype=torch.bfloat16)
+    predictor = SamPredictor(sam)
+    predictor.set_image(images[0])                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ta.flash_attention_relpos.launches = ta.flash_attention_relpos.launches_bf16 = 0
+    times = []
+    for img in images[1:ENCODE_IMAGES]:
+        t0 = time.perf_counter()
+        predictor.set_image(img)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        emb = predictor.get_image_embedding()
+        if tuple(emb.shape) != (1, 64, 64, 256) or emb.dtype != torch.float32 \
+                or not bool(torch.isfinite(emb).all()):
+            raise AssertionError(f"bf16 embedding {tuple(emb.shape)} {emb.dtype} or not finite")
+    launches, f32_launches = (ta.flash_attention_relpos.launches_bf16,
+                              ta.flash_attention_relpos.launches)
+    peak = torch.cuda.max_memory_allocated()
+    if launches != 4 * len(times) or f32_launches:
+        raise AssertionError(f"bf16 ViT-H: {launches} bf16 and {f32_launches} f32 "
+                             f"FLASH-RELPOS launches for {len(times)} images")
+    kernel_emb = predictor.get_image_embedding().clone()       # of ``frame``
+    rel_err = ((kernel_emb - f32_emb).norm() / f32_emb.norm()).item()
+    bf16_dist = (kernel_emb - f32_emb).abs().mean().item()
+    with torch.no_grad(), _plain_attention(ta):
+        predictor.set_image(frame)
+    plain_emb = predictor.get_image_embedding()
+    if ta.flash_attention_relpos.launches_bf16 != launches:
+        raise AssertionError("the plain route launched FLASH-RELPOS")
+    route = (kernel_emb - plain_emb).abs()
+    result = dict(image_ms=statistics.median(times), image_ms_all=times, images=len(times),
+                  launches=launches, launches_per_image=launches / len(times),
+                  max_memory_allocated=peak, rel_err_vs_f32=rel_err,
+                  mean_abs_dist_vs_f32=bf16_dist, route_mean_abs_diff=route.mean().item(),
+                  route_max_abs_diff=route.max().item())
+    print(f"encode_bf16 vit_h 512x512: median {result['image_ms']:.2f} ms/image over "
+          f"{len(times)} images ({', '.join(f'{t:.1f}' for t in times)}); bf16 FLASH-RELPOS "
+          f"launches/image {launches / len(times):g}; max_memory_allocated="
+          f"{peak / 2**30:.2f} GiB; embedding vs f32 relative error {rel_err:.3e} (mean abs "
+          f"{bf16_dist:.3e}); kernel vs plain route mean abs {route.mean().item():.3e}, "
+          f"max {route.max().item():.3e}", flush=True)
+    if not route.mean().item() <= bf16_dist:
+        raise AssertionError(f"bf16 kernel and plain routes disagree: {result}")
+    del sam, predictor
+    return result
+
+
+@contextlib.contextmanager
+def _plain_attention(ta):
+    """Within the block, ``ops.attention.flash_attention_relpos`` (which the
+    encoder reaches through ``attention_relpos``) is its plain version."""
+    real = ta.flash_attention_relpos
+    ta.flash_attention_relpos = ta.reference_attention_relpos
+    try:
+        yield
+    finally:
+        ta.flash_attention_relpos = real
 
 
 def preprocess_phase(dev, checkpoint: Path, root: Path):
@@ -1543,9 +1922,11 @@ def main() -> int:
     serve = serve_phase(dev)
     reference = reference_phase(dev)
     view = view_phase(dev)
+    serve_bf16 = serve_bf16_phase(dev)
     train = train_phase(dev)
     train_reference = train_reference_phase(dev)
     attn_rows = attn_kernel_phase(dev)
+    attn_bf16_rows = attn_bf16_kernel_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         checkpoint = root / "sam_vit_h_seeded.pth"
@@ -1554,6 +1935,7 @@ def main() -> int:
                                            num_test=0, h=512, w=512))
         encode = encode_phase(dev, checkpoint, frames)
         encode_reference = encode_reference_phase(dev)
+        encode_bf16 = encode_bf16_phase(dev, checkpoint, frames)
         preprocess = preprocess_phase(dev, checkpoint, root)
         clip_paths = clipseg_checkpoint(dev, root)
         clipseg = clipseg_phase(dev, clip_paths, frames)
@@ -1561,6 +1943,7 @@ def main() -> int:
         text_view = view_phase(dev, clipseg=clip_paths)
         no_distill_view = no_distill_view_phase(dev, checkpoint, clip_paths)
         no_distill_train = no_distill_train_phase(dev, root / "scene", root)
+        train_bf16 = train_bf16_phase(dev, root)
 
     source = "samnerf_tpu_torch/csrc/hash_encode.cu"
     kernels = []
@@ -1654,6 +2037,15 @@ def main() -> int:
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
                     "library_ms": rep["library_ms"]})
+    rep = next(r for r in attn_bf16_rows if r["shape"] == "vit_h")
+    kernels.append({"name": "FLASH-RELPOS-BF16", "route": "cuda",
+                    "source": "samnerf_tpu_torch/csrc/attention_relpos.cu",
+                    "replaces": "samnerf_tpu/ops/attention_pallas.py:32",
+                    "launches": encode_bf16["launches"],
+                    "max_abs_err": max(r["max_abs_err"] for r in attn_bf16_rows),
+                    "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+                    "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+                    "library_ms": rep["library_ms"]})
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
@@ -1667,6 +2059,8 @@ def main() -> int:
          "preprocess": preprocess, "clipseg": clipseg,
          "preprocess_clipseg": preprocess_clipseg, "text_view": text_view,
          "no_distill_view": no_distill_view, "no_distill_train": no_distill_train,
+         "serve_bf16": serve_bf16, "attn_bf16_kernel_rows": attn_bf16_rows,
+         "encode_bf16": encode_bf16, "train_bf16": train_bf16,
          "kernels": kernels}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -70,6 +70,7 @@
 // Head dims 1..128 (templated on KD); any Kh * Kw == N.  The wrapper keeps
 // the first design's Kh + Kw <= 256.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -510,5 +511,467 @@ extern "C" int flash_attention_relpos_f32(const void* q, const void* k,
     case 14: return launch_design<14>(a, s);
     case 15: return launch_design<15>(a, s);
     default: return launch_design<16>(a, s);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// FLASH-RELPOS on bf16 operands (the ViT's compute_dtype = bfloat16 path).
+//
+// Replaces the same Pallas kernel, _attn_kernel, as JAX runs it on bf16
+// q, k, v, rel_h and rel_w: the kernel upcasts every operand to f32, takes
+// the logits, the bias rel_h[q, j / Kw] + rel_w[q, j % Kw], the online
+// softmax, P and the output accumulator in f32, and rounds the output to
+// bf16 once (out_shape q.dtype).
+//
+// What bounds it on an H100: operations.  4 N^2 D flops per (batch*head)
+// at the dense bf16 rate (989 TFLOP/s): 0.087 ms at SAM ViT-H's global
+// layers (N = 4096, D = 80, 16 heads), against 2 (4 N D + N (Kh + Kw))
+// bytes (0.018 ms).  This design issues 6 N^2 D (P V twice, below):
+// 0.130 ms there.
+//
+// Design (a simple kernel that is right, the f32 kernel's shape):
+// - 4 warps a block, 16 query rows a warp, 64 queries and one batch*head a
+//   block; the logits S, m, l and the output accumulator stay in
+//   registers in the mma.m16n8k16 accumulator layout, so a row's max and
+//   sum reduce over a quad.
+// - S = q K^T by mma.sync.m16n8k16 .bf16 with f32 accumulators.  A product
+//   of two bf16 values is exact in f32, so S is the Pallas kernel's f32 dot
+//   up to summation order; the scale is applied to S in f32 and the f32
+//   bias added (s = S scale + (rel_h + rel_w)).  q's fragments are loaded
+//   once into registers (KD16 x 4 words, up to D = 96); K's by
+//   ldmatrix.x4.
+// - P V keeps P in f32: P = hi + lo, both bf16 (hi = bf16(P), lo =
+//   bf16(P - hi), about 16 bits of P), two MMAs against V, which is exact
+//   in bf16.  A single bf16 P would move the output by more than a bf16
+//   ulp.  P's A fragments are the S registers of two 8-key blocks as they
+//   are (no shuffle); V's B fragments come by ldmatrix.x4.trans from V's
+//   row-major tile.
+// - An asynchronous K/V ring of 2 stages of 64 keys: 16-byte cp.async.cg
+//   runs of 8 bf16 (4-byte runs where D % 8 != 0 or a pointer is not
+//   16-byte aligned, plain loads where D is odd), half the f32 kernel's
+//   shared memory.  Rows are padded to D16 + 8 bf16 (a word stride of 4
+//   mod 8), so 32-bit fragment reads and ldmatrix rows are free of bank
+//   conflicts.  Rows past N and columns past D are zero-filled.
+// - The bias: where Kw is the key tile (64, SAM's 64 x 64 token grid) each
+//   lane keeps its 2 rows x 16 columns of rel_w in f32 registers and reads
+//   2 values of rel_h a tile; otherwise the block writes each tile's
+//   64 x 64 f32 bias into shared memory, as the f32 kernel does.  Keys
+//   past N get -1e30.
+// - The TPU kernel's semantics: m starts at -1e30, out = bf16(acc /
+//   max(l, 1e-30)); expf, no --use_fast_math.
+// - Later (PERF.md): wgmma from shared memory, TMA and warp
+//   specialisation.
+//
+// Head dims 1..128 (templated on KD16 = ceil(D / 16)); any Kh * Kw == N,
+// Kh + Kw <= 256 as the f32 entry point.
+
+namespace {
+
+constexpr int kBlockKB = 64;              // keys per tile
+
+__device__ __forceinline__ float bf16_bits_to_float(unsigned short x) {
+  return __uint_as_float((uint32_t)x << 16);
+}
+
+// two f32 -> one register of two bf16 (round to nearest even), a in the
+// low half (the lower column of an mma fragment)
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// d += a b for one 16x8x16 bf16 tile of a warp, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void cp_async_bytes16(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_bytes4(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0) : "memory");
+}
+
+template <int KD16>
+struct TilesB {
+  static constexpr int kDP = 16 * KD16;               // padded head dim
+  static constexpr int kStride = kDP + 8;             // bf16 a row: 4 mod 8 words
+  static constexpr int kWarps = 4;
+  static constexpr int kStages = 2;
+  static constexpr int kBlockQ = 16 * kWarps;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kPStride = kBlockKB + 4;       // f32 bias tile row
+  static constexpr int kQElems = kBlockQ * kStride;
+  static constexpr int kKVElems = kBlockKB * kStride;
+  static constexpr size_t bytes(bool spec) {
+    return (size_t)(kQElems + 2 * kStages * kKVElems) * 2 +
+           (spec ? 0 : (size_t)kBlockQ * kPStride * sizeof(float));
+  }
+};
+
+// Rows [row0, row0 + R) of src [n, d] bf16 into dst [R][STRIDE] (DP
+// columns), rows past n and columns past d zero-filled.  vec 2: 16-byte
+// cp.async (d % 8 == 0, 16-byte aligned pointers); vec 1: 4-byte cp.async
+// (d even, 4-byte aligned); vec 0: plain loads and stores.
+template <int R, int DP, int STRIDE, int THREADS>
+__device__ __forceinline__ void stage_rows_bf16(unsigned short* dst,
+                                                const unsigned short* __restrict__ src,
+                                                int row0, int n, int d, int vec) {
+  if (vec == 2) {
+    constexpr int kChunks = DP / 8;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < R * kChunks; e += THREADS) {
+      const int r = e / kChunks, c = (e - r * kChunks) * 8;
+      const bool valid = row0 + r < n && c < d;
+      cp_async_bytes16(dst + r * STRIDE + c, valid ? src + (size_t)(row0 + r) * d + c : src,
+                       valid);
+    }
+  } else if (vec == 1) {
+    constexpr int kChunks = DP / 2;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < R * kChunks; e += THREADS) {
+      const int r = e / kChunks, c = (e - r * kChunks) * 2;
+      const bool valid = row0 + r < n && c < d;
+      cp_async_bytes4(dst + r * STRIDE + c, valid ? src + (size_t)(row0 + r) * d + c : src,
+                      valid);
+    }
+  } else {
+    for (int e = threadIdx.x; e < R * DP; e += THREADS) {
+      const int r = e / DP, c = e - r * DP;
+      dst[r * STRIDE + c] =
+          (row0 + r < n && c < d) ? __ldg(src + (size_t)(row0 + r) * d + c) : (unsigned short)0;
+    }
+  }
+}
+
+template <int KD16, bool SPEC>
+__global__ void __launch_bounds__(128, 2)
+flash_relpos_bf16_kernel(const unsigned short* __restrict__ q,
+                         const unsigned short* __restrict__ k,
+                         const unsigned short* __restrict__ v,
+                         const unsigned short* __restrict__ rel_h,
+                         const unsigned short* __restrict__ rel_w,
+                         unsigned short* __restrict__ out, int n, int d, int kh, int kw,
+                         float scale, int vec) {
+  using T = TilesB<KD16>;
+  constexpr int kND = 2 * KD16;                   // 8-dim output tiles
+  extern __shared__ float4 smem4b[];
+  unsigned short* qs = reinterpret_cast<unsigned short*>(smem4b);   // [kBlockQ][kStride]
+  unsigned short* ks = qs + T::kQElems;           // kStages x [kBlockKB][kStride]
+  unsigned short* vs = ks + T::kStages * T::kKVElems;
+  float* bt = reinterpret_cast<float*>(vs + T::kStages * T::kKVElems);   // !SPEC
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int i0 = blockIdx.x * T::kBlockQ;
+  const size_t base = (size_t)blockIdx.y * n * d;
+  const int num_kt = (n + kBlockKB - 1) / kBlockKB;
+
+  auto stage_kv = [&](int tile) {
+    if (tile < num_kt) {
+      stage_rows_bf16<kBlockKB, T::kDP, T::kStride, T::kThreads>(
+          ks + (tile % T::kStages) * T::kKVElems, k + base, tile * kBlockKB, n, d, vec);
+      stage_rows_bf16<kBlockKB, T::kDP, T::kStride, T::kThreads>(
+          vs + (tile % T::kStages) * T::kKVElems, v + base, tile * kBlockKB, n, d, vec);
+    }
+  };
+
+  const int r_lo = warp * 16 + g, r_hi = r_lo + 8;
+  const size_t rel_row = (size_t)blockIdx.y * n;
+  const unsigned short* rh_lo = rel_h + (rel_row + min(i0 + r_lo, n - 1)) * kh;
+  const unsigned short* rh_hi = rel_h + (rel_row + min(i0 + r_hi, n - 1)) * kh;
+
+  float relw[SPEC ? 8 : 1][4];
+  int h0 = 0, w0 = 0, q64 = 0, r64 = 0, cq = 0, cr = 0;
+  if constexpr (SPEC) {
+    const unsigned short* rw_lo = rel_w + (rel_row + min(i0 + r_lo, n - 1)) * kw;
+    const unsigned short* rw_hi = rel_w + (rel_row + min(i0 + r_hi, n - 1)) * kw;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int c = nt * 8 + 2 * t;
+      relw[nt][0] = bf16_bits_to_float(__ldg(rw_lo + c));
+      relw[nt][1] = bf16_bits_to_float(__ldg(rw_lo + c + 1));
+      relw[nt][2] = bf16_bits_to_float(__ldg(rw_hi + c));
+      relw[nt][3] = bf16_bits_to_float(__ldg(rw_hi + c + 1));
+    }
+  } else {
+    const int c = threadIdx.x % kBlockKB;
+    cq = c / kw;
+    cr = c - cq * kw;
+    q64 = kBlockKB / kw;
+    r64 = kBlockKB - q64 * kw;
+  }
+
+  float o[kND][4];
+#pragma unroll
+  for (int nd = 0; nd < kND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+  float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
+  // q's A fragment of k-step kk (rows g, g + 8; dims 2t, 2t + 8 of the
+  // step), kept in registers for the loop up to D = 96 and read from
+  // shared memory per tile above (D = 128 would spill at 255 registers)
+  constexpr bool kQRegs = KD16 <= 6;
+  auto load_qf = [&](int kk, uint32_t (&a)[4]) {
+    const unsigned short* lo = qs + r_lo * T::kStride + kk * 16 + 2 * t;
+    const unsigned short* hi = qs + r_hi * T::kStride + kk * 16 + 2 * t;
+    a[0] = *reinterpret_cast<const uint32_t*>(lo);
+    a[1] = *reinterpret_cast<const uint32_t*>(hi);
+    a[2] = *reinterpret_cast<const uint32_t*>(lo + 8);
+    a[3] = *reinterpret_cast<const uint32_t*>(hi + 8);
+  };
+  uint32_t qf[kQRegs ? KD16 : 1][4];
+
+  // ldmatrix row addresses of this lane: K (non-transposed) x4 covers key
+  // tiles nt, nt + 1 at one 16-dim k-step; V (transposed) x4 covers 16
+  // keys at output tiles nd, nd + 1
+  const int k_row = (lane >> 4) * 8 + (lane & 7), k_col = ((lane >> 3) & 1) * 8;
+  const int v_row = ((lane >> 3) & 1) * 8 + (lane & 7), v_col = (lane >> 4) * 8;
+
+  stage_rows_bf16<T::kBlockQ, T::kDP, T::kStride, T::kThreads>(qs, q + base, i0, n, d, vec);
+  stage_kv(0);
+  cp_async_commit();
+  for (int tile = 0; tile < num_kt; ++tile) {
+    cp_async_wait<0>();
+    __syncthreads();
+    if constexpr (kQRegs) {
+      if (tile == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KD16; ++kk) load_qf(kk, qf[kk]);
+      }
+    }
+    stage_kv(tile + 1);
+    cp_async_commit();
+
+    // the tile's f32 bias
+    float bias[8][4];
+    if constexpr (SPEC) {
+      const float bh_lo = bf16_bits_to_float(__ldg(rh_lo + tile));
+      const float bh_hi = bf16_bits_to_float(__ldg(rh_hi + tile));
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        bias[nt][0] = bh_lo + relw[nt][0];
+        bias[nt][1] = bh_lo + relw[nt][1];
+        bias[nt][2] = bh_hi + relw[nt][2];
+        bias[nt][3] = bh_hi + relw[nt][3];
+      }
+    } else {
+      const int c = threadIdx.x % kBlockKB, j = tile * kBlockKB + c;
+      int hh = h0 + cq, ww = w0 + cr;
+      if (ww >= kw) {
+        ww -= kw;
+        ++hh;
+      }
+#pragma unroll 4
+      for (int r = threadIdx.x / kBlockKB; r < T::kBlockQ; r += T::kThreads / kBlockKB) {
+        const size_t row = rel_row + min(i0 + r, n - 1);
+        bt[r * T::kPStride + c] =
+            j < n ? bf16_bits_to_float(__ldg(rel_h + row * kh + hh)) +
+                        bf16_bits_to_float(__ldg(rel_w + row * kw + ww))
+                  : kNegInf;
+      }
+      h0 += q64;
+      w0 += r64;
+      if (w0 >= kw) {
+        w0 -= kw;
+        ++h0;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float2 lo = *reinterpret_cast<const float2*>(bt + r_lo * T::kPStride + nt * 8 + 2 * t);
+        const float2 hi = *reinterpret_cast<const float2*>(bt + r_hi * T::kPStride + nt * 8 + 2 * t);
+        bias[nt][0] = lo.x;
+        bias[nt][1] = lo.y;
+        bias[nt][2] = hi.x;
+        bias[nt][3] = hi.y;
+      }
+    }
+
+    // s = (q K^T) scale + bias
+    const unsigned short* kt = ks + (tile % T::kStages) * T::kKVElems;
+    float s[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD16; ++kk) {
+      uint32_t a[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+      } else {
+        load_qf(kk, a);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; nt += 2) {
+        uint32_t b[4];
+        ldmatrix_x4(b, kt + (nt * 8 + k_row) * T::kStride + kk * 16 + k_col);
+        mma_bf16(s[nt], a, b[0], b[1]);
+        mma_bf16(s[nt + 1], a, b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = fmaf(s[nt][e], scale, bias[nt][e]);
+
+    // the online softmax of the tile's logits
+    float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      mx_lo = fmaxf(mx_lo, fmaxf(s[nt][0], s[nt][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[nt][2], s[nt][3]));
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+    }
+    const float alpha_lo = expf(m_lo - mx_lo), alpha_hi = expf(m_hi - mx_hi);
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+    float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      s[nt][0] = expf(s[nt][0] - mx_lo);
+      s[nt][1] = expf(s[nt][1] - mx_lo);
+      s[nt][2] = expf(s[nt][2] - mx_hi);
+      s[nt][3] = expf(s[nt][3] - mx_hi);
+      sum_lo += s[nt][0] + s[nt][1];
+      sum_hi += s[nt][2] + s[nt][3];
+    }
+    l_lo = alpha_lo * l_lo + sum_lo;
+    l_hi = alpha_hi * l_hi + sum_hi;
+#pragma unroll
+    for (int nd = 0; nd < kND; ++nd) {
+      o[nd][0] *= alpha_lo;
+      o[nd][1] *= alpha_lo;
+      o[nd][2] *= alpha_hi;
+      o[nd][3] *= alpha_hi;
+    }
+
+    // O += P V over 16-key steps, P = hi + lo in bf16: the A fragment of
+    // keys 16 kb.. is the S registers of 8-key blocks 2 kb and 2 kb + 1
+    const unsigned short* vt = vs + (tile % T::kStages) * T::kKVElems;
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb) {
+      uint32_t ahi[4], alo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // e: (row g, keys 2t..), (row g + 8, 2t..), (row g, 8 + 2t..), (row g + 8, 8 + 2t..)
+        const float x = s[2 * kb + (e >> 1)][2 * (e & 1)];
+        const float y = s[2 * kb + (e >> 1)][2 * (e & 1) + 1];
+        ahi[e] = pack_bf16(x, y);
+        alo[e] = pack_bf16(x - bf16_bits_to_float((unsigned short)(ahi[e] & 0xffffu)),
+                           y - bf16_bits_to_float((unsigned short)(ahi[e] >> 16)));
+      }
+#pragma unroll
+      for (int nd = 0; nd < kND; nd += 2) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, vt + (kb * 16 + v_row) * T::kStride + nd * 8 + v_col);
+        mma_bf16(o[nd], alo, b[0], b[1]);
+        mma_bf16(o[nd + 1], alo, b[2], b[3]);
+        mma_bf16(o[nd], ahi, b[0], b[1]);
+        mma_bf16(o[nd + 1], ahi, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  const float den_lo = fmaxf(l_lo, 1e-30f), den_hi = fmaxf(l_hi, 1e-30f);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = i0 + (half ? r_hi : r_lo);
+    if (row >= n) continue;
+    const float den = half ? den_hi : den_lo;
+    unsigned short* orow = out + base + (size_t)row * d;
+#pragma unroll
+    for (int nd = 0; nd < kND; ++nd) {
+      const int col = nd * 8 + 2 * t;
+      if (col < d) orow[col] = __bfloat16_as_ushort(__float2bfloat16_rn(o[nd][2 * half] / den));
+      if (col + 1 < d)
+        orow[col + 1] = __bfloat16_as_ushort(__float2bfloat16_rn(o[nd][2 * half + 1] / den));
+    }
+  }
+}
+
+template <int KD16, bool SPEC>
+int launch_bf16(const Args& a, cudaStream_t stream) {
+  using T = TilesB<KD16>;
+  auto kernel = flash_relpos_bf16_kernel<KD16, SPEC>;
+  constexpr size_t kBytes = T::bytes(SPEC);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.n + T::kBlockQ - 1) / T::kBlockQ, a.b);
+  kernel<<<grid, T::kThreads, kBytes, stream>>>(
+      reinterpret_cast<const unsigned short*>(a.q), reinterpret_cast<const unsigned short*>(a.k),
+      reinterpret_cast<const unsigned short*>(a.v),
+      reinterpret_cast<const unsigned short*>(a.rel_h),
+      reinterpret_cast<const unsigned short*>(a.rel_w), reinterpret_cast<unsigned short*>(a.out),
+      a.n, a.d, a.kh, a.kw, a.scale, a.vec);
+  return (int)cudaGetLastError();
+}
+
+template <int KD16>
+int launch_design_bf16(const Args& a, cudaStream_t stream) {
+  return a.kw == kBlockKB ? launch_bf16<KD16, true>(a, stream)
+                          : launch_bf16<KD16, false>(a, stream);
+}
+
+}  // namespace
+
+// As flash_attention_relpos_f32, on bf16 q, k, v, rel_h, rel_w and out
+// (f32 inside).  Returns a cudaError_t (0 on success).
+extern "C" int flash_attention_relpos_bf16(const void* q, const void* k,
+                                           const void* v, const void* rel_h,
+                                           const void* rel_w, void* out, int b,
+                                           int n, int d, int kh, int kw,
+                                           float scale, void* stream) {
+  if (invalid(b, n, d, kh, kw)) return (int)cudaErrorInvalidValue;
+  Args a = make_args(q, k, v, rel_h, rel_w, out, b, n, d, kh, kw, scale);
+  const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
+  a.vec = (d % 8 == 0 && (ptrs & 15u) == 0) ? 2 : (d % 2 == 0 && (ptrs & 3u) == 0) ? 1 : 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((d + 15) / 16) {
+    case 1: return launch_design_bf16<1>(a, s);
+    case 2: return launch_design_bf16<2>(a, s);
+    case 3: return launch_design_bf16<3>(a, s);
+    case 4: return launch_design_bf16<4>(a, s);
+    case 5: return launch_design_bf16<5>(a, s);
+    case 6: return launch_design_bf16<6>(a, s);
+    case 7: return launch_design_bf16<7>(a, s);
+    default: return launch_design_bf16<8>(a, s);
   }
 }

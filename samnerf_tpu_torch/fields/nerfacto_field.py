@@ -7,7 +7,8 @@ scan).  The same code serves and trains: gradients reach the MLPs and,
 through F32-ENC-BWD, the f32 hash tables; positions carry none.  With
 ``hash_q8`` and ``fuse_mlp`` (serve only) the encode and the base MLP run
 as one FUSED-QMLP launch.  Appearance embeddings (off in both presets)
-and occupancy culling wait.
+and occupancy culling wait.  ``compute_dtype`` sets the MLPs' type; the
+hash encodes return f32, which the MLPs cast.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from samnerf_tpu_torch.fields.hash_encoding import ParityHashEncoding
 from samnerf_tpu_torch.fields.mlp import MLP, trunc_exp
 from samnerf_tpu_torch.ops.encodings import sh_encoding
 from samnerf_tpu_torch.ops.hash_grid import parity_hash_encode_qmlp
+from samnerf_tpu_torch.utils.dtypes import sigmoid
 
 
 def _contract_and_select(positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -32,8 +34,10 @@ def _contract_and_select(positions: torch.Tensor) -> Tuple[torch.Tensor, torch.T
 
 
 def _mlp_is_fusable(mlp: MLP) -> bool:
-    """FUSED-QMLP computes exactly relu(x @ w1 + b1) @ w2 + b2."""
-    return len(mlp.layers) == 2 and mlp.output_activation is None
+    """FUSED-QMLP computes exactly relu(x @ w1 + b1) @ w2 + b2 in f32, so
+    a bf16 MLP serves unfused, as in the JAX package."""
+    return (len(mlp.layers) == 2 and mlp.output_activation is None
+            and mlp.compute_dtype == torch.float32)
 
 
 def _fused_encode_mlp(encs, mlp: MLP, flat: torch.Tensor) -> torch.Tensor:
@@ -66,7 +70,8 @@ class NerfactoField(nn.Module):
                  max_res: int = 2048, log2_hashmap_size: int = 19,
                  num_layers_color: int = 3, hidden_dim_color: int = 64,
                  hash_q8: bool = False, hash_fn: str = "reference",
-                 quant_bits: int = 8, fuse_mlp: bool = False, device="cuda"):
+                 quant_bits: int = 8, fuse_mlp: bool = False,
+                 compute_dtype=torch.float32, device="cuda"):
         super().__init__()
         self.fuse = hash_q8 and fuse_mlp
         self.encoding = ParityHashEncoding(
@@ -75,10 +80,12 @@ class NerfactoField(nn.Module):
             quantize_serve=hash_q8, quant_bits=quant_bits, hash_fn=hash_fn,
             device=device)
         self.mlp_base = MLP(self.encoding.out_dim, hidden_dim, num_layers - 1,
-                            1 + geo_feat_dim, device=device)
+                            1 + geo_feat_dim, compute_dtype=compute_dtype,
+                            device=device)
         self.mlp_head = MLP(16 + geo_feat_dim, hidden_dim_color,
                             num_layers_color - 1, 3,
-                            output_activation=torch.sigmoid, device=device)
+                            output_activation=sigmoid,
+                            compute_dtype=compute_dtype, device=device)
 
     def get_density(self, positions: torch.Tensor):
         """[R, S, 3] -> (density [R, S, 1], geo_feat [R, S, geo])."""
@@ -107,7 +114,8 @@ class HashMLPDensityField(nn.Module):
                  num_levels: int = 5, max_res: int = 128, base_res: int = 16,
                  log2_hashmap_size: int = 13, features_per_level: int = 2,
                  hash_q8: bool = False, hash_fn: str = "reference",
-                 quant_bits: int = 8, fuse_mlp: bool = False, device="cuda"):
+                 quant_bits: int = 8, fuse_mlp: bool = False,
+                 compute_dtype=torch.float32, device="cuda"):
         super().__init__()
         self.fuse = hash_q8 and fuse_mlp
         self.encoding = ParityHashEncoding(
@@ -116,7 +124,7 @@ class HashMLPDensityField(nn.Module):
             features_per_level=features_per_level, quantize_serve=hash_q8,
             quant_bits=quant_bits, hash_fn=hash_fn, device=device)
         self.mlp = MLP(self.encoding.out_dim, hidden_dim, num_layers - 1, 1,
-                       device=device)
+                       compute_dtype=compute_dtype, device=device)
 
     def forward(self, positions: torch.Tensor) -> torch.Tensor:
         """[R, S, 3] -> density [R, S, 1]."""

@@ -13,6 +13,7 @@ from samnerf_tpu_torch.core.contraction import contract_to_unit
 from samnerf_tpu_torch.fields.hash_encoding import ParityHashEncoding
 from samnerf_tpu_torch.fields.mlp import MLP
 from samnerf_tpu_torch.fields.nerfacto_field import _fused_encode_mlp, _mlp_is_fusable
+from samnerf_tpu_torch.utils.dtypes import conv2d, resolve_dtype
 
 
 class SAMField(nn.Module):
@@ -26,7 +27,8 @@ class SAMField(nn.Module):
                  hidden_dim: int = 256, sam_dim: int = 256,
                  clipseg_dim: int = 192, use_clipseg: bool = True,
                  hash_q8: bool = False, hash_fn: str = "reference",
-                 quant_bits: int = 8, fuse_mlp: bool = False, device="cuda"):
+                 quant_bits: int = 8, fuse_mlp: bool = False,
+                 compute_dtype=torch.float32, device="cuda"):
         super().__init__()
         # the fused kernel stacks pyramids of one table size
         self.fuse = hash_q8 and fuse_mlp and len(set(grid_sizes)) == 1
@@ -44,11 +46,13 @@ class SAMField(nn.Module):
 
         in_dim = sum(grid_layers) * features_per_level
         self.sam_enc = pyramids()
-        self.sam_net = MLP(in_dim, hidden_dim, hidden_layers, sam_dim, device=device)
+        self.sam_net = MLP(in_dim, hidden_dim, hidden_layers, sam_dim,
+                           compute_dtype=compute_dtype, device=device)
         self.use_clipseg = use_clipseg
         if use_clipseg:
             self.clipseg_enc = pyramids()
-            self.clipseg_net = MLP(in_dim, hidden_dim, 1, clipseg_dim, device=device)
+            self.clipseg_net = MLP(in_dim, hidden_dim, 1, clipseg_dim,
+                                   compute_dtype=compute_dtype, device=device)
 
     def forward(self, positions: torch.Tensor,
                 get_features: Sequence[str] = ("sam", "clipseg"),
@@ -79,16 +83,21 @@ class SAMField(nn.Module):
 
 class ConvHead(nn.Module):
     """Conv + ReLU + Conv over rendered SAM patches, then the spatial mean:
-    [N, ps, ps, 256] (NHWC, as the JAX package) -> [N, 256]."""
+    [N, ps, ps, 256] (NHWC, as the JAX package) -> [N, 256] f32.  The
+    convolutions run in ``compute_dtype`` (each as flax's ``nn.Conv``: the
+    product rounded, then the bias added); the mean is taken in f32."""
 
-    def __init__(self, kernel_size: int = 3, dim: int = 256, device="cuda"):
+    def __init__(self, kernel_size: int = 3, dim: int = 256,
+                 compute_dtype=torch.float32, device="cuda"):
         super().__init__()
         pad = kernel_size // 2          # "SAME" for odd kernels
         self.convs = nn.ModuleList(
             nn.Conv2d(dim, dim, kernel_size, padding=pad, device=device)
             for _ in range(2))
+        self.compute_dtype = resolve_dtype(compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
         x = x.permute(0, 3, 1, 2)
-        x = self.convs[1](torch.relu(self.convs[0](x)))
-        return torch.mean(x, dim=(-2, -1))
+        x = conv2d(torch.relu(conv2d(x, self.convs[0], dt)), self.convs[1], dt)
+        return torch.mean(x.float(), dim=(-2, -1))

@@ -27,6 +27,7 @@ from samnerf_tpu_torch.fields.sam_field import ConvHead, SAMField
 from samnerf_tpu_torch.ops import losses as loss_ops
 from samnerf_tpu_torch.ops import rendering as render_ops
 from samnerf_tpu_torch.ops.samplers import proposal_sampling
+from samnerf_tpu_torch.utils.dtypes import resolve_dtype
 from samnerf_tpu_torch.utils.init import init_state
 
 
@@ -78,6 +79,13 @@ class SAMModelConfig:
     effect with ``hash_q8_serve``; the SAM field's heads fuse when their
     pyramids share a table size."""
     hash_fn: str = "reference"
+    compute_dtype: Any = torch.float32
+    """The type of every field MLP and the conv head (parameters stay
+    f32): ``torch.float32`` / ``torch.bfloat16`` or the CLI's
+    ``"float32"`` / ``"bfloat16"``, resolved to the torch dtype."""
+
+    def __post_init__(self):
+        object.__setattr__(self, "compute_dtype", resolve_dtype(self.compute_dtype))
 
     @property
     def num_proposal_iterations(self) -> int:
@@ -97,14 +105,15 @@ class SAMModel(nn.Module):
             num_levels=cfg.num_levels, max_res=cfg.max_res,
             log2_hashmap_size=cfg.log2_hashmap_size, hash_q8=cfg.hash_q8_serve,
             hash_fn=cfg.hash_fn, quant_bits=cfg.serve_quant_bits,
-            fuse_mlp=cfg.serve_fuse_mlp, device=device)
+            fuse_mlp=cfg.serve_fuse_mlp, compute_dtype=cfg.compute_dtype,
+            device=device)
         args = cfg.proposal_net_args
         self.proposal_networks = nn.ModuleList(
             HashMLPDensityField(
                 hash_q8=cfg.hash_q8_serve, hash_fn=cfg.hash_fn,
                 quant_bits=cfg.serve_quant_bits_props or cfg.serve_quant_bits,
-                fuse_mlp=cfg.serve_fuse_mlp, device=device,
-                **args[min(i, len(args) - 1)])
+                fuse_mlp=cfg.serve_fuse_mlp, compute_dtype=cfg.compute_dtype,
+                device=device, **args[min(i, len(args) - 1)])
             for i in range(cfg.num_proposal_iterations))
         if cfg.distill_sam:
             self.sam_field = SAMField(
@@ -114,8 +123,10 @@ class SAMModel(nn.Module):
                 use_clipseg=cfg.use_clipseg_feature, hash_q8=cfg.hash_q8_serve,
                 hash_fn=cfg.hash_fn,
                 quant_bits=cfg.serve_quant_bits_sam or cfg.serve_quant_bits,
-                fuse_mlp=cfg.serve_fuse_mlp, device=device)
-            self.conv = ConvHead(kernel_size=cfg.kernel_size, device=device)
+                fuse_mlp=cfg.serve_fuse_mlp, compute_dtype=cfg.compute_dtype,
+                device=device)
+            self.conv = ConvHead(kernel_size=cfg.kernel_size,
+                                 compute_dtype=cfg.compute_dtype, device=device)
 
     def forward(self, ray_bundle: RayBundle, get_features: Sequence[str] = (),
                 bg_color: Optional[torch.Tensor] = None,

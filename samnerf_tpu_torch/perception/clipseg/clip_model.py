@@ -8,6 +8,10 @@ resizing its position grid (bicubic, as ``jax.image.resize`` does) when
 the input is not ``input_resolution``; the text tower runs a causal
 transformer and pools at the end-of-text token (the largest id).
 Attention is a plain matmul and softmax, as the JAX package computes it.
+With ``compute_dtype`` the projections, MLPs and the patch convolution run
+in that dtype (parameters stay f32), the softmax in f32 with its weights
+cast back, and the LayerNorms return f32, so the residual stream is f32,
+as in the JAX module.
 
 Module and parameter names are OpenAI CLIP's (``conv1``,
 ``transformer.resblocks.{i}.{ln_1,attn.in_proj_weight,attn.out_proj,
@@ -21,21 +25,25 @@ from __future__ import annotations
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+
+from samnerf_tpu_torch.utils.dtypes import (conv2d, dense, layer_norm, linear, resolve_dtype,
+                                            scalar, sigmoid)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(1.702 * x)
+    return x * sigmoid(scalar(1.702, x.dtype) * x)
 
 
 class SelfAttention(nn.Module):
     """Multi-head self-attention with ``nn.MultiheadAttention``'s parameter
     names (``in_proj_weight``, ``in_proj_bias``, ``out_proj``), computed
-    as (q kᵀ) * head_dim ** -0.5 (+ mask), softmax, times v."""
+    as (q kᵀ) * head_dim ** -0.5 (+ mask), softmax in f32, times v."""
 
-    def __init__(self, d_model: int, n_head: int, device="cuda"):
+    def __init__(self, d_model: int, n_head: int, compute_dtype=torch.float32,
+                 device="cuda"):
         super().__init__()
+        self.compute_dtype = resolve_dtype(compute_dtype)
         self.n_head = n_head
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model, device=device))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model, device=device))
@@ -45,45 +53,53 @@ class SelfAttention(nn.Module):
     def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None):
         B, N, D = x.shape
         head = D // self.n_head
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        dt = self.compute_dtype
+        qkv = dense(x, self.in_proj_weight, self.in_proj_bias, dt)
         q, k, v = qkv.reshape(B, N, 3, self.n_head, head).permute(2, 0, 3, 1, 4)
-        attn = (q @ k.transpose(-2, -1)) * head ** -0.5
+        attn = (q @ k.transpose(-2, -1)) * scalar(head ** -0.5, q.dtype)
         if attn_mask is not None:
             attn = attn + attn_mask
-        out = (attn.softmax(dim=-1) @ v).transpose(1, 2).reshape(B, N, D)
-        return self.out_proj(out)
+        attn = torch.softmax(attn.float(), dim=-1).to(q.dtype)
+        out = (attn @ v).transpose(1, 2).reshape(B, N, D)
+        return linear(out, self.out_proj, dt)
 
 
 class _MLP(nn.Module):
-    def __init__(self, d_model: int, device="cuda"):
+    def __init__(self, d_model: int, compute_dtype=torch.float32, device="cuda"):
         super().__init__()
         self.c_fc = nn.Linear(d_model, 4 * d_model, device=device)
         self.c_proj = nn.Linear(4 * d_model, d_model, device=device)
+        self.compute_dtype = resolve_dtype(compute_dtype)
 
     def forward(self, x):
-        return self.c_proj(quick_gelu(self.c_fc(x)))
+        dt = self.compute_dtype
+        return linear(quick_gelu(linear(x, self.c_fc, dt)), self.c_proj, dt)
 
 
 class ResidualAttentionBlock(nn.Module):
     """x += attn(ln_1(x)); x += mlp(ln_2(x))."""
 
-    def __init__(self, d_model: int, n_head: int, device="cuda"):
+    def __init__(self, d_model: int, n_head: int, compute_dtype=torch.float32,
+                 device="cuda"):
         super().__init__()
         self.ln_1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
-        self.attn = SelfAttention(d_model, n_head, device=device)
+        self.attn = SelfAttention(d_model, n_head, compute_dtype, device=device)
         self.ln_2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
-        self.mlp = _MLP(d_model, device=device)
+        self.mlp = _MLP(d_model, compute_dtype, device=device)
 
     def forward(self, x: torch.Tensor, attn_mask: Optional[torch.Tensor] = None):
-        x = x + self.attn(self.ln_1(x), attn_mask)
-        return x + self.mlp(self.ln_2(x))
+        dt = self.attn.compute_dtype
+        x = x + self.attn(layer_norm(x, self.ln_1, dt), attn_mask)
+        return x + self.mlp(layer_norm(x, self.ln_2, dt))
 
 
 class Transformer(nn.Module):
-    def __init__(self, width: int, layers: int, heads: int, device="cuda"):
+    def __init__(self, width: int, layers: int, heads: int, compute_dtype=torch.float32,
+                 device="cuda"):
         super().__init__()
         self.resblocks = nn.ModuleList(
-            [ResidualAttentionBlock(width, heads, device=device) for _ in range(layers)])
+            [ResidualAttentionBlock(width, heads, compute_dtype, device=device)
+             for _ in range(layers)])
 
 
 def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
@@ -117,8 +133,10 @@ class CLIPVisual(nn.Module):
     """CLIP's VisionTransformer, NHWC in; keys as under ``visual.``."""
 
     def __init__(self, input_resolution: int = 224, patch_size: int = 16, width: int = 768,
-                 layers: int = 12, heads: int = 12, output_dim: int = 512, device="cuda"):
+                 layers: int = 12, heads: int = 12, output_dim: int = 512,
+                 compute_dtype=torch.float32, device="cuda"):
         super().__init__()
+        self.compute_dtype = resolve_dtype(compute_dtype)
         self.input_resolution = input_resolution
         self.patch_size = patch_size
         self.width = width
@@ -129,7 +147,7 @@ class CLIPVisual(nn.Module):
         self.positional_embedding = nn.Parameter(
             torch.zeros(grid * grid + 1, width, device=device))
         self.ln_pre = nn.LayerNorm(width, eps=1e-5, device=device)
-        self.transformer = Transformer(width, layers, heads, device=device)
+        self.transformer = Transformer(width, layers, heads, compute_dtype, device=device)
         self.ln_post = nn.LayerNorm(width, eps=1e-5, device=device)
         self.proj = nn.Parameter(torch.zeros(width, output_dim, device=device))
         self._resize: Dict[Tuple[int, int, str], torch.Tensor] = {}
@@ -158,7 +176,7 @@ class CLIPVisual(nn.Module):
         """x [B, H, W, 3] normalized -> (projected class token [B,
         output_dim], the activations [B, tokens + 1, width] after each block
         in ``extract_layers``)."""
-        x = self.conv1(x.permute(0, 3, 1, 2))                    # [B, width, gh, gw]
+        x = conv2d(x.permute(0, 3, 1, 2), self.conv1, self.compute_dtype)  # [B, width, gh, gw]
         B, _, gh, gw = x.shape
         x = x.flatten(2).transpose(1, 2)
         cls = self.class_embedding.to(x.dtype).expand(B, 1, self.width)
@@ -166,13 +184,13 @@ class CLIPVisual(nn.Module):
         grid = self.input_resolution // self.patch_size
         pos = (self.positional_embedding if x.shape[1] == grid * grid + 1
                else self.rescaled_pos_emb((gh, gw)))
-        x = self.ln_pre(x + pos[None].to(x.dtype))
+        x = layer_norm(x + pos[None].to(x.dtype), self.ln_pre, self.compute_dtype)
         activations = []
         for i, blk in enumerate(self.transformer.resblocks):
             x = blk(x)
             if i in extract_layers:
                 activations.append(x)
-        return self.ln_post(x[:, 0, :]) @ self.proj, activations
+        return layer_norm(x[:, 0, :], self.ln_post, self.compute_dtype) @ self.proj, activations
 
 
 class CLIPText(nn.Module):
@@ -180,13 +198,15 @@ class CLIPText(nn.Module):
     transformer, the end-of-text token projected."""
 
     def __init__(self, vocab_size: int = 49408, context_length: int = 77, width: int = 512,
-                 layers: int = 12, heads: int = 8, output_dim: int = 512, device="cuda"):
+                 layers: int = 12, heads: int = 8, output_dim: int = 512,
+                 compute_dtype=torch.float32, device="cuda"):
         super().__init__()
         self.context_length = context_length
         self.token_embedding = nn.Embedding(vocab_size, width, device=device)
         self.positional_embedding = nn.Parameter(
             torch.zeros(context_length, width, device=device))
-        self.transformer = Transformer(width, layers, heads, device=device)
+        self.compute_dtype = resolve_dtype(compute_dtype)
+        self.transformer = Transformer(width, layers, heads, compute_dtype, device=device)
         self.ln_final = nn.LayerNorm(width, eps=1e-5, device=device)
         self.text_projection = nn.Parameter(torch.zeros(width, output_dim, device=device))
 
@@ -198,7 +218,7 @@ class CLIPText(nn.Module):
         mask = torch.full((n, n), float("-inf"), device=x.device).triu(1)
         for blk in self.transformer.resblocks:
             x = blk(x, attn_mask=mask)
-        x = self.ln_final(x)
+        x = layer_norm(x, self.ln_final, self.compute_dtype)
         pooled = x[torch.arange(x.shape[0], device=x.device), tokens.argmax(dim=-1)]
         return pooled @ self.text_projection
 

@@ -16,6 +16,9 @@ Parameter names are those of ``rd64-uni.pth`` (``reduces.{i}``,
 checkpoint's decoder keys load as they are: ``trans_conv`` is the
 reference's ``ConvTranspose2d`` and takes its weight unflipped.  Tokens
 are [B, N, D]; logits come out NHWC, as in the JAX package.
+``compute_dtype`` reaches the encoder layers' attention and feed-forward
+products (their LayerNorms and residuals stay f32); the reductions, FiLM
+and the transposed convolution stay f32, as in the JAX module.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from samnerf_tpu_torch.perception.clipseg.clip_model import SelfAttention
+from samnerf_tpu_torch.utils.dtypes import layer_norm, linear, resolve_dtype
 
 
 class TorchTransformerEncoderLayer(nn.Module):
@@ -35,17 +39,21 @@ class TorchTransformerEncoderLayer(nn.Module):
     operations: that class's eval fast path is a fused kernel with other
     numerics."""
 
-    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048, device="cuda"):
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int = 2048,
+                 compute_dtype=torch.float32, device="cuda"):
         super().__init__()
-        self.self_attn = SelfAttention(d_model, nhead, device=device)
+        self.compute_dtype = resolve_dtype(compute_dtype)
+        self.self_attn = SelfAttention(d_model, nhead, compute_dtype, device=device)
         self.linear1 = nn.Linear(d_model, dim_feedforward, device=device)
         self.linear2 = nn.Linear(dim_feedforward, d_model, device=device)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5, device=device)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.norm1(x + self.self_attn(x))
-        return self.norm2(x + self.linear2(F.relu(self.linear1(x))))
+        dt = self.compute_dtype
+        x = layer_norm(x + self.self_attn(x), self.norm1, dt)
+        return layer_norm(x + linear(F.relu(linear(x, self.linear1, dt)), self.linear2, dt),
+                          self.norm2, dt)
 
 
 class CLIPDensePredT(nn.Module):
@@ -56,7 +64,8 @@ class CLIPDensePredT(nn.Module):
 
     def __init__(self, extract_layers: Tuple[int, ...] = (3, 6, 9), cond_layer: int = 0,
                  reduce_dim: int = 64, n_heads: int = 4, trans_conv_ks: int = 16,
-                 rev_activations: bool = False, width: int = 768, device="cuda"):
+                 rev_activations: bool = False, width: int = 768,
+                 compute_dtype=torch.float32, device="cuda"):
         super().__init__()
         depth = len(extract_layers)
         self.extract_layers = tuple(extract_layers)
@@ -65,7 +74,8 @@ class CLIPDensePredT(nn.Module):
         self.reduces = nn.ModuleList(
             [nn.Linear(width, reduce_dim, device=device) for _ in range(depth)])
         self.blocks = nn.ModuleList(
-            [TorchTransformerEncoderLayer(reduce_dim, n_heads, device=device)
+            [TorchTransformerEncoderLayer(reduce_dim, n_heads, compute_dtype=compute_dtype,
+                                          device=device)
              for _ in range(depth)])
         self.film_mul = nn.Linear(512, reduce_dim, device=device)
         self.film_add = nn.Linear(512, reduce_dim, device=device)

@@ -30,18 +30,21 @@ _VIT_SPECS = {
 
 
 def build_sam(model_type: str = "vit_h", checkpoint: Optional[str] = None,
-              device="cuda") -> Sam:
+              device="cuda", compute_dtype=torch.float32) -> Sam:
     """The SAM of ``model_type`` on ``device``: with a checkpoint (a
     reference-layout state dict, loaded strictly), else with PyTorch's
-    default initialisation (or none, on the meta device)."""
+    default initialisation (or none, on the meta device).  ``compute_dtype``
+    (``torch.bfloat16`` / ``"bfloat16"`` or f32) reaches the image encoder
+    and the mask decoder's two-way transformer; parameters stay f32."""
     spec = _VIT_SPECS[model_type]
     build_on = "meta" if checkpoint is not None else device
     encoder = ImageEncoderViT(
         img_size=IMAGE_SIZE, patch_size=VIT_PATCH_SIZE, embed_dim=spec["embed_dim"],
         depth=spec["depth"], num_heads=spec["num_heads"], mlp_ratio=4.0,
         out_chans=PROMPT_EMBED_DIM, qkv_bias=True, use_rel_pos=True, window_size=14,
-        global_attn_indexes=spec["global_attn_indexes"], device=build_on)
-    sam = Sam(image_encoder=encoder, device=build_on)
+        global_attn_indexes=spec["global_attn_indexes"], compute_dtype=compute_dtype,
+        device=build_on)
+    sam = Sam(image_encoder=encoder, compute_dtype=compute_dtype, device=build_on)
     if checkpoint is not None:
         state = torch.load(checkpoint, map_location=device, weights_only=True)
         sam.load_state_dict(state, strict=True, assign=True)

@@ -14,6 +14,14 @@ Global layers with rel-pos and at least ``flash_min_tokens`` tokens go
 through FLASH-RELPOS (``ops/attention.py``) when ``use_flash`` is set,
 the fields and condition of the JAX ``Attention`` without its TPU backend
 and tiling tests; the 14x14 windows stay plain PyTorch.
+
+``compute_dtype`` follows the JAX encoder's rounding points: the patch
+embedding, ``qkv``, ``proj``, the MLPs and the neck convolutions run in
+it (parameters stay f32), the residual stream is in it, the LayerNorms
+compute and return f32 (``LayerNorm2d`` returns its input's dtype), a
+window's logits, bias and ``attn @ v`` are in it with the softmax in f32,
+the global layers give FLASH-RELPOS operands of that dtype, and the
+output is f32.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from torch import nn
 
 from samnerf_tpu_torch.ops.attention import attention_relpos
 from samnerf_tpu_torch.perception.sam.common import LayerNorm2d, MLPBlock
+from samnerf_tpu_torch.utils.dtypes import conv2d, layer_norm, linear, resolve_dtype, scalar
 
 
 def get_rel_pos(q_size: int, k_size: int, rel_pos: torch.Tensor) -> torch.Tensor:
@@ -101,8 +110,9 @@ class Attention(nn.Module):
                  use_rel_pos: bool = False,
                  input_size: Optional[Tuple[int, int]] = None,
                  use_flash: bool = True, flash_min_tokens: int = 1024,
-                 device="cuda"):
+                 compute_dtype=torch.float32, device="cuda"):
         super().__init__()
+        self.compute_dtype = resolve_dtype(compute_dtype)
         self.num_heads = num_heads
         head_dim = dim // num_heads
         self.scale = head_dim ** -0.5
@@ -120,7 +130,8 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, H, W, _ = x.shape
         n = H * W
-        qkv = self.qkv(x).reshape(B, n, 3, self.num_heads, -1)
+        dt = self.compute_dtype
+        qkv = linear(x, self.qkv, dt).reshape(B, n, 3, self.num_heads, -1)
         q, k, v = qkv.permute(2, 0, 3, 1, 4).reshape(3, B * self.num_heads, n, -1)
         if self.use_flash and self.use_rel_pos and n >= self.flash_min_tokens:
             rel_h, rel_w = decomposed_rel_terms(q, self.rel_pos_h, self.rel_pos_w,
@@ -129,13 +140,13 @@ class Attention(nn.Module):
                                  rel_h.reshape(-1, n, H).contiguous(),
                                  rel_w.reshape(-1, n, W).contiguous(), self.scale)
         else:
-            attn = (q * self.scale) @ k.transpose(-2, -1)
+            attn = (q * scalar(self.scale, q.dtype)) @ k.transpose(-2, -1)
             if self.use_rel_pos:
                 attn = add_decomposed_rel_pos(attn, q, self.rel_pos_h, self.rel_pos_w,
                                               (H, W), (H, W))
-            x = attn.softmax(dim=-1) @ v
+            x = torch.softmax(attn.float(), dim=-1).to(q.dtype) @ v
         x = x.reshape(B, self.num_heads, H, W, -1).permute(0, 2, 3, 1, 4)
-        return self.proj(x.reshape(B, H, W, -1))
+        return linear(x.reshape(B, H, W, -1), self.proj, dt)
 
 
 class Block(nn.Module):
@@ -145,20 +156,24 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, use_rel_pos: bool = False,
                  window_size: int = 0, input_size: Optional[Tuple[int, int]] = None,
-                 use_flash: bool = True, flash_min_tokens: int = 1024, device="cuda"):
+                 use_flash: bool = True, flash_min_tokens: int = 1024,
+                 compute_dtype=torch.float32, device="cuda"):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-6, device=device)
         self.attn = Attention(
             dim, num_heads=num_heads, qkv_bias=qkv_bias, use_rel_pos=use_rel_pos,
             input_size=input_size if window_size == 0 else (window_size, window_size),
-            use_flash=use_flash, flash_min_tokens=flash_min_tokens, device=device)
+            use_flash=use_flash, flash_min_tokens=flash_min_tokens,
+            compute_dtype=compute_dtype, device=device)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6, device=device)
-        self.mlp = MLPBlock(dim, int(dim * mlp_ratio), device=device)
+        self.mlp = MLPBlock(dim, int(dim * mlp_ratio), compute_dtype=compute_dtype,
+                            device=device)
         self.window_size = window_size
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.attn.compute_dtype
         shortcut = x
-        x = self.norm1(x)
+        x = layer_norm(x, self.norm1, dt)
         if self.window_size > 0:
             H, W = x.shape[1], x.shape[2]
             x, pad_hw = window_partition(x, self.window_size)
@@ -166,20 +181,21 @@ class Block(nn.Module):
         if self.window_size > 0:
             x = window_unpartition(x, self.window_size, pad_hw, (H, W))
         x = shortcut + x
-        return x + self.mlp(self.norm2(x))
+        return x + self.mlp(layer_norm(x, self.norm2, dt))
 
 
 class PatchEmbed(nn.Module):
-    """The patch-embed conv, NCHW in, NHWC out."""
+    """The patch-embed conv in ``compute_dtype``, NCHW in, NHWC out."""
 
     def __init__(self, patch_size: int, embed_dim: int, in_chans: int = 3,
-                 device="cuda"):
+                 compute_dtype=torch.float32, device="cuda"):
         super().__init__()
         self.proj = nn.Conv2d(in_chans, embed_dim, kernel_size=patch_size,
                               stride=patch_size, device=device)
+        self.compute_dtype = resolve_dtype(compute_dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.proj(x).permute(0, 2, 3, 1)
+        return conv2d(x, self.proj, self.compute_dtype).permute(0, 2, 3, 1)
 
 
 class ImageEncoderViT(nn.Module):
@@ -191,12 +207,15 @@ class ImageEncoderViT(nn.Module):
                  mlp_ratio: float = 4.0, out_chans: int = 256, qkv_bias: bool = True,
                  use_abs_pos: bool = True, use_rel_pos: bool = True,
                  window_size: int = 14, global_attn_indexes: Tuple[int, ...] = (),
-                 use_flash: bool = True, flash_min_tokens: int = 1024, device="cuda"):
+                 use_flash: bool = True, flash_min_tokens: int = 1024,
+                 compute_dtype=torch.float32, device="cuda"):
         super().__init__()
+        self.compute_dtype = resolve_dtype(compute_dtype)
         self.img_size = img_size
         self.embed_size = img_size // patch_size
         grid = (self.embed_size, self.embed_size)
-        self.patch_embed = PatchEmbed(patch_size, embed_dim, device=device)
+        self.patch_embed = PatchEmbed(patch_size, embed_dim,
+                                      compute_dtype=compute_dtype, device=device)
         self.pos_embed = (nn.Parameter(torch.zeros(1, *grid, embed_dim, device=device))
                           if use_abs_pos else None)
         self.blocks = nn.ModuleList(
@@ -204,7 +223,8 @@ class ImageEncoderViT(nn.Module):
                   use_rel_pos=use_rel_pos,
                   window_size=0 if i in global_attn_indexes else window_size,
                   input_size=grid, use_flash=use_flash,
-                  flash_min_tokens=flash_min_tokens, device=device)
+                  flash_min_tokens=flash_min_tokens, compute_dtype=compute_dtype,
+                  device=device)
             for i in range(depth))
         self.neck = nn.Sequential(
             nn.Conv2d(embed_dim, out_chans, kernel_size=1, bias=False, device=device),
@@ -216,7 +236,11 @@ class ImageEncoderViT(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.patch_embed(x.permute(0, 3, 1, 2))
         if self.pos_embed is not None:
-            x = x + self.pos_embed
+            x = x + self.pos_embed.to(x.dtype)
         for blk in self.blocks:
             x = blk(x)
-        return self.neck(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        x = x.permute(0, 3, 1, 2)
+        for layer in self.neck:
+            x = (conv2d(x, layer, self.compute_dtype) if isinstance(layer, nn.Conv2d)
+                 else layer(x))
+        return x.permute(0, 2, 3, 1).float()

@@ -1,7 +1,9 @@
 """SAM mask decoder, counterpart of
 ``samnerf_tpu/perception/sam/mask_decoder.py`` (reference torch names:
 ``output_upscaling`` holds torch ``ConvTranspose2d`` weights as the
-reference checkpoint stores them)."""
+reference checkpoint stores them).  ``compute_dtype`` reaches the two-way
+transformer only; the upscaling, hypernetwork and IoU layers stay f32, as
+in the JAX module."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -35,11 +37,12 @@ class MaskDecoder(nn.Module):
 
     def __init__(self, transformer_dim: int = 256, num_multimask_outputs: int = 3,
                  iou_head_depth: int = 3, iou_head_hidden_dim: int = 256,
-                 device="cuda"):
+                 compute_dtype=torch.float32, device="cuda"):
         super().__init__()
         d = transformer_dim
         self.transformer = TwoWayTransformer(depth=2, embedding_dim=d,
                                              mlp_dim=2048, num_heads=8,
+                                             compute_dtype=compute_dtype,
                                              device=device)
         self.num_mask_tokens = num_multimask_outputs + 1
         self.iou_token = nn.Embedding(1, d, device=device)

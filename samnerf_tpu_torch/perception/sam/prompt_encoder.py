@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from samnerf_tpu_torch.perception.sam.common import LayerNorm2d
+from samnerf_tpu_torch.utils.dtypes import resolve_dtype
 
 
 class PositionEmbeddingRandom(nn.Module):
@@ -53,8 +54,10 @@ class PromptEncoder(nn.Module):
     def __init__(self, embed_dim: int = 256,
                  image_embedding_size: Tuple[int, int] = (64, 64),
                  input_image_size: Tuple[int, int] = (1024, 1024),
-                 mask_in_chans: int = 16, device="cuda"):
+                 mask_in_chans: int = 16, compute_dtype=torch.float32, device="cuda"):
         super().__init__()
+        # accepted and read nowhere, as ``PromptEncoder.compute_dtype`` in JAX
+        self.compute_dtype = resolve_dtype(compute_dtype)
         self.embed_dim = embed_dim
         self.image_embedding_size = image_embedding_size
         self.input_image_size = input_image_size

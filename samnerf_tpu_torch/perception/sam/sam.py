@@ -31,12 +31,13 @@ class Sam(nn.Module):
     """Prompt encoder + mask decoder at the widths every SAM variant
     shares (vit_b/l/h differ only in the image encoder); the prompt
     encoder's sizes follow the image encoder's ``img_size`` when there is
-    one."""
+    one.  ``compute_dtype`` reaches the mask decoder's two-way transformer
+    (the prompt encoder accepts and ignores it, as in the JAX package)."""
 
     mask_threshold = 0.0
 
     def __init__(self, image_encoder: Optional[ImageEncoderViT] = None,
-                 device="cuda"):
+                 compute_dtype=torch.float32, device="cuda"):
         super().__init__()
         self.image_encoder = image_encoder
         self.img_size = image_encoder.img_size if image_encoder else IMAGE_SIZE
@@ -44,11 +45,11 @@ class Sam(nn.Module):
         self.prompt_encoder = PromptEncoder(
             embed_dim=PROMPT_EMBED_DIM, image_embedding_size=(embed, embed),
             input_image_size=(self.img_size, self.img_size), mask_in_chans=16,
-            device=device)
+            compute_dtype=compute_dtype, device=device)
         self.mask_decoder = MaskDecoder(transformer_dim=PROMPT_EMBED_DIM,
                                         num_multimask_outputs=3,
                                         iou_head_depth=3, iou_head_hidden_dim=256,
-                                        device=device)
+                                        compute_dtype=compute_dtype, device=device)
 
     def preprocess(self, x: torch.Tensor) -> torch.Tensor:
         """Normalise and zero-pad to the encoder's square. x: [B, h, w, 3]."""

@@ -8,7 +8,12 @@ repetitions, and each row's share of its bound.
 
 Run from the repository root on a machine with an NVIDIA GPU::
 
-    python3 -m samnerf_tpu_torch.scripts.bench_attention [--root ROOT] [--tag NAME]
+    python3 -m samnerf_tpu_torch.scripts.bench_attention [--root ROOT] [--tag NAME] \\
+        [--dtype bfloat16]
+
+``--dtype bfloat16`` times the bf16 kernel instead
+(``chip_smoke.attn_bf16_kernel_phase``: ViT-H, ViT-B and the ragged shape
+on bf16 operands, its bf16 bounds).
 
 ``ROOT`` is the checkout whose ``samnerf_tpu_torch`` is timed (default:
 this one), for example a parent commit unpacked with ``git archive``
@@ -28,10 +33,13 @@ import torch
 import chip_smoke
 
 
-def bench(dev):
-    """The rows of ``chip_smoke.attn_kernel_phase`` for this process's
-    ``samnerf_tpu_torch``, with each row's share of its bound."""
-    rows = chip_smoke.attn_kernel_phase(dev, reps=50, ref_reps=10)
+def bench(dev, dtype="float32"):
+    """The rows of ``chip_smoke.attn_kernel_phase`` (or, for bf16,
+    ``attn_bf16_kernel_phase``) for this process's ``samnerf_tpu_torch``,
+    with each row's share of its bound."""
+    phase = (chip_smoke.attn_bf16_kernel_phase if dtype == "bfloat16"
+             else chip_smoke.attn_kernel_phase)
+    rows = phase(dev, reps=50, ref_reps=10)
     for row in rows:
         row["bound_share"] = row["bound_ms"] / row["ms"]
     return rows
@@ -41,6 +49,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=None, help="the checkout whose kernel to time")
     ap.add_argument("--tag", default="this")
+    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_attention: no CUDA device")
@@ -57,7 +66,7 @@ def main() -> None:
     from samnerf_tpu_torch.ops import cuda_build
     print(f"kernel of {Path(cuda_build.__file__).resolve().parents[2]}", flush=True)
     cuda_build.load("attention_relpos")
-    report = dict(card=smi, tag=args.tag, rows=bench(dev))
+    report = dict(card=smi, tag=args.tag, dtype=args.dtype, rows=bench(dev, args.dtype))
     out = Path("chiprun_out")
     out.mkdir(exist_ok=True)
     (out / f"bench_attention_{args.tag}.json").write_text(json.dumps(report, indent=1))

@@ -12,9 +12,13 @@ FLASH-RELPOS's time in use and launches per image, and the peak memory
 of the unprofiled images.  Run from the repository root on a machine with
 an NVIDIA GPU::
 
-    python3 -m samnerf_tpu_torch.scripts.profile_encode [--images 3] [--tag NAME]
+    python3 -m samnerf_tpu_torch.scripts.profile_encode [--images 3] [--tag NAME] \\
+        [--dtype bfloat16]
 
-Writes ``chiprun_out/profile_encode[_NAME].json``.
+``--dtype`` is the encoder's ``compute_dtype`` (``build_sam(...,
+compute_dtype=)``; default float32), so the f32 and the bf16 image can be
+profiled in turns on one card.  Writes
+``chiprun_out/profile_encode[_NAME].json``.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--images", type=int, default=3)
     ap.add_argument("--tag", default=None)
+    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_encode: no CUDA device")
@@ -65,7 +70,8 @@ def main() -> None:
                             h=512, w=512)
         images = [np.asarray(Image.open(p).convert("RGB"))
                   for p in sorted((scene / "images").glob("*.png"))]
-        predictor = SamPredictor(build_sam("vit_h", checkpoint=str(ckpt), device=dev))
+        predictor = SamPredictor(build_sam("vit_h", checkpoint=str(ckpt), device=dev,
+                                           compute_dtype=args.dtype))
     predictor.set_image(images[0])                                   # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -92,11 +98,12 @@ def main() -> None:
     rows = [dict(kernel=k, ms_per_image=v, launches_per_image=launches[k] / n,
                  share=v / busy) for k, v in per_kernel.most_common()]
     in_use = port_kernel_totals(rows, "image")
-    report = dict(card=smi, wall_ms_per_image=wall_ms, profiled_ms_per_image=profiled_ms,
+    report = dict(card=smi, dtype=args.dtype, wall_ms_per_image=wall_ms,
+                  profiled_ms_per_image=profiled_ms,
                   busy_ms_per_image=busy, idle_share=1.0 - busy / wall_ms,
                   max_memory_allocated=peak, port_kernels=in_use,
                   launches_per_image=sum(launches.values()) / n, kernels=rows)
-    print(f"vit_h image: wall {wall_ms:.2f} ms (unprofiled), {profiled_ms:.2f} ms "
+    print(f"vit_h {args.dtype} image: wall {wall_ms:.2f} ms (unprofiled), {profiled_ms:.2f} ms "
           f"(profiled); device busy {busy:.2f} ms/image, idle share "
           f"{report['idle_share']:.3f}, {report['launches_per_image']:.0f} launches/image, "
           f"max_memory_allocated {peak / 2**30:.2f} GiB; in use: "

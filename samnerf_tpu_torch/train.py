@@ -4,7 +4,8 @@ Counterpart of ``samnerf_tpu/train.py`` for the ``samnerf_distill`` and
 ``samnerf_no_distill`` presets on one NVIDIA GPU::
 
     python -m samnerf_tpu_torch.train samnerf_distill --data /path/to/scene \\
-        [--trainer.max-num-iterations N] [--model.hash-fn reference] ...
+        [--trainer.max-num-iterations N] [--model.hash-fn reference] \\
+        [--model.compute-dtype bfloat16] ...
 
 Writes ``config.json`` and ``samnerf_tpu_torch_ckpts/step-*.pt`` under
 ``<output_dir>/<scene>/<method>/<timestamp>/``.  The viewer, the event
@@ -59,8 +60,9 @@ def save_config(config: MethodConfig) -> None:
     (out / "config.json").write_text(json.dumps(enc(config), indent=2))
 
 
-def train_loop(config: MethodConfig, device="cuda"):
-    """Seed, build the data and the trainer, train."""
+def train_loop(config: MethodConfig, device="cuda", step_callback=None):
+    """Seed, build the data and the trainer, train (``step_callback(step,
+    metrics)`` after each step, as ``Trainer.train`` takes it)."""
     from samnerf_tpu_torch.data.datamanager import DataManager
     from samnerf_tpu_torch.engine.trainer import Trainer
 
@@ -70,7 +72,7 @@ def train_loop(config: MethodConfig, device="cuda"):
     dm = DataManager(config.datamanager)
     trainer = Trainer(config.model, config.trainer, config.optimizers, dm,
                       device=device)
-    trainer.train()
+    trainer.train(step_callback=step_callback)
     return trainer
 
 

@@ -2,6 +2,8 @@
 (samnerf_tpu_torch.convert.params_from_jax), and the modules that run on
 them, against their flax counterparts on the CPU (rtol 1e-5 / atol 1e-5:
 float32 sums taken in another order)."""
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -18,7 +20,16 @@ from samnerf_tpu_torch.convert import params_from_jax
 from samnerf_tpu_torch.fields.hash_encoding import ParityHashEncoding
 from samnerf_tpu_torch.fields.mlp import MLP
 from samnerf_tpu_torch.fields.sam_field import ConvHead
+from samnerf_tpu_torch.models.sam_model import SAMModelConfig
 from samnerf_tpu_torch.perception.sam.sam import Sam
+
+
+def port_config(cfg) -> SAMModelConfig:
+    """The port's config with the JAX config's values; its
+    ``compute_dtype`` (a jnp type) by name."""
+    values = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(SAMModelConfig)}
+    values["compute_dtype"] = np.dtype(cfg.compute_dtype).name
+    return SAMModelConfig(**values)
 
 
 def decoder_state(seed: int = 0, for_masks: bool = False):
@@ -136,10 +147,8 @@ def test_mask_decoder_forward():
 def test_fused_serve_model_loads_converted_weights_strictly():
     """``serve_fuse_mlp`` adds no weights: a converted JAX tree of a fused
     int8 model, baked tables included, loads strictly into the port's."""
-    import dataclasses
-
     from samnerf_tpu.models.sam_model import SAMModel as JaxModel
-    from samnerf_tpu_torch.models.sam_model import SAMModel, SAMModelConfig
+    from samnerf_tpu_torch.models.sam_model import SAMModel
 
     from test_model import TINY, make_bundle
 
@@ -149,8 +158,7 @@ def test_fused_serve_model_loads_converted_weights_strictly():
         train=False, get_features=("sam", "clipseg")))
     params = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
     params = _np_tree(bake_quantized_tables(params, optimize=0))
-    model = SAMModel(SAMModelConfig(**{f: getattr(cfg, f) for f in
-                                       SAMModelConfig.__dataclass_fields__}), device="cpu")
+    model = SAMModel(port_config(cfg), device="cpu")
     state = params_from_jax(params)
     model.load_state_dict(state, strict=True)
     assert set(model.state_dict()) == set(state)
@@ -162,11 +170,9 @@ def test_baked_serve_tables_keep_the_checkpoint_layout():
     of the table): JAX's baked tables load strictly, come back out of the
     state dict bit for bit, and ``bake_serve_tables`` on the same masters
     gives the same keys and the same bits."""
-    import dataclasses
-
     from samnerf_tpu.models.sam_model import SAMModel as JaxModel
     from samnerf_tpu_torch.engine.render_pipeline import SamNerfRenderer
-    from samnerf_tpu_torch.models.sam_model import SAMModel, SAMModelConfig
+    from samnerf_tpu_torch.models.sam_model import SAMModel
     from samnerf_tpu_torch.ops.hash_grid import interleave_packs
 
     from test_model import TINY, make_bundle
@@ -178,7 +184,7 @@ def test_baked_serve_tables_keep_the_checkpoint_layout():
     rng = np.random.default_rng(11)
     masters = jax.tree.map(lambda s: rng.uniform(-0.5, 0.5, s.shape).astype(s.dtype), shapes)
     baked = _np_tree(bake_quantized_tables(masters, optimize=0))
-    port_cfg = SAMModelConfig(**{f: getattr(cfg, f) for f in SAMModelConfig.__dataclass_fields__})
+    port_cfg = port_config(cfg)
 
     def words(t):
         return t.view(torch.int32)

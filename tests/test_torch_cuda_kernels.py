@@ -368,3 +368,60 @@ def test_flash_relpos_wrapper_rejects_what_the_kernel_does_not_take(bad):
         q, k, v = (torch.zeros((2, 32, 136), device=dev) for _ in range(3))
     with pytest.raises(ValueError):
         ta.flash_attention_relpos(q, k, v, rel_h, rel_w, 0.25)
+
+
+def _bf16_ulp_ok(out, ref):
+    """One bf16 ulp: |out - ref| <= 2^-7 |ref| + 1e-5 max |ref| per element.
+    Both are rounded once from f32 values; the kernel's (tensor-core sums,
+    P in a hi and a lo bf16 part) and the plain version's differ by up to
+    ~2e-6 max |ref| on the H100, the f32 kernel's own level, which near
+    zero outputs is more than their ulp."""
+    out, ref = out.float(), ref.float()
+    bound = 2.0 ** -7 * ref.abs() + 1e-5 * ref.abs().max()
+    return bool(((out - ref).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["normal", "peaky", "misaligned"])
+@pytest.mark.parametrize("shape", [
+    (16, 64, 64, 80), (12, 64, 64, 64), (3, 12, 20, 20),
+    # D odd (plain loads), 1, 128, a whole k-step; Kw = 64 at D = 20
+    (2, 5, 7, 33), (2, 6, 9, 1), (2, 16, 16, 128), (2, 6, 9, 16), (3, 5, 64, 20),
+    # ragged tiles across kh rows; N < 64; N % 64 != 0
+    (2, 9, 33, 16), (3, 4, 5, 24), (2, 10, 13, 40)])
+def test_flash_relpos_bf16_kernel_matches_plain_version(shape, inputs):
+    """The bf16 kernel (``flash_relpos_bf16_kernel``) against the plain
+    version on the same bf16 operands, within one bf16 ulp: both compute
+    in f32 and round once.  ``misaligned``: operands that start 2 bytes
+    off a 16-byte boundary (the copy falls back from 16-byte runs)."""
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, kh, kw, d = shape
+    q, k, v, rel_h, rel_w = (t.bfloat16() for t in _attention_inputs(dev, b, kh, kw, d))
+    if inputs == "peaky":
+        q = q * 8.0
+    elif inputs == "misaligned":
+        def shifted(t):
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+            out = buf[1:].view(t.shape)
+            out.copy_(t)
+            return out
+        q, k, v = shifted(q), shifted(k), shifted(v)
+    args = (q, k, v, rel_h, rel_w, d ** -0.5)
+    before = (ta.flash_attention_relpos.launches, ta.flash_attention_relpos.launches_bf16)
+    out = ta.flash_attention_relpos(*args)
+    assert (ta.flash_attention_relpos.launches,
+            ta.flash_attention_relpos.launches_bf16) == (before[0], before[1] + 1)
+    assert out.dtype == torch.bfloat16
+    ref = ta.reference_attention_relpos(*args)
+    torch.cuda.synchronize()
+    assert _bf16_ulp_ok(out, ref), (out.float() - ref.float()).abs().max().item()
+
+
+@pytest.mark.cuda
+def test_flash_relpos_wrapper_rejects_mixed_dtypes():
+    dev = _cuda()
+    q, k, v, rel_h, rel_w = _attention_inputs(dev, 2, 4, 8, 16)
+    with pytest.raises(ValueError):
+        ta.flash_attention_relpos(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                                  rel_h, rel_w.bfloat16(), 0.25)

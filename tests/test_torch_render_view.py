@@ -26,7 +26,7 @@ from samnerf_tpu.perception.sam.predictor import SamPredictor as JaxPredictor
 from samnerf_tpu_torch.convert import params_from_jax
 from samnerf_tpu_torch.core.cameras import generate_rays
 from samnerf_tpu_torch.engine import render_pipeline as trp
-from samnerf_tpu_torch.models.sam_model import SAMModel, SAMModelConfig
+from samnerf_tpu_torch.models.sam_model import SAMModel
 from samnerf_tpu_torch.perception.sam.predictor import SamPredictor
 from samnerf_tpu_torch.perception.sam.sam import Sam
 from samnerf_tpu_torch.utils.synthetic import look_at_c2w
@@ -36,7 +36,7 @@ from samnerf_tpu_torch.perception import langsam as tls
 
 from test_model import TINY
 from test_torch_clipseg import tiny_predictors
-from test_torch_convert import decoder_state
+from test_torch_convert import decoder_state, port_config
 from test_torch_langsam import (HEAT_TOL, MARGIN, check_top_cells_apart, record_predict,
                                 sam_predictors, seeded_default_rng)
 from test_torch_serve_slice import _model_params
@@ -115,9 +115,7 @@ def renderers():
     jpred = JaxPredictor(jsam, {"params": convert_torch_state_dict(dec_sd, depth=12)})
     jsnr = jrp.SamNerfRenderer(JaxModel(cfg), sam_predictor=jpred, chunk=1024,
                                serve_preset="static")
-    model = SAMModel(SAMModelConfig(**{f: getattr(cfg, f) for f in
-                                       SAMModelConfig.__dataclass_fields__}),
-                     device="cpu")
+    model = SAMModel(port_config(cfg), device="cpu")
     model.load_state_dict(params_from_jax(params))
     sam = Sam(device="cpu")
     sam.load_state_dict(dec_sd)
@@ -267,9 +265,7 @@ def no_distill_renderers(tmp_path_factory):
     jpred, tpred = sam_predictors()
     jsnr = jrp.SamNerfRenderer(JaxModel(cfg), lang_sam=jls.LanguageSAM(jpred, jclip),
                                chunk=1024, serve_preset="static")
-    model = SAMModel(SAMModelConfig(**{f: getattr(cfg, f) for f in
-                                       SAMModelConfig.__dataclass_fields__}),
-                     device="cpu")
+    model = SAMModel(port_config(cfg), device="cpu")
     model.load_state_dict(params_from_jax(params))
     snr = trp.SamNerfRenderer(model, lang_sam=tls.LanguageSAM(tpred, tclip), chunk=1024,
                               serve_preset="static")

@@ -30,11 +30,11 @@ from samnerf_tpu.perception.sam.build_sam import build_sam, convert_torch_state_
 from samnerf_tpu_torch.convert import params_from_jax
 from samnerf_tpu_torch.core.cameras import Cameras
 from samnerf_tpu_torch.engine.render_pipeline import SamNerfRenderer
-from samnerf_tpu_torch.models.sam_model import SAMModel, SAMModelConfig
+from samnerf_tpu_torch.models.sam_model import SAMModel
 from samnerf_tpu_torch.perception.sam.sam import Sam
 
 from test_model import TINY, make_bundle
-from test_torch_convert import decoder_state
+from test_torch_convert import decoder_state, port_config
 
 H = W = 64
 CLICK = (20.0, 37.0)
@@ -88,8 +88,7 @@ def run_both(q8: bool, fuse: bool = False):
     ref = {k: np.asarray(v) for k, v in jgrids.items()}
     ref.update(img=np.asarray(jimg), mask=np.asarray(jmask))
 
-    tcfg = SAMModelConfig(**{f.name: getattr(cfg, f.name)
-                             for f in dataclasses.fields(SAMModelConfig)})
+    tcfg = port_config(cfg)
     model = SAMModel(tcfg, device="cpu")
     model.load_state_dict(params_from_jax(params))
     sam = Sam(device="cpu")

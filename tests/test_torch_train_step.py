@@ -38,7 +38,7 @@ from samnerf_tpu_torch.engine.trainer import TrainState, loss_and_grads
 from samnerf_tpu_torch.models import sam_model as tm
 
 from test_model import TINY
-from test_torch_serve_slice import _model_params
+from test_torch_serve_slice import _model_params, port_config
 
 H = W = 32
 R = 64
@@ -92,8 +92,7 @@ def test_train_step_matches_jax(jax_step, step, since, gate):
     keys = jax.random.split(rng, len(CFG.num_proposal_samples_per_ray) + 1)
     jitter = [np.array(jax.random.uniform(k, (R, 1))) for k in keys]
 
-    tcfg = tm.SAMModelConfig(**{f.name: getattr(CFG, f.name)
-                                for f in dataclasses.fields(tm.SAMModelConfig)})
+    tcfg = port_config(CFG)
     anneal = tm.proposal_anneal_value(tcfg, step)
     assert anneal == float(jm.proposal_anneal_value(CFG, jnp.asarray(step)))
     assert tm.proposal_grad_gate(tcfg, step, since) == gate == float(
