@@ -55,18 +55,23 @@ which raises on failure:
    error, time, the 3xTF32 tensor-core bound and the f32 CUDA-core one,
    and ``scaled_dot_product_attention`` with the materialised bias as a
    yardstick; attn_bf16_kernel: the bf16 FLASH-RELPOS against its plain
-   version on bf16 operands at ViT-H's, ViT-B's and the ragged shape,
-   within one bf16 ulp, with its bf16 bounds, plain and library times;
+   version on bf16 operands at ViT-H's, ViT-B's, the ragged shape and
+   ViT-H's peaky case, within one bf16 ulp, with its bf16 bounds, plain
+   and library times, each row naming the kernel ``bf16_route`` chose
+   (the wgmma kernel on the 64-wide grids, the ``mma.sync`` one on the
+   ragged shape); every row keeps a digest of the kernel's output bits;
 8. encode: SAM ViT-H at full width (seeded weights, saved once as a
    reference-layout checkpoint and loaded through ``build_sam``) through
    ``SamPredictor.set_image`` on 512x512 frames (ms per image, peak
    memory, FLASH-RELPOS launches per image, click -> mask ms), and the
    kernel route's embedding against the plain route's; then a small
-   encoder on the card against the same encoder on the CPU; encode_bf16:
-   ``build_sam_vit_h(checkpoint, compute_dtype=torch.bfloat16)`` through
-   ``set_image`` (ms per image, peak memory, 4 bf16 FLASH-RELPOS launches
-   per image, the embedding's error against the f32 encode, the kernel
-   route against the plain version in its place);
+   encoder on the card against the same encoder on the CPU, in f32 and
+   in bf16 (its 16-wide grid takes the ``mma.sync`` bf16 kernel);
+   encode_bf16: ``build_sam_vit_h(checkpoint,
+   compute_dtype=torch.bfloat16)`` through ``set_image`` (ms per image,
+   peak memory, 4 bf16 FLASH-RELPOS launches per image, all by the wgmma
+   kernel, the embedding's error against the f32 encode, the kernel route
+   against the plain version in its place);
 9. preprocess: ``python -m samnerf_tpu_torch.preprocessing
    .get_image_embeddings`` (its ``main``) with that checkpoint on a
    synthetic 24-image 512x512 scene, the port's feature loader on the
@@ -96,7 +101,8 @@ which raises on failure:
    memory, 6 F32-ENC and 6 F32-ENC-BWD launches per step);
 15. one ``{"kernels": [...]}`` line (the f32 kernels' layout passes
    listed under ``passes`` beside the kernel that needs them; the bf16
-   FLASH-RELPOS as ``FLASH-RELPOS-BF16``), then
+   FLASH-RELPOS routes as ``FLASH-RELPOS-BF16-WGMMA`` and
+   ``FLASH-RELPOS-BF16``), then
    ``{"ok": true, "device": ...}`` as the last line.
 
 Float32 matmuls and convolutions run in full f32 (TF32 off) so the card
@@ -109,6 +115,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import statistics
@@ -418,12 +425,13 @@ def qmlp_kernel_phase(dev, frame_pos):
 # the kernels (by source) whose ptxas report is printed and held to no spills
 RESOURCE_KERNELS = {"hash_encode": ("f32_encode_kernel", "f32_encode_bwd_kernel",
                                     "q_encode_kernel", "qmlp_kernel"),
-                    "attention_relpos": ("flash_relpos_kernel", "flash_relpos_bf16_kernel")}
+                    "attention_relpos": ("flash_relpos_kernel", "flash_relpos_bf16_kernel",
+                                         "flash_relpos_bf16_wgmma_kernel")}
 
 
 def kernel_resources():
     """``ptxas``'s registers, spills and shared memory of F32-ENC,
-    F32-ENC-BWD, Q-ENC, FUSED-QMLP and FLASH-RELPOS (f32 and bf16), named
+    F32-ENC-BWD, Q-ENC, FUSED-QMLP and FLASH-RELPOS (f32 and both bf16), named
     by their template arguments; raises if one of them spills."""
     import re
 
@@ -1197,6 +1205,13 @@ def attn_bound(b, n, d, gh, gw) -> dict:
                 gflop=flops / 1e9)
 
 
+def _digest(t) -> str:
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes, so two
+    checkouts' kernels can be held bit for bit across processes."""
+    data = t.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+    return hashlib.sha256(data).hexdigest()[:16]
+
+
 def attn_kernel_phase(dev, reps: int = 20, ref_reps: int = 5):
     """FLASH-RELPOS against its plain version at ``ATTN_SHAPES`` and the
     peaky case, timed (``reps`` calls; ``ref_reps`` of the plain version
@@ -1227,6 +1242,7 @@ def attn_kernel_phase(dev, reps: int = 20, ref_reps: int = 5):
         library_err = (library() - ref).abs().max().item()
         logit_absmax = (torch.matmul(q[:1] * scale, k[:1].transpose(-2, -1))
                         .abs().max().item())
+        digest = _digest(out)
         del out, ref
         ms = _time_ms(run, reps=reps)
         plain_ms = _time_ms(plain, reps=ref_reps)
@@ -1235,7 +1251,8 @@ def attn_kernel_phase(dev, reps: int = 20, ref_reps: int = 5):
         row = dict(kernel="FLASH-RELPOS", shape=name, heads=b, tokens=n, head_dim=d,
                    grid=(gh, gw), q_gain=q_gain, logit_absmax_head0=logit_absmax,
                    max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   library_max_abs_err=library_err, **attn_bound(b, n, d, gh, gw))
+                   library_max_abs_err=library_err, out_digest=digest,
+                   **attn_bound(b, n, d, gh, gw))
         row["tflops"] = row["gflop"] / ms
         rows.append(row)
         print(f"attn kernel FLASH-RELPOS {name:11s} B={b:2d} N={n:5d} D={d:2d} "
@@ -1274,47 +1291,60 @@ def bf16_ulp_excess(out, ref) -> tuple:
 
 def attn_bf16_kernel_phase(dev, reps: int = 20, ref_reps: int = 5):
     """The bf16 FLASH-RELPOS against its plain version on the same bf16
-    operands at ``ATTN_SHAPES``, within one bf16 ulp; timed beside the
-    plain version and ``scaled_dot_product_attention`` in bf16 with the
-    bias materialised."""
+    operands at ``ATTN_SHAPES`` and the peaky case, within one bf16 ulp;
+    each row names the kernel that ran (``bf16_route``: the wgmma kernel
+    on the 64-wide grids, ``mma.sync`` on the ragged shape), timed beside
+    the plain version and ``scaled_dot_product_attention`` in bf16 with
+    the bias materialised.  A checkout from before the wgmma kernel (timed
+    by ``scripts/bench_attention.py --root``) has only the ``mma.sync``
+    route."""
     import torch.nn.functional as F
 
     from samnerf_tpu_torch.ops import attention as ta
 
+    fn = ta.flash_attention_relpos
     gen = torch.Generator(device=dev).manual_seed(4)
     rows = []
-    for name, b, gh, gw, d in ATTN_SHAPES:
+    cases = [(*shape, 1.0) for shape in ATTN_SHAPES] + [(*ATTN_PEAKY, ATTN_PEAKY_GAIN)]
+    for name, b, gh, gw, d, q_gain in cases:
         n = gh * gw
-        *ops, scale = attn_inputs(dev, gen, b, gh, gw, d)
+        *ops, scale = attn_inputs(dev, gen, b, gh, gw, d, q_gain)
         q, k, v, rel_h, rel_w = (t.bfloat16() for t in ops)
         del ops
-        before = ta.flash_attention_relpos.launches_bf16
-        run = lambda: ta.flash_attention_relpos(q, k, v, rel_h, rel_w, scale)
+        aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+        route = ta.bf16_route(d, gw, aligned) if hasattr(ta, "bf16_route") else "mma_sync"
+        kernel = "FLASH-RELPOS-BF16-WGMMA" if route == "wgmma" else "FLASH-RELPOS-BF16"
+        before = (fn.launches_bf16, getattr(fn, "launches_bf16_wgmma", 0))
+        run = lambda: fn(q, k, v, rel_h, rel_w, scale)
         plain = lambda: ta.reference_attention_relpos(q, k, v, rel_h, rel_w, scale)
         out, ref = run(), plain()
         torch.cuda.synchronize()
-        if ta.flash_attention_relpos.launches_bf16 != before + 1 or out.dtype != torch.bfloat16:
-            raise AssertionError(f"bf16 FLASH-RELPOS {name}: not the bf16 kernel")
+        after = (fn.launches_bf16, getattr(fn, "launches_bf16_wgmma", 0))
+        if after != (before[0] + 1, before[1] + (route == "wgmma")) \
+                or out.dtype != torch.bfloat16:
+            raise AssertionError(f"bf16 FLASH-RELPOS {name}: not the {route} kernel "
+                                 f"(launches {before} -> {after})")
         err = (out.float() - ref.float()).abs().max().item()
         excess, share = bf16_ulp_excess(out, ref)
         if not math.isfinite(err) or excess > 0:
-            raise AssertionError(f"bf16 FLASH-RELPOS {name}: {share:.2e} of the outputs "
+            raise AssertionError(f"{kernel} {name}: {share:.2e} of the outputs "
                                  f"beyond one bf16 ulp (by up to {excess:.2e})")
         bias = (rel_h[:, :, :, None] + rel_w[:, :, None, :]).reshape(b, n, n)
         library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale)
         library_err = (library().float() - ref.float()).abs().max().item()
+        digest = _digest(out)
         del out, ref
         ms = _time_ms(run, reps=reps)
         plain_ms = _time_ms(plain, reps=ref_reps)
         library_ms = _time_ms(library, reps=ref_reps)
         del bias
-        row = dict(kernel="FLASH-RELPOS-BF16", shape=name, heads=b, tokens=n, head_dim=d,
-                   grid=(gh, gw), max_abs_err=err, ulp_excess=excess, ms=ms,
+        row = dict(kernel=kernel, route=route, shape=name, heads=b, tokens=n, head_dim=d,
+                   grid=(gh, gw), q_gain=q_gain, max_abs_err=err, ulp_excess=excess, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms, library_max_abs_err=library_err,
-                   **attn_bf16_bound(b, n, d, gh, gw))
+                   out_digest=digest, **attn_bf16_bound(b, n, d, gh, gw))
         row["tflops"] = row["gflop"] / ms
         rows.append(row)
-        print(f"attn kernel FLASH-RELPOS-BF16 {name:6s} B={b:2d} N={n:5d} D={d:2d} "
+        print(f"attn kernel {kernel} {name:11s} B={b:2d} N={n:5d} D={d:2d} "
               f"err={err:.3e} (within one bf16 ulp) ms={ms:.4f} plain_ms={plain_ms:.3f} "
               f"library_ms={library_ms:.3f} (err {library_err:.1e}) bound_ms="
               f"{row['bound_ms']:.4f} ({row['bound_by']}, bf16) design_bound_ms="
@@ -1426,36 +1456,55 @@ def encode_reference_phase(dev):
     """A small encoder (4 blocks, 16x16 tokens, head dim 80, one global
     layer over FLASH-RELPOS, the windows plain) on the card against the
     same seeded encoder on the CPU, where the wrapper runs the plain
-    version."""
+    version: in f32 at ``TOL_ENCODE``, and with ``compute_dtype=bfloat16``,
+    whose global layer (a 16-wide grid) takes the ``mma.sync`` bf16 kernel.
+    The bf16 pair is held at a mean absolute difference no larger than the
+    card's own bf16 output's mean distance from its f32 one, as
+    ``encode_bf16_phase`` holds its two routes: one-ulp flips of bf16
+    products summed in other orders spread through the blocks, and a wrong
+    kernel would put the two further apart than bf16 is from f32."""
     from samnerf_tpu_torch.ops import attention as ta
     from samnerf_tpu_torch.perception.sam.image_encoder import ImageEncoderViT
     from samnerf_tpu_torch.utils.init import init_state
 
+    fn = ta.flash_attention_relpos
     x = np.random.default_rng(9).normal(size=(1, 256, 256, 3)).astype(np.float32)
     outs = {}
-    for d in (dev, "cpu"):
-        enc = ImageEncoderViT(**SMALL_ENCODER, device=d)
-        enc.load_state_dict(init_state(ImageEncoderViT(**SMALL_ENCODER, device="meta"),
-                                       torch.Generator().manual_seed(5), device=d))
-        before = ta.flash_attention_relpos.launches
-        with torch.no_grad():
-            outs[str(d)] = enc(torch.as_tensor(x, device=d)).cpu()
-        launches = ta.flash_attention_relpos.launches - before
-        if launches != (1 if d == dev else 0):
-            raise AssertionError(f"small encoder on {d}: {launches} FLASH-RELPOS launches")
-    err = (outs[str(dev)] - outs["cpu"]).abs().max().item()
+    for dt in (torch.float32, torch.bfloat16):
+        for d in (dev, "cpu"):
+            enc = ImageEncoderViT(**SMALL_ENCODER, compute_dtype=dt, device=d)
+            enc.load_state_dict(init_state(ImageEncoderViT(**SMALL_ENCODER, device="meta"),
+                                           torch.Generator().manual_seed(5), device=d))
+            before = (fn.launches, fn.launches_bf16, fn.launches_bf16_wgmma)
+            with torch.no_grad():
+                outs[(dt, str(d))] = enc(torch.as_tensor(x, device=d)).float().cpu()
+            launches = tuple(a - b for a, b in zip(
+                (fn.launches, fn.launches_bf16, fn.launches_bf16_wgmma), before))
+            want = (0, 0, 0) if d == "cpu" else (1, 0, 0) if dt == torch.float32 else (0, 1, 0)
+            if launches != want:
+                raise AssertionError(f"small {dt} encoder on {d}: FLASH-RELPOS launches "
+                                     f"(f32, bf16, bf16 wgmma) {launches}, not {want}")
+    card, cpu = str(dev), "cpu"
+    err = (outs[(torch.float32, card)] - outs[(torch.float32, cpu)]).abs().max().item()
+    bf16_diff = (outs[(torch.bfloat16, card)] - outs[(torch.bfloat16, cpu)]).abs().mean().item()
+    bf16_vs_f32 = (outs[(torch.bfloat16, card)] - outs[(torch.float32, card)]).abs().mean().item()
     print(f"encode reference: small encoder card vs CPU max abs err {err:.3e} "
-          f"(tol {TOL_ENCODE:g})", flush=True)
+          f"(tol {TOL_ENCODE:g}); bf16 card vs CPU mean abs {bf16_diff:.3e} (bf16 vs f32 "
+          f"mean {bf16_vs_f32:.3e}), 1 launch of the mma.sync bf16 kernel", flush=True)
     if not math.isfinite(err) or err > TOL_ENCODE:
         raise AssertionError(f"card and CPU encoders disagree: {err}")
-    return dict(max_abs_err=err)
+    if not (bf16_diff <= bf16_vs_f32 and bf16_vs_f32 > 0):
+        raise AssertionError(f"bf16 card and CPU encoders disagree: {bf16_diff} "
+                             f"(bf16 vs f32 {bf16_vs_f32})")
+    return dict(max_abs_err=err, bf16_mean_abs_diff=bf16_diff, bf16_vs_f32_mean=bf16_vs_f32,
+                bf16_launches=1)
 
 
 def encode_bf16_phase(dev, checkpoint: Path, images):
     """ViT-H with ``compute_dtype=torch.bfloat16`` from the same seeded
     checkpoint through ``SamPredictor.set_image``: ms per image after a
-    warm-up, peak memory, 4 bf16 FLASH-RELPOS launches per image and no
-    f32 one; the bf16 embedding's relative error against the f32 encode of
+    warm-up, peak memory, 4 bf16 FLASH-RELPOS launches per image, all by
+    the wgmma kernel, and no f32 one; the bf16 embedding's relative error against the f32 encode of
     the same frame (information); and the kernel route against the same
     bf16 encoder with the kernel's plain version in its place.  That last
     pair is held at a mean absolute difference no larger than the bf16
@@ -1477,7 +1526,8 @@ def encode_bf16_phase(dev, checkpoint: Path, images):
     predictor.set_image(images[0])                       # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ta.flash_attention_relpos.launches = ta.flash_attention_relpos.launches_bf16 = 0
+    fn = ta.flash_attention_relpos
+    fn.launches = fn.launches_bf16 = fn.launches_bf16_wgmma = 0
     times = []
     for img in images[1:ENCODE_IMAGES]:
         t0 = time.perf_counter()
@@ -1488,12 +1538,13 @@ def encode_bf16_phase(dev, checkpoint: Path, images):
         if tuple(emb.shape) != (1, 64, 64, 256) or emb.dtype != torch.float32 \
                 or not bool(torch.isfinite(emb).all()):
             raise AssertionError(f"bf16 embedding {tuple(emb.shape)} {emb.dtype} or not finite")
-    launches, f32_launches = (ta.flash_attention_relpos.launches_bf16,
-                              ta.flash_attention_relpos.launches)
+    launches, wgmma_launches, f32_launches = (fn.launches_bf16, fn.launches_bf16_wgmma,
+                                              fn.launches)
     peak = torch.cuda.max_memory_allocated()
-    if launches != 4 * len(times) or f32_launches:
-        raise AssertionError(f"bf16 ViT-H: {launches} bf16 and {f32_launches} f32 "
-                             f"FLASH-RELPOS launches for {len(times)} images")
+    if launches != 4 * len(times) or wgmma_launches != launches or f32_launches:
+        raise AssertionError(f"bf16 ViT-H: {launches} bf16 ({wgmma_launches} by the wgmma "
+                             f"kernel) and {f32_launches} f32 FLASH-RELPOS launches for "
+                             f"{len(times)} images")
     kernel_emb = predictor.get_image_embedding().clone()       # of ``frame``
     rel_err = ((kernel_emb - f32_emb).norm() / f32_emb.norm()).item()
     bf16_dist = (kernel_emb - f32_emb).abs().mean().item()
@@ -1504,13 +1555,15 @@ def encode_bf16_phase(dev, checkpoint: Path, images):
         raise AssertionError("the plain route launched FLASH-RELPOS")
     route = (kernel_emb - plain_emb).abs()
     result = dict(image_ms=statistics.median(times), image_ms_all=times, images=len(times),
-                  launches=launches, launches_per_image=launches / len(times),
+                  launches=launches, launches_wgmma=wgmma_launches,
+                  launches_per_image=launches / len(times),
                   max_memory_allocated=peak, rel_err_vs_f32=rel_err,
                   mean_abs_dist_vs_f32=bf16_dist, route_mean_abs_diff=route.mean().item(),
                   route_max_abs_diff=route.max().item())
     print(f"encode_bf16 vit_h 512x512: median {result['image_ms']:.2f} ms/image over "
           f"{len(times)} images ({', '.join(f'{t:.1f}' for t in times)}); bf16 FLASH-RELPOS "
-          f"launches/image {launches / len(times):g}; max_memory_allocated="
+          f"launches/image {launches / len(times):g} (wgmma kernel {wgmma_launches} of "
+          f"{launches}); max_memory_allocated="
           f"{peak / 2**30:.2f} GiB; embedding vs f32 relative error {rel_err:.3e} (mean abs "
           f"{bf16_dist:.3e}); kernel vs plain route mean abs {route.mean().item():.3e}, "
           f"max {route.max().item():.3e}", flush=True)
@@ -2037,15 +2090,25 @@ def main() -> int:
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
                     "library_ms": rep["library_ms"]})
-    rep = next(r for r in attn_bf16_rows if r["shape"] == "vit_h")
-    kernels.append({"name": "FLASH-RELPOS-BF16", "route": "cuda",
-                    "source": "samnerf_tpu_torch/csrc/attention_relpos.cu",
-                    "replaces": "samnerf_tpu/ops/attention_pallas.py:32",
-                    "launches": encode_bf16["launches"],
-                    "max_abs_err": max(r["max_abs_err"] for r in attn_bf16_rows),
-                    "ms": rep["ms"], "plain_ms": rep["plain_ms"],
-                    "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-                    "library_ms": rep["library_ms"]})
+    # the bf16 routes: the wgmma kernel on the main path (ViT-H's global
+    # layers, its row), the mma.sync kernel on every other shape (the
+    # small encoder's 16-wide grid, the ragged row)
+    for name, shape, launches, by_path in (
+            ("FLASH-RELPOS-BF16-WGMMA", "vit_h", encode_bf16["launches_wgmma"],
+             {"encode_bf16": encode_bf16["launches_wgmma"]}),
+            ("FLASH-RELPOS-BF16", "ragged", encode_reference["bf16_launches"],
+             {"encode_reference_bf16": encode_reference["bf16_launches"],
+              "encode_bf16": encode_bf16["launches"] - encode_bf16["launches_wgmma"]})):
+        mine = [r for r in attn_bf16_rows if r["kernel"] == name]
+        rep = next(r for r in mine if r["shape"] == shape)
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "samnerf_tpu_torch/csrc/attention_relpos.cu",
+                        "replaces": "samnerf_tpu/ops/attention_pallas.py:32",
+                        "launches": launches, "launches_by_path": by_path,
+                        "max_abs_err": max(r["max_abs_err"] for r in mine),
+                        "ms": rep["ms"], "plain_ms": rep["plain_ms"],
+                        "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
+                        "library_ms": rep["library_ms"]})
     out_dir = Path("chiprun_out")
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(

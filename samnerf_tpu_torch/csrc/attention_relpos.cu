@@ -118,13 +118,15 @@ __device__ __forceinline__ void mma_group(float (*acc)[4], const uint32_t (&a)[2
     if (i < live) mma_tf32(acc[i], a[0], b[i][0]);
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+// cp.async of 16 bytes (.cg: to L2 only) or 4 bytes; valid false
+// zero-fills the destination (src-size 0).  dst and src of any element type.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(valid ? 16 : 0) : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
                "r"(valid ? 4 : 0) : "memory");
@@ -165,36 +167,47 @@ struct Tiles {
   }
 };
 
-// Rows [row0, row0 + R) of src [n, d] into dst [R][STRIDE] (DP columns),
-// by cp.async; rows past n and columns past d are zero-filled.  vec: 16
-// bytes a copy (d % 4 == 0, aligned pointers); where also d == DP the
-// rows are one contiguous run of chunks.
-template <int R, int DP, int STRIDE, int THREADS>
-__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src,
-                                           int row0, int n, int d, bool vec) {
-  if (vec && d == DP) {
-    constexpr int kChunks = DP / 4;
-    const float* run = src + (size_t)row0 * d;
-    const int live = min(R, n - row0) * kChunks;
+// Rows [row0, row0 + R) of src [n, d] (elements of type E) into dst
+// [R][STRIDE] (DP columns), rows past n and columns past d zero-filled.
+// vec 2: 16-byte cp.async (d a multiple of 16 bytes, 16-byte aligned
+// pointers), where also d == DP the rows are one contiguous run of
+// chunks; vec 1: 4-byte cp.async (d a multiple of 4 bytes, 4-byte
+// aligned), which f32 takes for any vec but 2; vec 0 (2-byte elements):
+// plain loads and stores.
+template <typename E, int R, int DP, int STRIDE, int THREADS>
+__device__ __forceinline__ void stage_rows(E* dst, const E* __restrict__ src, int row0, int n,
+                                           int d, int vec) {
+  if (vec == 2) {
+    constexpr int kE = 16 / sizeof(E), kChunks = DP / kE;
+    if (d == DP) {
+      const E* run = src + (size_t)row0 * d;
+      const int live = min(R, n - row0) * kChunks;
 #pragma unroll 4
-    for (int e = threadIdx.x; e < R * kChunks; e += THREADS) {
-      const int r = e / kChunks, c = (e - r * kChunks) * 4;
-      cp_async16(dst + r * STRIDE + c, e < live ? run + 4 * e : src, e < live);
+      for (int e = threadIdx.x; e < R * kChunks; e += THREADS) {
+        const int r = e / kChunks, c = (e - r * kChunks) * kE;
+        cp_async16(dst + r * STRIDE + c, e < live ? run + kE * e : src, e < live);
+      }
+    } else {
+#pragma unroll 4
+      for (int e = threadIdx.x; e < R * kChunks; e += THREADS) {
+        const int r = e / kChunks, c = (e - r * kChunks) * kE;
+        const bool valid = row0 + r < n && c < d;
+        cp_async16(dst + r * STRIDE + c, valid ? src + (size_t)(row0 + r) * d + c : src, valid);
+      }
     }
-  } else if (vec) {
-    constexpr int kChunks = DP / 4;
+  } else if (sizeof(E) == 4 || vec == 1) {
+    constexpr int kE = 4 / sizeof(E), kChunks = DP / kE;
 #pragma unroll 4
     for (int e = threadIdx.x; e < R * kChunks; e += THREADS) {
-      const int r = e / kChunks, c = (e - r * kChunks) * 4;
+      const int r = e / kChunks, c = (e - r * kChunks) * kE;
       const bool valid = row0 + r < n && c < d;
-      cp_async16(dst + r * STRIDE + c, valid ? src + (size_t)(row0 + r) * d + c : src, valid);
+      cp_async4(dst + r * STRIDE + c, valid ? src + (size_t)(row0 + r) * d + c : src, valid);
     }
-  } else {
-#pragma unroll 4
+  } else if constexpr (sizeof(E) < 4) {
     for (int e = threadIdx.x; e < R * DP; e += THREADS) {
       const int r = e / DP, c = e - r * DP;
       const bool valid = row0 + r < n && c < d;
-      cp_async4(dst + r * STRIDE + c, valid ? src + (size_t)(row0 + r) * d + c : src, valid);
+      dst[r * STRIDE + c] = valid ? __ldg(src + (size_t)(row0 + r) * d + c) : E(0);
     }
   }
 }
@@ -241,9 +254,9 @@ flash_relpos_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   auto stage_kv = [&](int tile) {
     if (tile < num_kt) {
-      stage_rows<kBlockK, T::kDP, T::kStride, T::kThreads>(
+      stage_rows<float, kBlockK, T::kDP, T::kStride, T::kThreads>(
           ks + (tile % T::kStages) * T::kKFloats, kb, tile * kBlockK, n, d, vec);
-      stage_rows<kBlockK, T::kDP, T::kVStride, T::kThreads>(
+      stage_rows<float, kBlockK, T::kDP, T::kVStride, T::kThreads>(
           vs + (tile % T::kStages) * T::kVFloats, vb, tile * kBlockK, n, d, vec);
     }
   };
@@ -288,7 +301,7 @@ flash_relpos_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
   const float* qa = qs + r_lo * T::kStride + 2 * t;
 
-  stage_rows<T::kBlockQ, T::kDP, T::kStride, T::kThreads>(qs, qb, i0, n, d, vec);
+  stage_rows<float, T::kBlockQ, T::kDP, T::kStride, T::kThreads>(qs, qb, i0, n, d, vec);
   stage_kv(0);                                    // q goes with the first tile's group
   cp_async_commit();
   for (int tile = 0; tile < num_kt; ++tile) {
@@ -479,7 +492,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* rel_h,
   return Args{static_cast<const float*>(q), static_cast<const float*>(k),
               static_cast<const float*>(v), static_cast<const float*>(rel_h),
               static_cast<const float*>(rel_w), static_cast<float*>(out),
-              b, n, d, kh, kw, scale, (d % 4 == 0 && aligned) ? 1 : 0};
+              b, n, d, kh, kw, scale, (d % 4 == 0 && aligned) ? 2 : 1};
 }
 
 }  // namespace
@@ -604,18 +617,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(a));
 }
 
-__device__ __forceinline__ void cp_async_bytes16(void* dst, const void* src, bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_bytes4(void* dst, const void* src, bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 4 : 0) : "memory");
-}
-
 template <int KD16>
 struct TilesB {
   static constexpr int kDP = 16 * KD16;               // padded head dim
@@ -632,41 +633,6 @@ struct TilesB {
            (spec ? 0 : (size_t)kBlockQ * kPStride * sizeof(float));
   }
 };
-
-// Rows [row0, row0 + R) of src [n, d] bf16 into dst [R][STRIDE] (DP
-// columns), rows past n and columns past d zero-filled.  vec 2: 16-byte
-// cp.async (d % 8 == 0, 16-byte aligned pointers); vec 1: 4-byte cp.async
-// (d even, 4-byte aligned); vec 0: plain loads and stores.
-template <int R, int DP, int STRIDE, int THREADS>
-__device__ __forceinline__ void stage_rows_bf16(unsigned short* dst,
-                                                const unsigned short* __restrict__ src,
-                                                int row0, int n, int d, int vec) {
-  if (vec == 2) {
-    constexpr int kChunks = DP / 8;
-#pragma unroll 4
-    for (int e = threadIdx.x; e < R * kChunks; e += THREADS) {
-      const int r = e / kChunks, c = (e - r * kChunks) * 8;
-      const bool valid = row0 + r < n && c < d;
-      cp_async_bytes16(dst + r * STRIDE + c, valid ? src + (size_t)(row0 + r) * d + c : src,
-                       valid);
-    }
-  } else if (vec == 1) {
-    constexpr int kChunks = DP / 2;
-#pragma unroll 4
-    for (int e = threadIdx.x; e < R * kChunks; e += THREADS) {
-      const int r = e / kChunks, c = (e - r * kChunks) * 2;
-      const bool valid = row0 + r < n && c < d;
-      cp_async_bytes4(dst + r * STRIDE + c, valid ? src + (size_t)(row0 + r) * d + c : src,
-                      valid);
-    }
-  } else {
-    for (int e = threadIdx.x; e < R * DP; e += THREADS) {
-      const int r = e / DP, c = e - r * DP;
-      dst[r * STRIDE + c] =
-          (row0 + r < n && c < d) ? __ldg(src + (size_t)(row0 + r) * d + c) : (unsigned short)0;
-    }
-  }
-}
 
 template <int KD16, bool SPEC>
 __global__ void __launch_bounds__(128, 2)
@@ -693,9 +659,9 @@ flash_relpos_bf16_kernel(const unsigned short* __restrict__ q,
 
   auto stage_kv = [&](int tile) {
     if (tile < num_kt) {
-      stage_rows_bf16<kBlockKB, T::kDP, T::kStride, T::kThreads>(
+      stage_rows<unsigned short, kBlockKB, T::kDP, T::kStride, T::kThreads>(
           ks + (tile % T::kStages) * T::kKVElems, k + base, tile * kBlockKB, n, d, vec);
-      stage_rows_bf16<kBlockKB, T::kDP, T::kStride, T::kThreads>(
+      stage_rows<unsigned short, kBlockKB, T::kDP, T::kStride, T::kThreads>(
           vs + (tile % T::kStages) * T::kKVElems, v + base, tile * kBlockKB, n, d, vec);
     }
   };
@@ -752,7 +718,8 @@ flash_relpos_bf16_kernel(const unsigned short* __restrict__ q,
   const int k_row = (lane >> 4) * 8 + (lane & 7), k_col = ((lane >> 3) & 1) * 8;
   const int v_row = ((lane >> 3) & 1) * 8 + (lane & 7), v_col = (lane >> 4) * 8;
 
-  stage_rows_bf16<T::kBlockQ, T::kDP, T::kStride, T::kThreads>(qs, q + base, i0, n, d, vec);
+  stage_rows<unsigned short, T::kBlockQ, T::kDP, T::kStride, T::kThreads>(qs, q + base, i0, n,
+                                                                          d, vec);
   stage_kv(0);
   cp_async_commit();
   for (int tile = 0; tile < num_kt; ++tile) {
@@ -973,5 +940,622 @@ extern "C" int flash_attention_relpos_bf16(const void* q, const void* k,
     case 6: return launch_design_bf16<6>(a, s);
     case 7: return launch_design_bf16<7>(a, s);
     default: return launch_design_bf16<8>(a, s);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// FLASH-RELPOS-BF16 on Hopper's warpgroup MMA: SAM's global layers (a
+// 64-wide token grid) on bf16 operands.
+//
+// Replaces the same Pallas kernel, samnerf_tpu/ops/attention_pallas.py
+// _attn_kernel, on bf16 q, k, v, rel_h and rel_w, and computes what
+// flash_relpos_bf16_kernel above computes: every operand upcast to f32,
+// s = (q . k) scale + rel_h[q, j / 64] + rel_w[q, j % 64] in f32, the online
+// softmax in f32 (m from -1e30), P V with P at f32 precision, out =
+// bf16(acc / max(l, 1e-30)) rounded once.
+//
+// What bounds it on an H100: operations.  4 N^2 D flops per (batch*head)
+// at the dense bf16 rate (989 TFLOP/s): 0.087 ms at SAM ViT-H's global
+// layers (N = 4096, D = 80, 16 heads); its bytes, 2 (4 N D + N (Kh + Kw)),
+// take 0.018 ms.  This design issues 6 N^2 D (P V twice, P = hi + lo):
+// 0.130 ms there.  The mma.sync kernel above reaches 13-14 % of the bound:
+// every HMMA needs its own ldmatrix, every thread computes cp.async
+// addresses, and nothing overlaps its softmax with its products.
+//
+// Design:
+// - Warp specialisation: 3 warpgroups a block, one batch*head and 128
+//   query rows.  Warpgroup 0 is the producer: one thread issues every TMA
+//   load, and the warpgroup gives its registers up (setmaxnreg 24).  The
+//   two consumer warpgroups (setmaxnreg 240) own 64 query rows each,
+//   wgmma's M.
+// - Loads by TMA, completing on mbarriers: q once a block; K and V in a
+//   ring of 4 stages of 64-key tiles (one row of the token grid), each
+//   stage with a full barrier (the producer's expect_tx, the copies' bytes)
+//   and an empty one (all 256 consumer threads arrive once both of their
+//   products that read the stage have retired).  The tensor maps are 3-d
+//   ([B, N, D], encoded on the host for every call, passed as
+//   __grid_constant__), so no box reaches into the next head.
+//   Boxes are 64 rows x 16 bf16 (32 bytes) with the 32-byte swizzle: a
+//   160-byte ViT-H row is wider than the 128-byte swizzle span, so D is cut
+//   into D16 / 16 boxes, one per 16-wide k-step, and head dims that are a
+//   multiple of 8 but not of 16 read zeros past D.  cuTensorMapEncodeTiled,
+//   a libcuda function, is reached through the CUDA runtime's entry-point
+//   lookup, so the library links no libcuda.
+// - S = q K^T by wgmma.m64n64k16 bf16 -> f32, both operands K-major in
+//   shared memory, D16 / 16 k-steps.  A product of two bf16 values is exact
+//   in f32, so S is the Pallas kernel's f32 dot up to summation order; the
+//   scale and the f32 bias follow in f32.
+// - The bias: wgmma's accumulator has mma.sync's layout within each warp
+//   (rows g and g + 8, columns 2t and 2t + 1 of each 8-column group), so
+//   each lane keeps its 2 rows x 16 columns of rel_w in f32 registers for
+//   the whole loop (s = fmaf(S, scale, rel_w)).  rel_h is one value a row
+//   on a tile (a grid row), so it is added to the row's max and to the
+//   exponent's offset instead of to every logit, and read a tile ahead.
+// - The softmax: row maxima and sums as trees over a lane's 16 values,
+//   then over the quad; exp(x) as ex2.approx(x log2(e)), the log2(e)
+//   folded into one FFMA with the offset (rel_h - m) log2(e).  Against
+//   expf (about 8 instructions) this is the design's largest saving; its
+//   relative error, about 1e-6 at logits of +-30, keeps the output within
+//   one bf16 ulp of the plain version on peaky inputs (q scaled by 8),
+//   which the card tests and chip_smoke.py hold.
+// - O += P V by wgmma.m64nNk16 with A from registers: the f32 S registers
+//   are the A fragments of two 8-key groups as they are (no shuffle).  P
+//   = hi + lo, two bf16 parts, each multiplied with the same V tile (a
+//   single bf16 P moves outputs by more than an ulp).  V's [keys, D] tile
+//   is MN-major for the B operand (the transposed form, which bf16
+//   allows); N = D16 is one n80 product at D = 80, else n64, n32 and n16
+//   pieces.
+// - Order: wgmma.fence before each group of products, commit, wait; O is
+//   rescaled by alpha only after the previous P V group retired; the
+//   compiler is kept from moving accumulator and fragment registers across
+//   the asynchronous products by empty asm fences on them.  The two
+//   consumer warpgroups run unsynchronised, so one's softmax overlaps the
+//   other's products where the scheduler lets it.
+// - Tried on the card and dropped, each no faster or slower (PERF.md):
+//   the softmax of tile t behind the P V of tile t - 1 within a
+//   warpgroup, FA3's ping-pong of the two warpgroups (named barriers), q's
+//   fragments in registers, and 128-key tiles (a second S and P in flight;
+//   slower, with no spill reported).
+//
+// Budget (ptxas, sm_90a, CUDA 12.9): 168 registers (the launch's share of
+// 384 threads; setmaxnreg moves them to the consumers), no spills; shared
+// memory (4 stages) 101 KB at D = 80, 81 KB at D = 64, 161 KB at D = 128.
+//
+// Takes Kw == 64 (a key tile is one grid row, so N % 64 == 0 and keys are
+// never ragged), D % 8 == 0 with 8 <= D <= 128, and 16-byte aligned q, k
+// and v (TMA's rule for addresses and strides); ops/attention.py
+// bf16_route sends every other bf16 call to flash_relpos_bf16_kernel.
+// Query tiles may be ragged (Kh odd): rows past N are computed on a
+// clamped copy of the last rows and not stored.
+
+#include <cuda.h>
+
+namespace {
+
+constexpr int kWgKeys = 64;                  // keys a tile: one row of the grid
+constexpr int kWgRows = 64;                  // query rows a consumer warpgroup
+constexpr int kWgConsumers = 2;
+constexpr int kWgThreads = 128 * (1 + kWgConsumers);
+constexpr int kWgStages = 4;
+constexpr int kBox = kWgKeys * 32;           // bytes of a box: 64 rows x 16 bf16
+constexpr int kSwizzleAtom = 8 * 32;         // 8 rows of 32 bytes: the B32 pattern
+
+template <int KD16>
+struct WgTiles {
+  static constexpr int kQBytes = kWgConsumers * KD16 * kBox;
+  static constexpr int kStageBytes = 2 * KD16 * kBox;        // K's boxes, then V's
+  static constexpr int kBytes = kQBytes + kWgStages * kStageBytes + 1024;   // + alignment
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box (16 columns x 64 rows of head `head`) of a [B, N, D] tensor map
+// into shared memory, completing on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row, int head) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(head)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor, 32-byte swizzle (layout type 3):
+// start address, leading and stride byte offsets, each in 16-byte units.
+// K-major tiles (q, K): rows of 32 bytes, 8-row groups kSwizzleAtom apart
+// (the stride offset; the leading one is unused).  MN-major V: the
+// leading offset steps 16 columns (the next box), the stride offset 8 keys.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (3ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of these registers across
+// an asynchronous product.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(r[i][e])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+#define WG_ACC(d, i) "+f"(d[i][0]), "+f"(d[i][1]), "+f"(d[i][2]), "+f"(d[i][3])
+
+// d (+)= A B for a 64 x 64 tile, k = 16; A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_qk(float (&d)[8][4], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC(d, 0), WG_ACC(d, 1), WG_ACC(d, 2), WG_ACC(d, 3), WG_ACC(d, 4), WG_ACC(d, 5),
+        WG_ACC(d, 6), WG_ACC(d, 7)
+      : "l"(da), "l"(db), "r"(accumulate)
+      : "memory");
+}
+
+// d += A B, A (64 x 16) from registers, B (16 x N) MN-major in shared
+// memory; d: the N / 8 column groups of the accumulator
+__device__ __forceinline__ void wgmma_pv64(float (*d)[4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_ACC(d, 0), WG_ACC(d, 1), WG_ACC(d, 2), WG_ACC(d, 3), WG_ACC(d, 4), WG_ACC(d, 5),
+        WG_ACC(d, 6), WG_ACC(d, 7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_pv32(float (*d)[4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : WG_ACC(d, 0), WG_ACC(d, 1), WG_ACC(d, 2), WG_ACC(d, 3)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_pv16(float (*d)[4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : WG_ACC(d, 0), WG_ACC(d, 1)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_pv80(float (*d)[4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : WG_ACC(d, 0), WG_ACC(d, 1), WG_ACC(d, 2), WG_ACC(d, 3), WG_ACC(d, 4), WG_ACC(d, 5),
+        WG_ACC(d, 6), WG_ACC(d, 7), WG_ACC(d, 8), WG_ACC(d, 9)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+#undef WG_ACC
+
+// o += a V for one 16-key step: V's 16 rows start at v16 (two 8-key
+// groups); its D16 columns are KD16 boxes kBox apart, one n80 product for
+// ViT-H's head (faster than n64 + n16 in turns, PERF.md), else n64, n32
+// and n16 pieces
+template <int KD16>
+__device__ __forceinline__ void wgmma_pv(float (&o)[2 * KD16][4], const uint32_t (&a)[4],
+                                         uint32_t v16) {
+  if constexpr (KD16 == 5) {
+    wgmma_pv80(&o[0], a, wg_desc(v16, kBox, kSwizzleAtom));
+  } else {
+    constexpr int kN64 = KD16 / 4, kRest = KD16 % 4;
+#pragma unroll
+    for (int p = 0; p < kN64; ++p)
+      wgmma_pv64(&o[8 * p], a, wg_desc(v16 + 4 * p * kBox, kBox, kSwizzleAtom));
+    if constexpr (kRest >= 2)
+      wgmma_pv32(&o[8 * kN64], a, wg_desc(v16 + 4 * kN64 * kBox, kBox, kSwizzleAtom));
+    if constexpr (kRest % 2 == 1) {
+      constexpr int kBoxIdx = 4 * kN64 + (kRest >= 2 ? 2 : 0);
+      wgmma_pv16(&o[2 * kBoxIdx], a, wg_desc(v16 + kBoxIdx * kBox, kBox, kSwizzleAtom));
+    }
+  }
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the SFU (ex2.approx, flushing results below 2^-126 to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// wait until every committed group of this warpgroup has retired
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// KD16: head dim in 16-wide k-steps (boxes).
+template <int KD16>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_relpos_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                               const __grid_constant__ CUtensorMap tk,
+                               const __grid_constant__ CUtensorMap tv,
+                               const unsigned short* __restrict__ rel_h,
+                               const unsigned short* __restrict__ rel_w,
+                               unsigned short* __restrict__ out, int n, int d, int kh,
+                               float scale) {
+  using T = WgTiles<KD16>;
+  constexpr int kND = 2 * KD16;                   // 8-column output groups
+  extern __shared__ unsigned char wg_smem[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kWgStages];   // q, full[], empty[]
+  // the swizzle pattern repeats every kSwizzleAtom bytes: align the tiles
+  const uint32_t q_s = (smem_u32(wg_smem) + 1023u) & ~1023u;
+  const uint32_t kv_s = q_s + T::kQBytes;
+  const uint32_t q_full = smem_u32(&bars[0]);
+  const uint32_t full0 = smem_u32(&bars[1]), empty0 = smem_u32(&bars[1 + kWgStages]);
+  const int head = blockIdx.y, i0 = blockIdx.x * (kWgConsumers * kWgRows);
+  const int num_kt = n / kWgKeys;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 128 * kWgConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // the producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, T::kQBytes);
+      for (int w = 0; w < kWgConsumers; ++w) {
+        // a warpgroup wholly past N (Kh odd) reads the last rows again
+        const int row = min(i0 + w * kWgRows, n - kWgRows);
+        for (int c = 0; c < KD16; ++c)
+          tma_load(q_s + (w * KD16 + c) * kBox, &tq, q_full, 16 * c, row, head);
+      }
+      for (int tile = 0; tile < num_kt; ++tile) {
+        const int s = tile % kWgStages;
+        mbar_wait(empty0 + 8 * s, ((tile / kWgStages) & 1) ^ 1);
+        mbar_expect_tx(full0 + 8 * s, T::kStageBytes);
+        const uint32_t ks = kv_s + s * T::kStageBytes, vs = ks + KD16 * kBox;
+        for (int c = 0; c < KD16; ++c) {
+          tma_load(ks + c * kBox, &tk, full0 + 8 * s, 16 * c, tile * kWgKeys, head);
+          tma_load(vs + c * kBox, &tv, full0 + 8 * s, 16 * c, tile * kWgKeys, head);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = wg - 1, ctid = threadIdx.x - 128 * wg;
+    const int warp = ctid >> 5, lane = ctid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_lo = i0 + cw * kWgRows + warp * 16 + g, r_hi = r_lo + 8;
+    const size_t rel_row = (size_t)head * n;
+    const unsigned short* rh_lo = rel_h + (rel_row + min(r_lo, n - 1)) * kh;
+    const unsigned short* rh_hi = rel_h + (rel_row + min(r_hi, n - 1)) * kh;
+    float relw[8][4];
+    {
+      const unsigned short* rw_lo = rel_w + (rel_row + min(r_lo, n - 1)) * kWgKeys;
+      const unsigned short* rw_hi = rel_w + (rel_row + min(r_hi, n - 1)) * kWgKeys;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int c = nt * 8 + 2 * t;
+        relw[nt][0] = bf16_bits_to_float(__ldg(rw_lo + c));
+        relw[nt][1] = bf16_bits_to_float(__ldg(rw_lo + c + 1));
+        relw[nt][2] = bf16_bits_to_float(__ldg(rw_hi + c));
+        relw[nt][3] = bf16_bits_to_float(__ldg(rw_hi + c + 1));
+      }
+    }
+    float o[kND][4], s[8][4];
+#pragma unroll
+    for (int nd = 0; nd < kND; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nd][e] = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    uint32_t ahi[4][4], alo[4][4];
+    float m_lo = kNegInf, m_hi = kNegInf, l_lo = 0.f, l_hi = 0.f;
+    float alpha_lo = 0.f, alpha_hi = 0.f;
+    // rel_h of the next tile (grid row), loaded a tile ahead
+    float bh_lo = bf16_bits_to_float(__ldg(rh_lo)), bh_hi = bf16_bits_to_float(__ldg(rh_hi));
+    const uint32_t qw = q_s + cw * KD16 * kBox;
+    auto stage_k = [&](int tile) { return kv_s + (tile % kWgStages) * T::kStageBytes; };
+
+    // S = q K^T of a tile, one commit group
+    auto issue_qk = [&](int tile) {
+      const uint32_t ks = stage_k(tile);
+      reg_fence(s);
+      wg_fence();
+#pragma unroll
+      for (int c = 0; c < KD16; ++c)
+        wgmma_qk(s, wg_desc(qw + c * kBox, 16, kSwizzleAtom),
+                 wg_desc(ks + c * kBox, 16, kSwizzleAtom), c > 0);
+      wg_commit();
+    };
+    // O += P V of a tile (P in ahi, alo), one commit group
+    auto issue_pv = [&](int tile) {
+      const uint32_t vs = stage_k(tile) + KD16 * kBox;
+      reg_fence(o);
+      reg_fence(ahi);
+      reg_fence(alo);
+      wg_fence();
+#pragma unroll
+      for (int kb = 0; kb < 4; ++kb) {
+        const uint32_t v16 = vs + kb * 2 * kSwizzleAtom;
+        wgmma_pv<KD16>(o, alo[kb], v16);
+        wgmma_pv<KD16>(o, ahi[kb], v16);
+      }
+      wg_commit();
+    };
+    // s = S scale + bias and the tile's online softmax in place: s becomes
+    // P (f32), m and l advance, alpha is the factor O still owes
+    auto softmax = [&](int tile) {
+      const float b_lo = bh_lo, b_hi = bh_hi;
+      if (tile + 1 < num_kt) {
+        bh_lo = bf16_bits_to_float(__ldg(rh_lo + tile + 1));
+        bh_hi = bf16_bits_to_float(__ldg(rh_hi + tile + 1));
+      }
+      // s = S scale + rel_w; rel_h is one value a row on the tile, so it
+      // joins the row's max and the exponent's offset
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        s[nt][0] = fmaf(s[nt][0], scale, relw[nt][0]);
+        s[nt][1] = fmaf(s[nt][1], scale, relw[nt][1]);
+        s[nt][2] = fmaf(s[nt][2], scale, relw[nt][2]);
+        s[nt][3] = fmaf(s[nt][3], scale, relw[nt][3]);
+      }
+      // row maxima as trees (short dependency chains)
+      float x_lo[8], x_hi[8];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        x_lo[nt] = fmaxf(s[nt][0], s[nt][1]);
+        x_hi[nt] = fmaxf(s[nt][2], s[nt][3]);
+      }
+#pragma unroll
+      for (int w = 4; w >= 1; w >>= 1)
+#pragma unroll
+        for (int i = 0; i < w; ++i) {
+          x_lo[i] = fmaxf(x_lo[i], x_lo[i + w]);
+          x_hi[i] = fmaxf(x_hi[i], x_hi[i + w]);
+        }
+      float mx_lo = fmaxf(m_lo, x_lo[0] + b_lo), mx_hi = fmaxf(m_hi, x_hi[0] + b_hi);
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+        mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+      }
+      alpha_lo = ex2((m_lo - mx_lo) * kLog2e);
+      alpha_hi = ex2((m_hi - mx_hi) * kLog2e);
+      m_lo = mx_lo;
+      m_hi = mx_hi;
+      // exp(s + rel_h - m) = 2^(s log2(e) + (rel_h - m) log2(e)), one FFMA
+      // and one ex2
+      const float ml_lo = (b_lo - mx_lo) * kLog2e, ml_hi = (b_hi - mx_hi) * kLog2e;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        s[nt][0] = ex2(fmaf(s[nt][0], kLog2e, ml_lo));
+        s[nt][1] = ex2(fmaf(s[nt][1], kLog2e, ml_lo));
+        s[nt][2] = ex2(fmaf(s[nt][2], kLog2e, ml_hi));
+        s[nt][3] = ex2(fmaf(s[nt][3], kLog2e, ml_hi));
+        x_lo[nt] = s[nt][0] + s[nt][1];
+        x_hi[nt] = s[nt][2] + s[nt][3];
+      }
+#pragma unroll
+      for (int w = 4; w >= 1; w >>= 1)
+#pragma unroll
+        for (int i = 0; i < w; ++i) {
+          x_lo[i] += x_lo[i + w];
+          x_hi[i] += x_hi[i + w];
+        }
+      l_lo = fmaf(alpha_lo, l_lo, x_lo[0]);   // this lane's columns; quad sum at the end
+      l_hi = fmaf(alpha_hi, l_hi, x_hi[0]);
+    };
+    auto rescale = [&]() {
+#pragma unroll
+      for (int nd = 0; nd < kND; ++nd) {
+        o[nd][0] *= alpha_lo;
+        o[nd][1] *= alpha_lo;
+        o[nd][2] *= alpha_hi;
+        o[nd][3] *= alpha_hi;
+      }
+    };
+    // P = hi + lo in bf16; the A fragment of keys 16 kb.. is the S
+    // registers of 8-key groups 2 kb and 2 kb + 1
+    auto make_p = [&]() {
+#pragma unroll
+      for (int kb = 0; kb < 4; ++kb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = s[2 * kb + (e >> 1)][2 * (e & 1)];
+          const float y = s[2 * kb + (e >> 1)][2 * (e & 1) + 1];
+          ahi[kb][e] = pack_bf16(x, y);
+          alo[kb][e] = pack_bf16(x - bf16_bits_to_float((unsigned short)(ahi[kb][e] & 0xffffu)),
+                                 y - bf16_bits_to_float((unsigned short)(ahi[kb][e] >> 16)));
+        }
+    };
+    mbar_wait(q_full, 0);
+    for (int tile = 0; tile < num_kt; ++tile) {
+      mbar_wait(full0 + 8 * (tile % kWgStages), (tile / kWgStages) & 1);
+      issue_qk(tile);
+      wg_wait_all();
+      reg_fence(s);
+      softmax(tile);
+      rescale();
+      make_p();
+      issue_pv(tile);
+      wg_wait_all();
+      reg_fence(o);
+      mbar_arrive(empty0 + 8 * (tile % kWgStages));   // both products that read it retired
+    }
+
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+      l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+    }
+    const float den_lo = fmaxf(l_lo, 1e-30f), den_hi = fmaxf(l_hi, 1e-30f);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = half ? r_hi : r_lo;
+      if (row >= n) continue;
+      const float den = half ? den_hi : den_lo;
+      unsigned short* orow = out + ((size_t)head * n + row) * d;
+#pragma unroll
+      for (int nd = 0; nd < kND; ++nd) {
+        const int col = nd * 8 + 2 * t;          // d % 8 == 0: col < d covers col + 1
+        if (col < d)
+          *reinterpret_cast<uint32_t*>(orow + col) =
+              pack_bf16(o[nd][2 * half] / den, o[nd][2 * half + 1] / den);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up once through the CUDA runtime
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// the [b, n, d] bf16 tensor at ptr as a 3-d map of 16 x 64 x 1 boxes, 32-byte
+// swizzle, zeros past its bounds
+cudaError_t encode_map(CUtensorMap* map, const void* ptr, int b, int n, int d) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)n, (cuuint64_t)b};
+  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)n * d * 2};
+  const cuuint32_t box[3] = {16, (cuuint32_t)kWgKeys, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int KD16>
+int launch_bf16_wgmma(const Args& a, cudaStream_t stream) {
+  using T = WgTiles<KD16>;
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = encode_map(&tq, a.q, a.b, a.n, a.d);
+  if (err == cudaSuccess) err = encode_map(&tk, a.k, a.b, a.n, a.d);
+  if (err == cudaSuccess) err = encode_map(&tv, a.v, a.b, a.n, a.d);
+  if (err != cudaSuccess) return (int)err;
+  auto kernel = flash_relpos_bf16_wgmma_kernel<KD16>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.n + kWgConsumers * kWgRows - 1) / (kWgConsumers * kWgRows), a.b);
+  kernel<<<grid, kWgThreads, T::kBytes, stream>>>(
+      tq, tk, tv, reinterpret_cast<const unsigned short*>(a.rel_h),
+      reinterpret_cast<const unsigned short*>(a.rel_w), reinterpret_cast<unsigned short*>(a.out),
+      a.n, a.d, a.kh, a.scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// As flash_attention_relpos_bf16, for kw == 64, d % 8 == 0 and 16-byte
+// aligned q, k, v (cudaErrorInvalidValue otherwise).  Returns a
+// cudaError_t (0 on success).
+extern "C" int flash_attention_relpos_bf16_wgmma(const void* q, const void* k,
+                                                 const void* v, const void* rel_h,
+                                                 const void* rel_w, void* out, int b,
+                                                 int n, int d, int kh, int kw,
+                                                 float scale, void* stream) {
+  const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
+  if (invalid(b, n, d, kh, kw) || kw != kWgKeys || d % 8 != 0 || (ptrs & 15u) != 0)
+    return (int)cudaErrorInvalidValue;
+  const Args a = make_args(q, k, v, rel_h, rel_w, out, b, n, d, kh, kw, scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((d + 15) / 16) {
+    case 1: return launch_bf16_wgmma<1>(a, s);
+    case 2: return launch_bf16_wgmma<2>(a, s);
+    case 3: return launch_bf16_wgmma<3>(a, s);
+    case 4: return launch_bf16_wgmma<4>(a, s);
+    case 5: return launch_bf16_wgmma<5>(a, s);
+    case 6: return launch_bf16_wgmma<6>(a, s);
+    case 7: return launch_bf16_wgmma<7>(a, s);
+    default: return launch_bf16_wgmma<8>(a, s);
   }
 }

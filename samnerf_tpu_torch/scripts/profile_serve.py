@@ -57,7 +57,8 @@ PORT_KERNELS = {"f32_encode_kernel": "F32-ENC", "pack_bf16_kernel": "BF16-PACK",
                 "f32_encode_bwd_kernel": "F32-ENC-BWD",
                 "deinterleave_grad_kernel": "GRAD-DEINTERLEAVE", "q_encode_kernel": "Q-ENC",
                 "qmlp_kernel": "FUSED-QMLP", "flash_relpos_kernel": "FLASH-RELPOS",
-                "flash_relpos_bf16_kernel": "FLASH-RELPOS-BF16"}
+                "flash_relpos_bf16_kernel": "FLASH-RELPOS-BF16",
+                "flash_relpos_bf16_wgmma_kernel": "FLASH-RELPOS-BF16-WGMMA"}
 
 
 def port_kernel_totals(rows, per: str) -> dict:

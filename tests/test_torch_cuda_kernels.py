@@ -17,6 +17,8 @@ held to equality.
 FUSED-QMLP is held at rtol 1e-4 / atol 1e-4 (the JAX kernel test's
 tolerance): its MLP sums in another order than the plain matmuls, and
 the wide heads' in 3xTF32 on the tensor cores (about 1e-6 relative).
+The bf16 FLASH-RELPOS kernels are held within one bf16 ulp of the plain
+version (``_bf16_ulp_ok``).
 FLASH-RELPOS is held at max abs error 1e-4: outputs are softmax averages
 of O(1) values, its products are 3xTF32 on the tensor cores (about f32
 precision: 7e-6 at the ViT-H layer, 4e-5 with logits to +-30 on the
@@ -390,10 +392,13 @@ def _bf16_ulp_ok(out, ref):
     # ragged tiles across kh rows; N < 64; N % 64 != 0
     (2, 9, 33, 16), (3, 4, 5, 24), (2, 10, 13, 40)])
 def test_flash_relpos_bf16_kernel_matches_plain_version(shape, inputs):
-    """The bf16 kernel (``flash_relpos_bf16_kernel``) against the plain
-    version on the same bf16 operands, within one bf16 ulp: both compute
-    in f32 and round once.  ``misaligned``: operands that start 2 bytes
-    off a 16-byte boundary (the copy falls back from 16-byte runs)."""
+    """The bf16 kernels against the plain version on the same bf16
+    operands, within one bf16 ulp: both compute in f32 and round once.
+    ``flash_relpos_bf16_kernel`` takes every case that ``bf16_route`` does
+    not send to the wgmma kernel (Kw != 64, D % 8 != 0, misaligned), and
+    those leave ``launches_bf16_wgmma`` as it was.  ``misaligned``:
+    operands that start 2 bytes off a 16-byte boundary (the copy falls back
+    from 16-byte runs)."""
     dev = _cuda()
     torch.backends.cuda.matmul.allow_tf32 = False
     b, kh, kw, d = shape
@@ -408,11 +413,49 @@ def test_flash_relpos_bf16_kernel_matches_plain_version(shape, inputs):
             return out
         q, k, v = shifted(q), shifted(k), shifted(v)
     args = (q, k, v, rel_h, rel_w, d ** -0.5)
-    before = (ta.flash_attention_relpos.launches, ta.flash_attention_relpos.launches_bf16)
-    out = ta.flash_attention_relpos(*args)
-    assert (ta.flash_attention_relpos.launches,
-            ta.flash_attention_relpos.launches_bf16) == (before[0], before[1] + 1)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    wgmma = int(ta.bf16_route(d, kw, aligned) == "wgmma")
+    out = _count_bf16_launch(args, wgmma)
+    ref = ta.reference_attention_relpos(*args)
+    torch.cuda.synchronize()
+    assert _bf16_ulp_ok(out, ref), (out.float() - ref.float()).abs().max().item()
+
+
+def _count_bf16_launch(args, wgmma):
+    """One bf16 launch, ``wgmma`` of them (0 or 1) by the wgmma kernel, no
+    f32 one; the bf16 output."""
+    fn = ta.flash_attention_relpos
+    before = (fn.launches, fn.launches_bf16, fn.launches_bf16_wgmma)
+    out = fn(*args)
+    assert (fn.launches, fn.launches_bf16, fn.launches_bf16_wgmma) == (
+        before[0], before[1] + 1, before[2] + wgmma)
     assert out.dtype == torch.bfloat16
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["normal", "peaky"])
+@pytest.mark.parametrize("shape", [
+    # ViT-H's and ViT-B's global layers, the widest head
+    (16, 64, 64, 80), (12, 64, 64, 64), (2, 16, 64, 128),
+    # Kh odd: the last 128-query tile is ragged; N = 64: one key tile
+    (3, 5, 64, 80), (2, 1, 64, 16),
+    # D not a multiple of 16 (the boxes read zeros past D); the narrowest
+    (2, 3, 64, 24), (2, 2, 64, 8)])
+def test_flash_relpos_bf16_wgmma_kernel_matches_plain_version(shape, inputs):
+    """The wgmma kernel (``flash_relpos_bf16_wgmma_kernel``: TMA ring,
+    producer warpgroup, wgmma) against the plain version on the same bf16
+    operands, within one bf16 ulp, on the shapes ``bf16_route`` sends it.
+    ``peaky``: q scaled by 8 (logits to about +-30)."""
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, kh, kw, d = shape
+    q, k, v, rel_h, rel_w = (t.bfloat16() for t in _attention_inputs(dev, b, kh, kw, d))
+    if inputs == "peaky":
+        q = q * 8.0
+    args = (q, k, v, rel_h, rel_w, d ** -0.5)
+    assert ta.bf16_route(d, kw, True) == "wgmma"
+    out = _count_bf16_launch(args, 1)
     ref = ta.reference_attention_relpos(*args)
     torch.cuda.synchronize()
     assert _bf16_ulp_ok(out, ref), (out.float() - ref.float()).abs().max().item()
