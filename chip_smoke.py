@@ -49,6 +49,18 @@ which raises on failure:
    layout passes, counted apart; losses); then one train step of a
    small model on the card against the same step on the CPU (losses and
    gradients);
+   eval: the train entry (``train.train_loop``) at full width on a
+   synthetic 512x512 scene with 2 test images, both eval cadences firing
+   and ``vis="json"`` (``metrics.json`` holds ``Eval Loss``, ``Test
+   PSNR``, ``Eval Images Metrics/psnr``; F32-ENC and F32-ENC-BWD launches
+   of the run against its steps, eval batches and eval images); ms per
+   eval image, PSNR, SSIM, peak memory and F32-ENC launches per eval
+   image against the renderer's chunking; ``scripts/eval.py``'s ``main``
+   on the run directory; LPIPS on seeded VGG16 and head weights found
+   through ``LPIPS_VGG_WEIGHTS`` / ``LPIPS_LIN_WEIGHTS`` (ms at 512x512,
+   card against CPU); the checkpoint reloaded through
+   ``TrainerConfig.load_dir`` bit for bit; a small model's eval image on
+   the card against the CPU;
 7. attn_kernel: FLASH-RELPOS against its plain version at SAM ViT-H's
    and ViT-B's global-attention shapes, a small ragged one and ViT-H's
    with a peaky softmax (q scaled by 8, logits to about +-30): max abs
@@ -72,6 +84,11 @@ which raises on failure:
    peak memory, 4 bf16 FLASH-RELPOS launches per image, all by the wgmma
    kernel, the embedding's error against the f32 encode, the kernel route
    against the plain version in its place);
+   amg: ``SamAutomaticMaskGenerator`` over the same ViT-H on a 512x512
+   frame with the JAX package's defaults, then with the IoU and stability
+   filters off and one crop layer (5 crops: ms per ``generate``, masks,
+   peak memory, 4 FLASH-RELPOS launches per ``set_image``), and a small
+   SAM's ``generate`` on the card against the CPU;
 9. preprocess: ``python -m samnerf_tpu_torch.preprocessing
    .get_image_embeddings`` (its ``main``) with that checkpoint on a
    synthetic 24-image 512x512 scene, the port's feature loader on the
@@ -175,6 +192,14 @@ ATTN_SHAPES = [("vit_h", 16, 64, 64, 80), ("vit_b", 12, 64, 64, 64),
 # +-30), where a single TF32 pass would miss TOL_ATTN
 ATTN_PEAKY = ("vit_h_peaky", 16, 64, 64, 80)
 ATTN_PEAKY_GAIN = 8.0
+# the small model of the card-against-CPU phases
+SMALL_MODEL = dict(
+    num_levels=8, max_res=256, log2_hashmap_size=14,
+    num_proposal_samples_per_ray=(16,), num_nerf_samples_per_ray=16,
+    proposal_net_args=({"hidden_dim": 16, "log2_hashmap_size": 12,
+                        "num_levels": 4, "max_res": 64},),
+    hashgrid_layers=(4, 4), hashgrid_resolutions=((16, 64), (64, 128)),
+    hashgrid_sizes=(14, 14), num_sam_samples=4, patch_size=2, hash_fn="morton")
 SMALL_ENCODER = dict(img_size=256, patch_size=16, embed_dim=160, depth=4,
                      num_heads=2, mlp_ratio=4.0, out_chans=256, window_size=7,
                      global_attn_indexes=(2,), flash_min_tokens=256)
@@ -575,13 +600,7 @@ def reference_phase(dev):
     from samnerf_tpu_torch.perception.sam.sam import Sam, init_decoder_params
     from samnerf_tpu_torch.utils.init import init_state
 
-    cfg = SAMModelConfig(
-        num_levels=8, max_res=256, log2_hashmap_size=14,
-        num_proposal_samples_per_ray=(16,), num_nerf_samples_per_ray=16,
-        proposal_net_args=({"hidden_dim": 16, "log2_hashmap_size": 12,
-                            "num_levels": 4, "max_res": 64},),
-        hashgrid_layers=(4, 4), hashgrid_resolutions=((16, 64), (64, 128)),
-        hashgrid_sizes=(14, 14), num_sam_samples=4, patch_size=2, hash_fn="morton")
+    cfg = SAMModelConfig(**SMALL_MODEL)
     from samnerf_tpu_torch.ops import hash_grid as hg
 
     report = {}
@@ -925,13 +944,7 @@ def train_reference_phase(dev):
     from samnerf_tpu_torch.models.sam_model import SAMModel, SAMModelConfig
     from samnerf_tpu_torch.utils.init import init_state
 
-    cfg = SAMModelConfig(
-        num_levels=8, max_res=256, log2_hashmap_size=14,
-        num_proposal_samples_per_ray=(16,), num_nerf_samples_per_ray=16,
-        proposal_net_args=({"hidden_dim": 16, "log2_hashmap_size": 12,
-                            "num_levels": 4, "max_res": 64},),
-        hashgrid_layers=(4, 4), hashgrid_resolutions=((16, 64), (64, 128)),
-        hashgrid_sizes=(14, 14), num_sam_samples=4, patch_size=2, hash_fn="morton")
+    cfg = SAMModelConfig(**SMALL_MODEL)
     rays = 256
     rng = np.random.default_rng(8)
     u = torch.from_numpy(rng.random(uniform_shape(rays, 2)))
@@ -1942,6 +1955,379 @@ def no_distill_train_phase(dev, scene: Path, root: Path):
     return result
 
 
+# --- eval and checkpoints ---------------------------------------------------
+
+EVAL_STEPS = 4                  # train steps of the eval phase's run
+EVAL_BATCH_EVERY, EVAL_IMAGE_EVERY = 2, 3   # eval batches at 2 and 4, an image at 3
+EVAL_IMAGES = 5                 # timed eval images after a warm-up
+LPIPS_CALLS = 5                 # timed LPIPS calls at 512x512
+# LPIPS card vs CPU: thirteen f32 3x3 convolutions (TF32 off) summed in
+# other orders; the distance is O(0.1-1)
+TOL_LPIPS = 1e-4
+# image metrics of a small model card vs CPU (psnr in dB, ssim in [-1, 1]):
+# the rendered rgb differs by ~1e-6 (TOL_FRAME's reasoning)
+TOL_METRIC = 1e-4
+
+
+def lpips_weights(root: Path):
+    """Seeded LPIPS weights in the reference layouts, written to ``root``:
+    torchvision VGG16's ``features.*`` (He-normal convolutions, 14.7 M
+    parameters) and the lpips package's ``lin{i}.model.1.weight`` heads
+    (non-negative)."""
+    from samnerf_tpu_torch.utils import metrics
+
+    rng = np.random.default_rng(4)
+    vgg, lin = {}, {}
+    for name, t in metrics.LPIPS(device="meta").state_dict().items():
+        shape = tuple(t.shape)
+        if name.startswith("lins."):
+            lin[f"lin{name.split('.')[1]}.model.1.weight"] = torch.from_numpy(
+                np.abs(rng.normal(0.0, 0.1, shape)).astype(np.float32))
+        elif name.endswith("bias"):
+            vgg[name] = torch.from_numpy(rng.normal(0.0, 0.01, shape).astype(np.float32))
+        else:
+            vgg[name] = torch.from_numpy(rng.normal(
+                0.0, math.sqrt(2.0 / np.prod(shape[1:])), shape).astype(np.float32))
+    paths = (root / "vgg16-397923af.pth", root / "lpips_vgg.pth")
+    torch.save(vgg, paths[0])
+    torch.save(lin, paths[1])
+    return tuple(str(p) for p in paths)
+
+
+def eval_images_per_call(pipe, h: int, w: int) -> int:
+    """F32-ENC launches of one eval image: each chunk of the renderer runs
+    the proposal networks once and the nerfacto field once."""
+    return math.ceil(h * w / pipe.renderer.chunk) * (
+        pipe.model.config.num_proposal_iterations + 1)
+
+
+def eval_phase(dev, size: int = 512):
+    """The train entry at full ``samnerf_distill`` width on a synthetic
+    ``size``^2 scene (24 train and 2 test images) with both eval cadences
+    firing and ``vis="json"``: the events in ``metrics.json``, F32-ENC and
+    F32-ENC-BWD launches of the run against its steps, eval batches and
+    eval images; ms per eval image, PSNR, SSIM, peak memory and F32-ENC
+    launches per eval image against the renderer's chunking;
+    ``scripts/eval.py``'s ``main`` on the run directory; LPIPS from seeded
+    weights found through ``LPIPS_VGG_WEIGHTS`` / ``LPIPS_LIN_WEIGHTS``
+    (ms at ``size``^2, card against CPU); the checkpoint reloaded through
+    ``TrainerConfig.load_dir``, bit for bit; a small model's eval image
+    metrics on the card against the CPU."""
+    import os
+
+    from samnerf_tpu_torch import train as train_entry
+    from samnerf_tpu_torch.data.datamanager import DataManager
+    from samnerf_tpu_torch.engine.trainer import CKPT_DIR, Trainer
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    from samnerf_tpu_torch.scripts import eval as eval_script
+    from samnerf_tpu_torch.utils import metrics, writer
+    from samnerf_tpu_torch.utils.eval_utils import find_latest_checkpoint
+    from samnerf_tpu_torch.utils.synthetic import write_scene
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        scene = write_scene(root / "scene", num_train=24, num_test=2, h=size, w=size,
+                            with_features=True, feature_long_side=64)
+        run = root / "run"
+        config = train_entry.parse([
+            "samnerf_distill", "--data", str(scene), "--vis", "json",
+            "--trainer.max-num-iterations", str(EVAL_STEPS),
+            "--trainer.steps-per-eval-batch", str(EVAL_BATCH_EVERY),
+            "--trainer.steps-per-eval-image", str(EVAL_IMAGE_EVERY),
+            "--trainer.steps-per-save", "100000", "--trainer.output-dir", str(run)])
+        train_entry.save_config(config)
+        _reset_encode_launches(hg)
+        t0 = time.perf_counter()
+        trainer = train_entry.train_loop(config, device=dev)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        run_launches = {"F32-ENC": hg.parity_hash_encode.launches,
+                        "F32-ENC-BWD": hg.parity_hash_encode_bwd.launches,
+                        "Q-ENC": hg.parity_hash_encode_q8.launches}
+        pipe = trainer._pipeline()
+        per_image = eval_images_per_call(pipe, size, size)
+        n_batches, n_images = EVAL_STEPS // EVAL_BATCH_EVERY, EVAL_STEPS // EVAL_IMAGE_EVERY
+        want = {"F32-ENC": F32_PER_STEP * EVAL_STEPS + 2 * n_batches + per_image * n_images,
+                "F32-ENC-BWD": F32_PER_STEP * EVAL_STEPS, "Q-ENC": 0}
+        if run_launches != want:
+            raise AssertionError(f"the train entry with eval launched {run_launches}, not "
+                                 f"{want} ({EVAL_STEPS} steps, {n_batches} eval batches, "
+                                 f"{n_images} eval images of {per_image})")
+        rows = json.loads((run / "metrics.json").read_text())
+        steps = {}
+        for r in rows:
+            steps.setdefault(r["name"], []).append(r["step"])
+        events = {k: steps.get(k) for k in ("Eval Loss", "Test PSNR",
+                                            "Eval Images Metrics/psnr")}
+        if events != {"Eval Loss": [2, 4], "Test PSNR": [3],
+                      "Eval Images Metrics/psnr": [3]} or not all(
+                          math.isfinite(r["value"]) for r in rows):
+            raise AssertionError(f"metrics.json events {events}")
+        print(f"eval: train entry {EVAL_STEPS} steps with eval batches every "
+              f"{EVAL_BATCH_EVERY} and an eval image every {EVAL_IMAGE_EVERY} in "
+              f"{run_s:.1f} s; launches {run_launches}; metrics.json rows {len(rows)}, "
+              f"events {events}", flush=True)
+
+        # eval images: ms, metrics, peak memory, F32-ENC launches per image
+        pipe.get_eval_image_metrics_and_images(0)                # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_encode_launches(hg)
+        times, per = [], []
+        for i in range(EVAL_IMAGES):
+            t0 = time.perf_counter()
+            m, images = pipe.get_eval_image_metrics_and_images(i % 2)
+            times.append((time.perf_counter() - t0) * 1e3)
+            per.append(m)
+        image_launches = _encode_launches(hg)
+        image_peak = torch.cuda.max_memory_allocated()
+        if image_launches != {"F32-ENC": per_image * EVAL_IMAGES, "Q-ENC": 0,
+                              "FUSED-QMLP": 0}:
+            raise AssertionError(f"{image_launches} for {EVAL_IMAGES} eval images, not "
+                                 f"{per_image} F32-ENC per image")
+        if images["img"].shape != (size, 2 * size, 3) or not all(
+                math.isfinite(m["psnr"]) and -1.0 <= m["ssim"] <= 1.0 for m in per):
+            raise AssertionError(f"eval images: {per}, img {images['img'].shape}")
+
+        # scripts/eval.py on the run directory
+        out = root / "eval.json"
+        t0 = time.perf_counter()
+        if eval_script.main([str(run), "--output", str(out)], device=dev) != 0:
+            raise AssertionError("scripts/eval.py failed")
+        script_s = time.perf_counter() - t0
+        result_json = json.loads(out.read_text())
+        ref = {k: float(np.mean([per[i][k] for i in (0, 1)])) for k in ("psnr", "ssim")}
+        got = result_json["results"]
+        if got["num_images"] != 2 or any(
+                abs(got[k] - ref[k]) > TOL_METRIC * max(abs(ref[k]), 1.0) for k in ref):
+            raise AssertionError(f"scripts/eval.py gave {got}, the pipeline {ref}")
+
+        # LPIPS from seeded weights, found through the environment
+        vgg_path, lin_path = lpips_weights(root)
+        saved = {k: os.environ.get(k) for k in ("LPIPS_VGG_WEIGHTS", "LPIPS_LIN_WEIGHTS")}
+        os.environ["LPIPS_VGG_WEIGHTS"], os.environ["LPIPS_LIN_WEIGHTS"] = vgg_path, lin_path
+        try:
+            pipe._lpips = None
+            m_lpips, _ = pipe.get_eval_image_metrics_and_images(0)
+            model = metrics.load_lpips_params(device=dev)
+            model_cpu = metrics.load_lpips_params(device="cpu")
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        if "lpips" not in m_lpips or model is None:
+            raise AssertionError(f"no lpips metric with weights present: {m_lpips}")
+        gt = torch.as_tensor(pipe.datamanager.eval_images[0], device=dev).float() / 255.0
+        pred = pipe.renderer.render_image_device(pipe._eval_cameras, 0, size, size,
+                                                 minimal=True)["rgb"]
+        torch.cuda.reset_peak_memory_stats()
+        lpips_ms = _time_ms(lambda: metrics.lpips(pred, gt, model), LPIPS_CALLS)
+        lpips_peak = torch.cuda.max_memory_allocated()
+        lpips_card = metrics.lpips(pred, gt, model).item()
+        lpips_cpu = metrics.lpips(pred.cpu(), gt.cpu(), model_cpu).item()
+        lpips_err = abs(lpips_card - lpips_cpu) / max(abs(lpips_cpu), 1e-12)
+        if not math.isfinite(lpips_card) or lpips_err > TOL_LPIPS:
+            raise AssertionError(f"LPIPS card {lpips_card} vs CPU {lpips_cpu}")
+
+        # the checkpoint back through TrainerConfig.load_dir, bit for bit
+        ckpt_path = find_latest_checkpoint(run / CKPT_DIR)
+        saved_ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+        reloaded = Trainer(config.model, dataclasses.replace(config.trainer,
+                                                             load_dir=run / CKPT_DIR),
+                           config.optimizers, DataManager(config.datamanager), device=dev)
+        bits = _same_bits(saved_ckpt["model"], reloaded.model.state_dict()) and \
+            _same_bits(saved_ckpt["model"], trainer.model.state_dict()) and \
+            _same_bits(saved_ckpt["optimizer"]["optimizer"]["state"],
+                       reloaded.optimizer.state_dict()["optimizer"]["state"]) and \
+            _same_bits(saved_ckpt["optimizer"]["optimizer"]["state"],
+                       trainer.optimizer.state_dict()["optimizer"]["state"])
+        if not bits or reloaded.state.step != EVAL_STEPS or \
+                reloaded.optimizer.count != trainer.optimizer.count:
+            raise AssertionError(f"the checkpoint {ckpt_path.name} did not round-trip")
+        del trainer, reloaded, pipe
+        writer.reset()
+    reference = eval_reference_phase(dev)
+    result = dict(run_s=run_s, run_launches=run_launches, metrics_json_rows=len(rows),
+                  events=events, image_ms=statistics.median(times), image_ms_all=times,
+                  images=EVAL_IMAGES, launches=image_launches,
+                  launches_per_image=image_launches["F32-ENC"] / EVAL_IMAGES,
+                  max_memory_allocated=image_peak, metrics=per, eval_script=result_json,
+                  eval_script_s=script_s, lpips_ms=lpips_ms, lpips_max_memory_allocated=
+                  lpips_peak, lpips=lpips_card, lpips_cpu=lpips_cpu, lpips_rel_err=lpips_err,
+                  lpips_metric=m_lpips["lpips"], checkpoint=ckpt_path.name,
+                  checkpoint_bits_equal=bits, reference=reference)
+    print(f"eval: {size}x{size} eval image median {result['image_ms']:.2f} ms over "
+          f"{EVAL_IMAGES} ({', '.join(f'{t:.1f}' for t in times)}); psnr "
+          f"{per[0]['psnr']:.3f} / {per[1]['psnr']:.3f}, ssim {per[0]['ssim']:.4f} / "
+          f"{per[1]['ssim']:.4f}; F32-ENC launches/image {result['launches_per_image']:g}; "
+          f"max_memory_allocated={image_peak / 2**30:.2f} GiB; scripts/eval.py "
+          f"{script_s:.1f} s: {result_json['results']}; LPIPS {size}x{size} {lpips_ms:.2f} "
+          f"ms ({lpips_peak / 2**30:.2f} GiB), card {lpips_card:.6f} vs CPU "
+          f"{lpips_cpu:.6f} (rel {lpips_err:.2e}, tol {TOL_LPIPS:g}); checkpoint "
+          f"{ckpt_path.name} reloaded through load_dir bit for bit", flush=True)
+    return result
+
+
+def _same_bits(a, b) -> bool:
+    """Nested dicts of tensors equal bit for bit (keys and values)."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _same_bits(a[k], b[k]) for k in a)
+    return torch.equal(a.cpu(), b.cpu())
+
+
+def eval_reference_phase(dev):
+    """A small model's eval image (64x64 synthetic scene, seeded weights,
+    tables at +-0.5) through ``VanillaPipeline`` on the card against the
+    CPU: rgb within TOL_FRAME, psnr and ssim within TOL_METRIC, F32-ENC
+    launches per image on the card."""
+    from samnerf_tpu_torch.data.datamanager import DataManager, DataManagerConfig
+    from samnerf_tpu_torch.data.dataparser import DataparserConfig
+    from samnerf_tpu_torch.engine.pipeline import VanillaPipeline
+    from samnerf_tpu_torch.models.sam_model import SAMModel, SAMModelConfig
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    from samnerf_tpu_torch.utils.init import init_state
+    from samnerf_tpu_torch.utils.synthetic import write_scene
+
+    cfg = SAMModelConfig(**SMALL_MODEL, far_plane=6.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = write_scene(Path(tmp) / "scene", num_train=2, num_test=2, h=64, w=64)
+        dm = DataManager(DataManagerConfig(
+            dataparser=DataparserConfig(data=scene, train_val_json_split=True)))
+        outs = {}
+        for d in (dev, "cpu"):
+            model = SAMModel(cfg, device=d)
+            model.load_state_dict(init_state(SAMModel(cfg, device="meta"),
+                                             torch.Generator().manual_seed(1), device=d,
+                                             table_scale=0.5))
+            pipe = VanillaPipeline(model, dm)
+            _reset_encode_launches(hg)
+            m, images = pipe.get_eval_image_metrics_and_images(1)
+            outs[str(d)] = (m, images, hg.parity_hash_encode.launches,
+                            eval_images_per_call(pipe, 64, 64))
+    (ma, ia, launches, per_image), (mb, ib, _, _) = outs[str(dev)], outs["cpu"]
+    rgb_err = float(np.abs(ia["img"] - ib["img"]).max())
+    metric_err = {k: abs(ma[k] - mb[k]) / max(abs(mb[k]), 1e-12) for k in ("psnr", "ssim")}
+    report = dict(rgb_max_abs_err=rgb_err, metric_rel_err=metric_err, card=ma, cpu=mb,
+                  launches=launches)
+    print(f"eval reference: 64x64 eval image card vs CPU rgb max abs err {rgb_err:.2e} "
+          f"(tol {TOL_FRAME:g}), psnr {ma['psnr']:.4f} / {mb['psnr']:.4f}, ssim "
+          f"{ma['ssim']:.5f} / {mb['ssim']:.5f} (rel err {metric_err}); F32-ENC launches "
+          f"{launches}", flush=True)
+    if rgb_err > TOL_FRAME or max(metric_err.values()) > TOL_METRIC \
+            or launches != per_image:
+        raise AssertionError(f"card and CPU eval images disagree: {report}")
+    return report
+
+
+# --- the automatic mask generator -------------------------------------------
+
+AMG_FULL = dict(pred_iou_thresh=0.0, stability_score_thresh=0.0, crop_n_layers=1)
+AMG_CROPS = 5                   # the image and the four crops of layer 1
+
+
+def amg_phase(dev, checkpoint: Path, images):
+    """``SamAutomaticMaskGenerator(SamPredictor(build_sam_vit_h(ckpt)))`` on
+    a 512x512 frame: with the JAX package's defaults (ms, masks; random
+    weights may give few or none), then with the IoU and stability filters
+    off and one crop layer, so that every step runs over 5 crops (ms per
+    ``generate``, masks, peak memory, 4 FLASH-RELPOS launches per
+    ``set_image``); then a small SAM's ``generate`` on the card against the
+    CPU."""
+    from samnerf_tpu_torch.ops import attention as ta
+    from samnerf_tpu_torch.perception.sam.automatic_mask_generator import \
+        SamAutomaticMaskGenerator
+    from samnerf_tpu_torch.perception.sam.build_sam import build_sam_vit_h
+    from samnerf_tpu_torch.perception.sam.predictor import SamPredictor
+
+    predictor = SamPredictor(build_sam_vit_h(str(checkpoint), device=dev))
+    image = images[1]
+    runs = {}
+    for tag, kw, crops in (("defaults", {}, 1), ("full", AMG_FULL, AMG_CROPS)):
+        gen = SamAutomaticMaskGenerator(predictor, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ta.flash_attention_relpos.launches = 0
+        t0 = time.perf_counter()
+        anns = gen.generate(image)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = ta.flash_attention_relpos.launches
+        peak = torch.cuda.max_memory_allocated()
+        if launches != 4 * crops:
+            raise AssertionError(f"AMG {tag}: FLASH-RELPOS launched {launches} times over "
+                                 f"{crops} crops, not 4 per set_image")
+        if not all(a["segmentation"].shape == image.shape[:2]
+                   and a["area"] == int(a["segmentation"].sum())
+                   and math.isfinite(a["predicted_iou"]) for a in anns):
+            raise AssertionError(f"AMG {tag}: a malformed annotation")
+        runs[tag] = dict(ms=ms, masks=len(anns), launches=launches,
+                         max_memory_allocated=peak,
+                         crops=sorted({tuple(a["crop_box"]) for a in anns}))
+        print(f"amg {tag} ({kw or 'JAX defaults'}): generate {ms:.1f} ms, {len(anns)} masks "
+              f"from {len(runs[tag]['crops'])} of {crops} crops, FLASH-RELPOS launches "
+              f"{launches}; max_memory_allocated={peak / 2**30:.2f} GiB", flush=True)
+    if runs["full"]["masks"] == 0:
+        raise AssertionError("AMG with the filters off kept no mask")
+    del predictor
+    reference = amg_reference_phase(dev)
+    return dict(runs=runs, launches=runs["full"]["launches"], reference=reference)
+
+
+def small_sam(device):
+    """A seeded SAM with ``SMALL_ENCODER`` (its global layer over
+    FLASH-RELPOS on the card)."""
+    from samnerf_tpu_torch.perception.sam.image_encoder import ImageEncoderViT
+    from samnerf_tpu_torch.perception.sam.sam import Sam
+    from samnerf_tpu_torch.utils.init import init_state
+
+    meta = Sam(image_encoder=ImageEncoderViT(**SMALL_ENCODER, device="meta"), device="meta")
+    sam = Sam(image_encoder=ImageEncoderViT(**SMALL_ENCODER, device=device), device=device)
+    sam.load_state_dict(init_state(meta, torch.Generator().manual_seed(0), device))
+    return sam
+
+
+def amg_reference_phase(dev):
+    """A small SAM's ``generate`` (96x128 frame, 16 points, filters and box
+    NMS off, so every mask stays) on the card against the CPU: the same
+    number of annotations, each card mask at IoU >= 0.99 with the CPU mask
+    of its prompt point that matches it best, boxes within 1 px."""
+    from samnerf_tpu_torch.ops import attention as ta
+    from samnerf_tpu_torch.perception.sam.automatic_mask_generator import \
+        SamAutomaticMaskGenerator
+    from samnerf_tpu_torch.perception.sam.predictor import SamPredictor
+
+    image = np.random.default_rng(2).integers(0, 256, (96, 128, 3), dtype=np.uint8)
+    kw = dict(points_per_side=4, points_per_batch=6, pred_iou_thresh=0.0,
+              stability_score_thresh=0.0, box_nms_thresh=1.0)
+    ta.flash_attention_relpos.launches = 0
+    card = SamAutomaticMaskGenerator(SamPredictor(small_sam(dev)), **kw).generate(image)
+    launches = ta.flash_attention_relpos.launches
+    cpu = SamAutomaticMaskGenerator(SamPredictor(small_sam("cpu")), **kw).generate(image)
+    worst_iou, worst_box = 1.0, 0.0
+    for a in card:
+        same_point = [b for b in cpu if np.allclose(b["point_coords"], a["point_coords"])]
+        ious = [np.logical_and(a["segmentation"], b["segmentation"]).sum()
+                / max(np.logical_or(a["segmentation"], b["segmentation"]).sum(), 1)
+                for b in same_point] or [0.0]
+        best = int(np.argmax(ious))
+        worst_iou = min(worst_iou, float(ious[best]))
+        if same_point:
+            worst_box = max(worst_box, float(np.abs(np.subtract(
+                a["bbox"], same_point[best]["bbox"])).max()))
+    report = dict(masks_card=len(card), masks_cpu=len(cpu), worst_iou=worst_iou,
+                  worst_box_px=worst_box, launches=launches)
+    print(f"amg reference: small SAM 96x128 card vs CPU {len(card)} / {len(cpu)} masks, "
+          f"worst matched IoU {worst_iou:.5f}, worst box diff {worst_box:g} px; "
+          f"FLASH-RELPOS launches {launches}", flush=True)
+    if len(card) != len(cpu) or len(card) != 16 * 3 or worst_iou < 0.99 \
+            or worst_box > 1.0 or launches != 1:
+        raise AssertionError(f"card and CPU masks disagree: {report}")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1978,6 +2364,7 @@ def main() -> int:
     serve_bf16 = serve_bf16_phase(dev)
     train = train_phase(dev)
     train_reference = train_reference_phase(dev)
+    evaluation = eval_phase(dev)
     attn_rows = attn_kernel_phase(dev)
     attn_bf16_rows = attn_bf16_kernel_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1987,6 +2374,7 @@ def main() -> int:
         frames = _scene_images(write_scene(root / "frames", num_train=ENCODE_IMAGES,
                                            num_test=0, h=512, w=512))
         encode = encode_phase(dev, checkpoint, frames)
+        amg = amg_phase(dev, checkpoint, frames)
         encode_reference = encode_reference_phase(dev)
         encode_bf16 = encode_bf16_phase(dev, checkpoint, frames)
         preprocess = preprocess_phase(dev, checkpoint, root)
@@ -2015,6 +2403,7 @@ def main() -> int:
                         "launches_by_path": {"serve_f32": serve["f32"]["launches"][name],
                                              "serve_int8": serve["int8"]["launches"][name],
                                              "train": train["launches"][name],
+                                             "eval": evaluation["launches"][name],
                                              "view_no_distill": sum(
                                                  r["launches"][name]
                                                  for r in no_distill_view["views"]),
@@ -2072,6 +2461,7 @@ def main() -> int:
                     "launches": train["launches"]["F32-ENC-BWD"],
                     "launches_by_path": {
                         "train": train["launches"]["F32-ENC-BWD"],
+                        "train_eval": evaluation["run_launches"]["F32-ENC-BWD"],
                         "train_no_distill": no_distill_train["launches"]["F32-ENC-BWD"]},
                     "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
@@ -2083,7 +2473,7 @@ def main() -> int:
                     "source": "samnerf_tpu_torch/csrc/attention_relpos.cu",
                     "replaces": "samnerf_tpu/ops/attention_pallas.py:32",
                     "launches": encode["launches"],
-                    "launches_by_path": {"encode": encode["launches"],
+                    "launches_by_path": {"encode": encode["launches"], "amg": amg["launches"],
                                          "preprocess": preprocess["launches"],
                                          "view_no_distill": no_distill_view["launches"]},
                     "max_abs_err": max(r["max_abs_err"] for r in attn_rows),
@@ -2124,7 +2514,7 @@ def main() -> int:
          "no_distill_view": no_distill_view, "no_distill_train": no_distill_train,
          "serve_bf16": serve_bf16, "attn_bf16_kernel_rows": attn_bf16_rows,
          "encode_bf16": encode_bf16, "train_bf16": train_bf16,
-         "kernels": kernels}, indent=1))
+         "eval": evaluation, "amg": amg, "kernels": kernels}, indent=1))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ Counterpart of ``samnerf_tpu/configs/methods.py``, same hyperparameters.
 Left out: ``sort_points`` and ``use_remat`` (they only schedule the TPU;
 the sort is exact and order-restoring, and activations fit the card), the
 trainer's ``steps_per_dispatch`` scan fusion (a Python loop takes its
-place), and the viewer and event-writer settings (``vis``, ports), which
-wait with the viewer.
+place), and the viewer's ports, which wait with the viewer.  ``vis``
+selects the event writers as in the JAX package; its ``viewer`` token
+trains headless until the viewer is ported.
 """
 from __future__ import annotations
 
@@ -27,6 +28,9 @@ class MethodConfig:
     model: SAMModelConfig
     datamanager: DataManagerConfig
     optimizers: Dict[str, OptimizerGroupConfig]
+    vis: str = "viewer"
+    """Any of "viewer", "tensorboard", "wandb", "json", combinable
+    ("tensorboard+json")."""
 
 
 def _no_distill(data: Path = Path("/data/mipnerf360/room/")) -> MethodConfig:

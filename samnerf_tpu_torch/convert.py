@@ -23,6 +23,9 @@ Both packages then compute the same function.
   ``pos_embed`` ([1, 64, 64, C] in both) and ``rel_pos_*`` and
   everything else pass through unchanged.
 
+``train_checkpoint_from_jax`` bridges a whole training checkpoint of the
+JAX ``Trainer`` (parameters, optax Adam moments, step) to the port's.
+
 ``clip_state_dict_from_jax`` and ``clipseg_state_dict_from_jax`` go the
 other way for CLIP and ClipSeg, whose modules keep the reference names:
 JAX params -> the reference layouts (OpenAI CLIP's state dict,
@@ -74,7 +77,9 @@ def _unwrap(tree: Mapping[str, Any]) -> Mapping[str, Any]:
 
 
 def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax param tree (nested dicts of numpy arrays) -> flat state dict."""
+    """Flax param tree (nested dicts of numpy arrays) -> flat state dict.
+    Leaves that are tuples (optax's ``MaskedNode``, which stands in a
+    group's moment tree for another group's parameter) are skipped."""
     tree = _unwrap(tree)
     state: Dict[str, torch.Tensor] = {}
 
@@ -82,12 +87,67 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         for key, value in node.items():
             if isinstance(value, Mapping):
                 walk(value, path + (key,))
-            else:
+            elif not isinstance(value, tuple):
                 name, t = _leaf(path, key, value)
                 state[".".join([_module_name(p) for p in path] + [name])] = t
 
     walk(tree, ())
     return state
+
+
+def _adam_states(node):
+    """Every optax ``ScaleByAdamState`` (a named tuple with ``count``,
+    ``mu`` and ``nu``) in an optimizer state, depth first."""
+    fields = getattr(node, "_fields", None)
+    if fields is not None and {"count", "mu", "nu"} <= set(fields):
+        yield node
+    elif isinstance(node, Mapping):
+        for value in node.values():
+            yield from _adam_states(value)
+    elif isinstance(node, (list, tuple)):
+        for value in node:
+            yield from _adam_states(value)
+
+
+def train_checkpoint_from_jax(ckpt: Mapping[str, Any]) -> Dict[str, Any]:
+    """A JAX ``Trainer`` checkpoint -> the port's ``Trainer`` checkpoint.
+
+    ``ckpt`` is what ``samnerf_tpu/engine/trainer.py:save_checkpoint``
+    writes (``params``, ``opt_state``, ``step``, ``steps_since_update``),
+    restored with the JAX trainer's own template and fetched with
+    ``jax.device_get``, so ``opt_state`` keeps optax's containers: an
+    ``optax.multi_transform`` holds one masked Adam state per group (with
+    ``MaskedNode`` for the other groups' leaves, and an empty state before
+    it where the group clips).  Returns ``{"model", "optimizer", "step",
+    "steps_since_update"}`` as ``Trainer.save_checkpoint`` writes it:
+    parameters through :func:`params_from_jax`; each group's ``mu`` and
+    ``nu`` through the same renames and layout changes as torch Adam's
+    ``exp_avg`` and ``exp_avg_sq``; optax's update ``count`` as
+    ``GroupedAdam.count`` and each parameter's ``step``."""
+    model = params_from_jax(ckpt["params"])
+    moments: Dict[str, Dict[str, torch.Tensor]] = {}
+    counts = set()
+    for adam in _adam_states(ckpt["opt_state"]):
+        count = int(np.asarray(adam.count))
+        counts.add(count)
+        mu, nu = params_from_jax(adam.mu), params_from_jax(adam.nu)
+        for name, m in mu.items():
+            if name in moments:
+                raise ValueError(f"{name} has moments in two optimizer groups")
+            moments[name] = {"step": torch.tensor(float(count)), "exp_avg": m,
+                             "exp_avg_sq": nu[name]}
+    if not moments:
+        raise ValueError("no Adam state in opt_state: restore the checkpoint with the "
+                         "JAX Trainer's template (Trainer.load_checkpoint)")
+    if len(counts) != 1:
+        raise ValueError(f"optimizer groups at different update counts: {sorted(counts)}")
+    if set(moments) != set(model):
+        raise ValueError("Adam moments and parameters differ: "
+                         f"{sorted(set(moments) ^ set(model))}")
+    return {"model": model,
+            "optimizer": {"optimizer": {"state": moments}, "count": counts.pop()},
+            "step": int(ckpt["step"]),
+            "steps_since_update": int(ckpt["steps_since_update"])}
 
 
 # --- ClipSeg: the inverses of the JAX package's ``convert_clip_state_dict``

@@ -6,13 +6,17 @@ images are decoded once into one uint8 numpy array and each feature set
 into one float32 array; they stay in host memory until
 :func:`samnerf_tpu_torch.data.device_data.build_device_dataset` moves the
 whole set to the card, where the trainer samples every batch.  The JAX
-package's host batch path (``next_train``) is not ported: no entry point
-of the port draws a batch on the host.
+package's host batch path for training (``next_train``) is not ported.
+The eval split is sampled on the host, as the JAX package samples it:
+:meth:`DataManager.next_eval` draws from a ``numpy.random.Generator``
+seeded like the JAX DataManager's, with the same arithmetic
+(:func:`sample_uniform`), so one seed gives the JAX package's indices.
 """
 from __future__ import annotations
 
 import dataclasses
 from pathlib import Path
+from typing import Dict
 
 import numpy as np
 from PIL import Image
@@ -53,9 +57,18 @@ def _load_image(path: Path, downscale: int) -> np.ndarray:
     return np.asarray(img, dtype=np.uint8)
 
 
+def sample_uniform(rng: np.random.Generator, batch_size: int, num_images: int,
+                   height: int, width: int) -> np.ndarray:
+    """[B, 3] int32 (img, row, col), uniform over the split's pixels."""
+    u = rng.random((batch_size, 3))
+    idx = np.floor(u * np.array([num_images, height, width])).astype(np.int32)
+    return idx
+
+
 class DataManager:
-    def __init__(self, config: DataManagerConfig):
+    def __init__(self, config: DataManagerConfig, seed: int = 0):
         self.config = config
+        self.rng = np.random.default_rng(seed)
         dp = config.dataparser
         self.train_outputs = parse_nerfstudio_data(dp, split="train")
         self.eval_outputs = parse_nerfstudio_data(dp, split="test")
@@ -89,3 +102,24 @@ class DataManager:
     @property
     def num_train_images(self) -> int:
         return self.images.shape[0]
+
+    def next_eval(self, step: int) -> Dict[str, np.ndarray]:
+        """One eval ray batch on the host: indices [B, 3] and rgb targets
+        [B, 3] in [0, 1] (the eval split has no feature maps)."""
+        h, w = self.eval_cameras.height, self.eval_cameras.width
+        indices = sample_uniform(self.rng, self.config.eval_num_rays_per_batch,
+                                 self.eval_images.shape[0], h, w)
+        image = (self.eval_images[indices[:, 0], indices[:, 1], indices[:, 2]]
+                 .astype(np.float32) / 255.0)
+        return {"indices": indices, "image": image}
+
+    def eval_image_batch(self, image_index: int) -> Dict[str, np.ndarray]:
+        """Every pixel of one eval image: indices [H*W, 3] row-major and the
+        image [H, W, 3] in [0, 1]."""
+        h, w = self.eval_cameras.height, self.eval_cameras.width
+        yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+        coords = np.stack([yy, xx], -1).reshape(-1, 2).astype(np.int32)
+        indices = np.concatenate(
+            [np.full((coords.shape[0], 1), image_index, np.int32), coords], -1)
+        return {"indices": indices,
+                "image": self.eval_images[image_index].astype(np.float32) / 255.0}

@@ -14,6 +14,12 @@ each with its own schedule and optional clip, matching
   :meth:`GroupedAdam.step` therefore refuses a None gradient: the train
   step's graph reaches every parameter, with zeros where the proposal
   gate is shut.
+- The state dict keys each parameter's moments by its state-dict name
+  (``{"optimizer": {"state": {name: {"step", "exp_avg", "exp_avg_sq"}}},
+  "count": n}``), not by torch's position index, so a state made
+  elsewhere (:func:`samnerf_tpu_torch.convert.train_checkpoint_from_jax`)
+  loads without knowing the parameter order; the groups' hyperparameters
+  come from their configs.
 """
 from __future__ import annotations
 
@@ -71,8 +77,10 @@ class GroupedAdam:
 
     def __init__(self, groups: Dict[str, OptimizerGroupConfig], model: nn.Module):
         params: Dict[str, list] = {}
+        names: Dict[str, list] = {}
         for name, p in model.named_parameters():
             params.setdefault(group_of(name), []).append(p)
+            names.setdefault(group_of(name), []).append(name)
         missing = set(params) - set(groups)
         if missing:
             raise ValueError(f"no optimizer group configured for params: {missing}")
@@ -83,6 +91,8 @@ class GroupedAdam:
             [{"params": params[g], "name": g, "lr": self.schedules[g](0),
               "eps": groups[g].eps} for g in self.names],
             betas=(0.9, 0.999))
+        # torch's state index of each parameter: groups in order, then params
+        self.param_names = [n for g in self.names for n in names[g]]
         self.count = 0
 
     def step(self) -> None:
@@ -106,10 +116,23 @@ class GroupedAdam:
         self.optimizer.zero_grad(set_to_none=True)
 
     def state_dict(self) -> dict:
-        return {"optimizer": self.optimizer.state_dict(), "count": self.count}
+        state = self.optimizer.state_dict()["state"]
+        return {"optimizer": {"state": {self.param_names[i]: s for i, s in state.items()}},
+                "count": self.count}
 
     def load_state_dict(self, state: dict) -> None:
-        self.optimizer.load_state_dict(state["optimizer"])
+        index = {name: i for i, name in enumerate(self.param_names)}
+        moments = state["optimizer"]["state"]
+        unknown = set(moments) - set(index)
+        if unknown:
+            raise KeyError(f"optimizer state for unknown parameters: {sorted(unknown)}")
+        current = self.optimizer.state_dict()
+        # moments go to each parameter's device; steps stay on the CPU, as
+        # torch keeps them when Adam is not capturable
+        current["state"] = {index[name]: {k: (v.cpu() if k == "step" else v)
+                                          for k, v in s.items()}
+                            for name, s in moments.items()}
+        self.optimizer.load_state_dict(current)
         self.count = state["count"]
 
 

@@ -7,8 +7,12 @@ the ``lax.scan`` that fuses ``steps_per_dispatch`` steps into one
 dispatch (CUDA graphs would be its counterpart, in a later change).  The
 whole training set lives on the card and each batch is sampled there
 (:mod:`samnerf_tpu_torch.data.device_data`).  The in-training eval
-cadence and its pipeline, the event writers and the viewer wait; a
-config that would make the eval cadence fire is refused.
+cadence runs through :class:`samnerf_tpu_torch.engine.pipeline.VanillaPipeline`
+(an eval-batch loss every ``steps_per_eval_batch`` steps, an eval image
+with PSNR / SSIM every ``steps_per_eval_image``), and every step's times
+and, at the ``log_every`` cadence, its losses go to the event writers of
+:mod:`samnerf_tpu_torch.utils.writer`.  The host reads a device value
+only when a cadence fires.
 """
 from __future__ import annotations
 
@@ -23,10 +27,16 @@ from samnerf_tpu_torch.core.cameras import Cameras, generate_rays
 from samnerf_tpu_torch.data.device_data import build_device_dataset, sample_batch
 from samnerf_tpu_torch.engine.optimizers import (GroupedAdam, OptimizerGroupConfig,
                                                  build_optimizer)
+from samnerf_tpu_torch.engine.pipeline import VanillaPipeline
 from samnerf_tpu_torch.models.sam_model import (SAMModel, SAMModelConfig,
                                                 get_loss_dict, init_params,
                                                 proposal_anneal_value,
                                                 proposal_grad_gate)
+from samnerf_tpu_torch.utils import writer
+
+
+CKPT_DIR = "samnerf_tpu_torch_ckpts"
+"""The checkpoints' directory under a run's output directory."""
 
 
 @dataclasses.dataclass
@@ -101,11 +111,6 @@ class Trainer:
     def __init__(self, model_cfg: SAMModelConfig, trainer_cfg: TrainerConfig,
                  optimizer_groups: Dict[str, OptimizerGroupConfig], datamanager,
                  device="cuda"):
-        for name in ("steps_per_eval_batch", "steps_per_eval_image"):
-            every = getattr(trainer_cfg, name)
-            if 0 < every <= trainer_cfg.max_num_iterations:
-                raise ValueError(f"{name}={every} would run the in-training eval, "
-                                 "which is not ported yet")
         self.model_cfg = model_cfg
         self.cfg = trainer_cfg
         self.datamanager = datamanager
@@ -124,6 +129,7 @@ class Trainer:
         self._train_step = make_train_step(self.model, model_cfg, self.optimizer,
                                            self.get_features)
         self.metrics_history = []
+        self._pipeline_obj = None
         if trainer_cfg.load_dir is not None:
             ckpts = sorted(Path(trainer_cfg.load_dir).glob("step-*.pt"))
             if not ckpts:
@@ -140,6 +146,45 @@ class Trainer:
                              (dm.cameras.height, dm.cameras.width))
         return self._train_step(self.state, self.cameras, batch, self.generator)
 
+    @staticmethod
+    def _crossed(step: int, n: int, every: int) -> bool:
+        """Did the steps [step - n, step) cross a multiple of ``every``?
+        (The port advances one step at a time: ``n`` = 1.)"""
+        return every > 0 and (step // every) != ((step - n) // every)
+
+    def _pipeline(self):
+        """The eval pipeline, built on first use over the trainer's model
+        and training set on the device."""
+        if self._pipeline_obj is None:
+            self._pipeline_obj = VanillaPipeline(self.model, self.datamanager,
+                                                 self.get_features, self.device_data)
+        return self._pipeline_obj
+
+    def eval_iteration(self, step: int, n: int = 1):
+        """The in-training eval: the eval-batch losses every
+        ``steps_per_eval_batch`` steps, a whole eval image with PSNR / SSIM
+        every ``steps_per_eval_image``; both go to the event writers."""
+        if self.datamanager.eval_images is None:
+            return
+        if self._crossed(step, n, self.cfg.steps_per_eval_batch):
+            losses = self._pipeline().get_eval_loss_dict(step, self.generator)
+            losses = {k: float(v) for k, v in losses.items()}
+            writer.put_scalar("Eval Loss", sum(losses.values()), step)
+            writer.put_dict("Eval Loss Dict", losses, step)
+        if self._crossed(step, n, self.cfg.steps_per_eval_image):
+            n_eval = self.datamanager.eval_images.shape[0]
+            idx = (step // self.cfg.steps_per_eval_image) % max(n_eval, 1)
+            t0 = time.time()
+            metrics, images = self._pipeline().get_eval_image_metrics_and_images(idx)
+            dt = max(time.time() - t0, 1e-9)
+            writer.put_scalar(writer.EventName.CURR_TEST_PSNR, metrics["psnr"], step)
+            writer.put_time(writer.EventName.TEST_RAYS_PER_SEC, metrics["num_rays"] / dt,
+                            step, avg_over_steps=False)
+            writer.put_dict("Eval Images Metrics", metrics, step)
+            for name, img in images.items():
+                writer.put_image(f"Eval Images/{name}", img, step)
+            self.metrics_history.append((step, dict(metrics)))
+
     def train(self, step_callback: Optional[Callable[[int, Dict], None]] = None):
         num_rays = self.datamanager.config.train_num_rays_per_batch
         step = self.state.step
@@ -148,6 +193,7 @@ class Trainer:
         last_saved = None
         # rays/s counts from the end of the first step, so start-up is not in it
         warm_step = warm_t = None
+        t_prev = time.time()
         while step < self.cfg.max_num_iterations:
             metrics = self.train_iteration(step)
             step += 1
@@ -155,14 +201,23 @@ class Trainer:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 warm_step, warm_t = step, time.time()
-            if step % max(self.cfg.log_every, 1) == 0 or \
+            now = time.time()
+            writer.put_time(writer.EventName.ITER_TRAIN_TIME, now - t_prev, step)
+            if step > warm_step:
+                writer.put_time(writer.EventName.RAYS_PER_SEC,
+                                num_rays * (step - warm_step) / max(now - warm_t, 1e-9), step)
+            t_prev = now
+            if self._crossed(step, 1, max(self.cfg.log_every, 1)) or \
                     step >= self.cfg.max_num_iterations:
                 m = {k: float(v) for k, v in metrics.items()}
                 rate = (f"rays/s={num_rays * (step - warm_step) / max(time.time() - warm_t, 1e-9):,.0f}"
                         if step > warm_step else "rays/s=warmup")
                 print(f"step {step}: loss={m['total_loss']:.5f} "
                       f"psnr={m['psnr']:.2f} {rate}", flush=True)
+                writer.put_dict("Train Loss Dict", m, step)
                 self.metrics_history.append((step, m))
+            self.eval_iteration(step)
+            writer.write_out_storage()
             if step_callback is not None:
                 step_callback(step, metrics)
             if step >= next_save:
@@ -171,11 +226,12 @@ class Trainer:
                 next_save += every
         if last_saved != step and self.cfg.save_final:
             self.save_checkpoint(step)
+        writer.finalize()
         return self.state
 
     # --- checkpoints: model state, optimizer state, loop step -----------
     def _ckpt_dir(self) -> Path:
-        d = Path(self.cfg.output_dir) / "samnerf_tpu_torch_ckpts"
+        d = Path(self.cfg.output_dir) / CKPT_DIR
         d.mkdir(parents=True, exist_ok=True)
         return d
 

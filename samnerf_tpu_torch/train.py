@@ -8,8 +8,11 @@ Counterpart of ``samnerf_tpu/train.py`` for the ``samnerf_distill`` and
         [--model.compute-dtype bfloat16] ...
 
 Writes ``config.json`` and ``samnerf_tpu_torch_ckpts/step-*.pt`` under
-``<output_dir>/<scene>/<method>/<timestamp>/``.  The viewer, the event
-writers and the model zoo wait.
+``<output_dir>/<scene>/<method>/<timestamp>/``, and the event writers that
+``--vis`` names there (``json``: ``metrics.json``; ``tensorboard``;
+``wandb``).  The viewer and the model zoo wait: a ``viewer`` token trains
+headless with a notice.  Evaluate a run with
+``python -m samnerf_tpu_torch.scripts.eval <run_dir>``.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import torch
 
 from samnerf_tpu_torch.configs.cli import apply_overrides
 from samnerf_tpu_torch.configs.methods import MethodConfig, method_configs
+from samnerf_tpu_torch.utils import writer
 
 
 def parse(argv: List[str]) -> MethodConfig:
@@ -69,11 +73,26 @@ def train_loop(config: MethodConfig, device="cuda", step_callback=None):
     seed = config.trainer.seed
     random.seed(seed)
     np.random.seed(seed)
-    dm = DataManager(config.datamanager)
+    dm = DataManager(config.datamanager, seed=seed)
     trainer = Trainer(config.model, config.trainer, config.optimizers, dm,
                       device=device)
+    _setup_vis(config)
     trainer.train(step_callback=step_callback)
     return trainer
+
+
+def _setup_vis(config: MethodConfig) -> None:
+    """One event writer per ``tensorboard``, ``wandb`` or ``json`` token
+    of ``config.vis``, writing under the run's output directory (the
+    previous run's writers are flushed and dropped first)."""
+    writer.reset()
+    vis = (config.vis or "").lower()
+    out = Path(config.trainer.output_dir)
+    for kind in ("tensorboard", "wandb", "json"):
+        if kind in vis:
+            writer.setup_event_writer(kind, out)
+    if "viewer" in vis:
+        print("viewer unavailable (not ported yet); training continues headless")
 
 
 def main(argv=None) -> int:

@@ -109,10 +109,17 @@ def test_checkpoint_round_trips_and_resumes(trained):
 
 
 def test_trainer_refuses_an_eval_cadence_it_cannot_run(scene, tmp_path):
-    with pytest.raises(ValueError):
-        Trainer(TINY, dataclasses.replace(_trainer_config(tmp_path),
-                                          steps_per_eval_batch=20),
-                GROUPS, DataManager(_dm_config(scene)), device="cpu")
+    """The eval cadence is ported, so the trainer refuses none: a cadence
+    that fires builds and runs (``tests/test_torch_trainer_eval.py`` holds
+    it against the JAX trainer)."""
+    from samnerf_tpu_torch.utils import writer
+    tr = Trainer(TINY, dataclasses.replace(_trainer_config(tmp_path),
+                                           steps_per_eval_batch=20),
+                 GROUPS, DataManager(_dm_config(scene)), device="cpu")
+    writer.write_out_storage()
+    tr.eval_iteration(20)
+    assert [e["name"] for e in writer._EVENTS] == ["Eval Loss", "Eval Loss Dict"]
+    writer.write_out_storage()
 
 
 def _jax_dm(scene):
