@@ -32,6 +32,25 @@ which raises on failure:
    view: ``SamNerfRenderer.render_view`` at 512x512, full width, int8
    fused, with a ``SamPredictor``: a click locked in 3D in view 0, three
    further cameras that re-project it, and one view with a crop box;
+   cull: ``SamNerfRenderer.bake_occupancy`` (res 96, sub 2) on the f32 and
+   the baked int8 fused full-width model (ms, occupied fraction, 54
+   F32-ENC or Q-ENC launches); an all-occupied grid gives the un-culled
+   ``serve_frame_fn`` frame and grids bit for bit with f32, int8 and int8
+   fused tables; a ball grid (radius 0.25 about the centre) installed
+   through ``occupancy_from_cells``: the share of proposal and nerf
+   samples culled per 512x512 frame, frame ms with and without it, and
+   with ``serve_transmittance_eps`` 1e-2 too (peak memory); a small
+   model's culled 64x64 frame (grid and early termination) on the card
+   against the CPU;
+   viewer: ``ViewerState`` at a free port over that int8 fused model with
+   a seeded ``SamPredictor``, driven by a ``websockets`` client in this
+   process: the scene box, a static camera (high, 512x512), three moving
+   ones (low_move through the "move" renderer at the dynamic resolution),
+   a static one (low_static, then high), "Output Render" masked_rgb, SAM
+   and a click locked in 3D, a crop, a frame with the ball grid, and a
+   camera path saved through the client's message and rendered by
+   ``scripts/render.py --traj filename``; each JPEG against its
+   ``render_view`` output, message -> image ms per render state;
    serve_bf16: the same model with ``compute_dtype=torch.bfloat16``:
    512x512 frames with f32 tables, baked int8, and baked int8 with
    ``serve_fuse_mlp`` (Q-ENC and the unfused bf16 MLPs: FUSED-QMLP
@@ -116,6 +135,10 @@ which raises on failure:
    --model.compute-dtype bfloat16`` through the train entry at full width
    on the train phase's synthetic scene (ms per step, rays/s, peak
    memory, 6 F32-ENC and 6 F32-ENC-BWD launches per step);
+   viewer_train: the train entry with ``--vis viewer`` on free ports, 35
+   full-width steps on that scene, a client that gets frames while it
+   trains (step ms beside the train phase's; 6 + 6 launches a step and 22
+   F32-ENC a 512x512 viewer frame);
 15. one ``{"kernels": [...]}`` line (the f32 kernels' layout passes
    listed under ``passes`` beside the kernel that needs them; the bf16
    FLASH-RELPOS routes as ``FLASH-RELPOS-BF16-WGMMA`` and
@@ -133,6 +156,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import importlib.util
 import json
 import math
 import statistics
@@ -1005,6 +1029,7 @@ def train_bf16_phase(dev, root: Path):
                         with_features=True, feature_long_side=64)
     config = train_entry.parse([
         "samnerf_distill", "--data", str(scene), "--model.compute-dtype", "bfloat16",
+        "--vis", "none",
         "--trainer.max-num-iterations", str(BF16_TRAIN_WARMUP + BF16_TRAIN_STEPS),
         "--trainer.save-final", "false", "--trainer.output-dir", str(root / "out_bf16")])
     if config.model.compute_dtype != torch.bfloat16:
@@ -2328,6 +2353,642 @@ def amg_reference_phase(dev):
     return report
 
 
+# --- serve culling and the viewer ------------------------------------------
+
+CULL_RES = 96                   # the presets' occ_res
+CULL_BALL = 0.25                # the synthetic grid: cells in this ball about the centre
+CULL_EPS = 1e-2                 # serve_transmittance_eps of the early-termination run
+CULL_FRAMES = 3                 # timed frames per culling setting, after a warm-up
+# early termination card vs CPU: an eps that every transmittance estimate
+# of the small frame keeps ETA_MARGIN from (f32 sums of 64 weights in two
+# orders differ by < 4e-6), so no sample flips on rounding
+ETA_CANDIDATES = (1e-2, 1.2e-2, 8e-3, 1.5e-2, 6e-3)
+ETA_MARGIN = 1e-5
+# a JPEG (quality 70) of a frame against the frame: mean abs error in [0, 1]
+TOL_JPEG = 0.03
+CULL_REF_FOCAL = 100.0          # the small culled frame's focal length (64 px wide)
+VIEWER_TIMEOUT = 60.0           # seconds for any expected viewer message
+VIEWER_MOVES = 3
+
+
+def _ball_cells(radius=CULL_BALL):
+    """[CULL_RES]^3 0/1 cells inside a ball of ``radius`` about the unit
+    cube's centre."""
+    c = (np.arange(CULL_RES) + 0.5) / CULL_RES - 0.5
+    x, y, z = np.meshgrid(c, c, c, indexing="ij")
+    return (x * x + y * y + z * z <= radius * radius).astype(np.float32)
+
+
+@contextlib.contextmanager
+def _culled_share():
+    """Count the culled and all samples of the fields' ``_cull`` by level
+    (the nerf field passes ``live_in``, the proposal networks do not); it
+    reads a count back per call, so no frame inside is timed."""
+    from samnerf_tpu_torch.fields import nerfacto_field
+
+    counts, cull = {"proposal": [0, 0], "nerf": [0, 0]}, nerfacto_field._cull
+
+    def counted(p, occ, occ_res, *live_in):
+        flat, live = cull(p, occ, occ_res, *live_in)
+        c = counts["nerf" if live_in else "proposal"]
+        c[1] += p.shape[0] * p.shape[1]
+        if live is not None:
+            c[0] += int((live == 0).sum())
+        return flat, live
+
+    nerfacto_field._cull = counted
+    try:
+        yield counts
+    finally:
+        nerfacto_field._cull = cull
+
+
+def _share(counts):
+    """The culled share of samples per level."""
+    return {k: c[0] / max(c[1], 1) for k, c in counts.items()}
+
+
+def _serve_ms(serve, cams, click, frames=CULL_FRAMES):
+    serve(cams, 0, click)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(frames):
+        t0 = time.perf_counter()
+        serve(cams, 0, click)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), times
+
+
+def cull_phase(dev, cfg=None, size=VIEW_SIZE):
+    """Serve culling at full ``samnerf_distill`` width (seed 0, morton):
+    ``SamNerfRenderer.bake_occupancy`` at res 96, sub 2 on the f32 and the
+    baked int8 fused model (ms, occupied fraction, launches); an
+    all-occupied grid gives the un-culled ``serve_frame_fn`` frame and grids
+    bit for bit with f32, int8 and int8 fused tables; a synthetic grid (a
+    ball of radius 0.25 about the centre) on the int8 fused model: the
+    share of proposal and nerf samples culled per frame, frame ms with and
+    without it, launches; the same with ``serve_transmittance_eps`` 1e-2
+    (and peak memory); a small model's culled 64x64 frame (grid and early
+    termination) on the card against the CPU.  ``cfg`` replaces the full
+    width (a rehearsal's small model).  Returns (the report, the int8
+    fused model for the viewer phase)."""
+    from samnerf_tpu_torch.engine.eval_render import occupancy_from_cells
+    from samnerf_tpu_torch.engine.render_pipeline import SamNerfRenderer
+    from samnerf_tpu_torch.models.sam_model import SAMModel, SAMModelConfig, init_params
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    from samnerf_tpu_torch.ops.occupancy import pack_serve_occupancy
+    from samnerf_tpu_torch.perception.sam.sam import Sam, init_decoder_params
+
+    H = W = size
+    cfg = cfg or SAMModelConfig(hash_fn="morton")
+    gen = torch.Generator().manual_seed(0)
+    params = init_params(cfg, gen, device=dev)
+    sam = Sam(device=dev)
+    sam.load_state_dict(init_decoder_params(gen, device=dev))
+    cams = _cameras(dev, 0, H, W, 400.0 * size / VIEW_SIZE)
+    click = (size / 2.0, size / 2.0)
+    full = pack_serve_occupancy(np.ones((CULL_RES,) * 3, np.float32), device=dev)
+    report = {"bake": {}, "identity": {}}
+    fused = None
+    for tag, q8, fuse in SERVE_RUNS:
+        model = SAMModel(dataclasses.replace(cfg, hash_q8_serve=q8, serve_fuse_mlp=fuse),
+                         device=dev)
+        model.load_state_dict(params)
+        snr = SamNerfRenderer(model, serve_preset="static")
+        if q8:
+            snr.bake_serve_tables()
+        outs = []
+        for occ in (None, full):
+            snr.occ = occ
+            img, mask = snr.serve_frame_fn(sam, H, W)(cams, 0, click, return_mask=True)
+            grids = snr.renderer.render_image_device(cams, 0, W, H, ("sam", "clipseg"),
+                                                     minimal=True, occ=occ)
+            outs.append({"img": img, "mask": mask, **grids})
+        same = {k: bool(torch.equal(outs[0][k], outs[1][k])) for k in outs[0]}
+        report["identity"][tag] = same
+        print(f"cull {tag}: an all-occupied {CULL_RES}^3 grid gives the un-culled frame "
+              f"bit for bit: {same}", flush=True)
+        if not all(same.values()):
+            raise AssertionError(f"an all-occupied grid changed the {tag} frame: {same}")
+        del outs
+        if tag in ("f32", "int8_fused"):
+            torch.cuda.synchronize()
+            _reset_encode_launches(hg)
+            t0 = time.perf_counter()
+            frac = snr.bake_occupancy(res=CULL_RES, sub=2)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = _encode_launches(hg)
+            report["bake"][tag] = dict(ms=ms, occupied=frac, launches=launches,
+                                       points=CULL_RES ** 3 * 8)
+            print(f"cull bake {tag}: {CULL_RES}^3 cells x 8 = {CULL_RES ** 3 * 8:,} points in "
+                  f"2^17-point chunks, {ms:.1f} ms, occupied {frac:.4f}, launches "
+                  + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
+            if frac <= 0.0 or launches[{"f32": "F32-ENC", "int8_fused": "Q-ENC"}[tag]] != \
+                    -(-CULL_RES ** 3 * 8 // (1 << 17)):
+                raise AssertionError(f"the {tag} bake: occupied {frac}, launches {launches}")
+        if tag == "int8_fused":
+            fused = snr
+        else:
+            del snr, model
+    snr = fused
+    ball = _ball_cells()
+    grid, frac = occupancy_from_cells(ball, 0.5, device=dev)
+    report["ball_occupied"] = frac
+    runs = {}
+    for name, occ, eps in (("none", None, 0.0), ("grid", grid, 0.0), ("eps", None, CULL_EPS),
+                           ("grid_eps", grid, CULL_EPS)):
+        snr.occ = occ
+        snr.renderer.model.config = dataclasses.replace(snr.renderer.model.config,
+                                                        serve_transmittance_eps=eps)
+        serve = snr.serve_frame_fn(sam, H, W)
+        with _culled_share() as counts:
+            img = serve(cams, 0, click)
+        if img.dtype != torch.uint8 or tuple(img.shape) != (H, W, 3):
+            raise AssertionError(f"culled frame {img.dtype} {tuple(img.shape)}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_encode_launches(hg)
+        ms, times = _serve_ms(serve, cams, click)
+        launches = _encode_launches(hg)
+        runs[name] = dict(frame_ms=ms, frame_ms_all=times, culled=_share(counts),
+                          launches=launches,
+                          launches_per_frame={k: v / (CULL_FRAMES + 1)
+                                              for k, v in launches.items()},
+                          max_memory_allocated=torch.cuda.max_memory_allocated())
+        print(f"cull {name:8s} {H}x{W} int8 fused: median frame {ms:.2f} ms "
+              f"({', '.join(f'{t:.1f}' for t in times)}); culled "
+              + ", ".join(f"{k} {100 * v:.1f} %" for k, v in runs[name]["culled"].items())
+              + "; launches/frame " + " ".join(f"{k}={v:g}" for k, v in
+                                              runs[name]["launches_per_frame"].items())
+              + f"; max_memory_allocated={runs[name]['max_memory_allocated'] / 2**30:.2f} GiB",
+              flush=True)
+        if launches["FUSED-QMLP"] != FUSED_PER_FRAME * (CULL_FRAMES + 1) or launches["Q-ENC"] \
+                or launches["F32-ENC"]:
+            raise AssertionError(f"culled frames ({name}) launched {launches}")
+    snr.occ = None
+    snr.renderer.model.config = dataclasses.replace(snr.renderer.model.config,
+                                                    serve_transmittance_eps=0.0)
+    # at 512^2 a tile of the stream is 8 depths of a 32x32-pixel block: the
+    # far proposal samples outside the ball form whole dead tiles
+    if size == VIEW_SIZE and not runs["grid"]["culled"]["proposal"] > 0.0:
+        raise AssertionError(f"the ball grid culled no proposal sample: {runs}")
+    print(f"cull: the ball grid occupies {frac:.4f} of the cells", flush=True)
+    report.update(runs=runs, small=cull_reference_phase(dev, ball))
+    return report, snr.renderer.model
+
+
+def cull_reference_phase(dev, cells):
+    """A 64x64 frame of the small model (int8 fused, the presets' sample
+    counts, 2048-ray chunks: the block-major stream, a narrow view so that
+    whole tiles fall outside the ball) with the ball grid and early
+    termination, on the card against the CPU."""
+    from samnerf_tpu_torch.engine.render_pipeline import SamNerfRenderer
+    from samnerf_tpu_torch.models.sam_model import SAMModel, SAMModelConfig
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    from samnerf_tpu_torch.ops.occupancy import pack_serve_occupancy
+    from samnerf_tpu_torch.ops.samplers import proposal_sampling
+    from samnerf_tpu_torch.core.cameras import generate_rays
+    from samnerf_tpu_torch.engine.eval_render import _blocked_coords
+    from samnerf_tpu_torch.utils.init import init_state
+
+    # the presets' sample counts: a tile is then 8 of 64 proposal depths
+    cfg = SAMModelConfig(**{**SMALL_MODEL, "num_proposal_samples_per_ray": (64,),
+                            "num_nerf_samples_per_ray": 32},
+                         hash_q8_serve=True, serve_fuse_mlp=True, occ_res=cells.shape[0])
+    models = {}
+    for d in ("cpu", dev):
+        model = SAMModel(cfg, device=d)
+        model.load_state_dict(init_state(SAMModel(cfg, device="meta"),
+                                         torch.Generator().manual_seed(1), device=d,
+                                         table_scale=0.5))
+        models[str(d)] = model
+    grid_cpu = pack_serve_occupancy(cells, device="cpu")
+    # the eps: every CPU transmittance estimate keeps ETA_MARGIN from it
+    cams = _cameras("cpu", 1, 64, 64, CULL_REF_FOCAL)
+    coords, _ = _blocked_coords(64, 64, 2048)
+    t_est = []
+    with torch.no_grad():
+        m = models["cpu"]
+        for c in torch.as_tensor(coords):
+            rb = generate_rays(cams, torch.zeros(c.shape[0], dtype=torch.long), c)
+            rb = rb.with_near_far(cfg.near_plane, cfg.far_plane)
+            samples, wl, sl = proposal_sampling(
+                rb, [lambda x, p=p: p(x, grid_cpu) for p in m.proposal_networks],
+                cfg.num_proposal_samples_per_ray, cfg.num_nerf_samples_per_ray)
+            pend = sl[-1].ends[..., 0]
+            tmid = (samples.starts + samples.ends)[..., 0] * 0.5
+            t_est.append(1.0 - torch.where(pend[:, None, :] <= tmid[:, :, None],
+                                           wl[-1][..., 0][:, None, :], 0.0).sum(-1))
+    t_est = torch.cat(t_est)
+    eps = next(e for e in ETA_CANDIDATES if (t_est - e).abs().min() > ETA_MARGIN)
+    outs = {}
+    _reset_encode_launches(hg)
+    for d, model in models.items():
+        model.config = dataclasses.replace(model.config, serve_transmittance_eps=eps)
+        renderer = SamNerfRenderer(model, chunk=2048, serve_preset="static").renderer
+        with _culled_share() as counts:
+            grids = renderer.render_image_device(_cameras(d, 1, 64, 64, CULL_REF_FOCAL), 0,
+                                                 64, 64, ("sam", "clipseg"),
+                                                 occ=pack_serve_occupancy(cells, device=d))
+        outs[d] = ({k: v.cpu() for k, v in grids.items()}, _share(counts))
+    launches = _encode_launches(hg)
+    (a, share_a), (b, share_b) = outs[str(dev)], outs["cpu"]
+    errs = {k: (a[k] - b[k]).abs().max().item() for k in ("rgb", "depth", "sam", "clipseg")}
+    report = dict(eps=eps, grid_max_abs_err={k: v for k, v in errs.items() if k != "depth"},
+                  depth_max_abs_err=errs["depth"], culled_card=share_a, culled_cpu=share_b,
+                  launches=launches)
+    print(f"cull reference: 64x64 small int8 fused frame, ball grid and eps {eps:g}, card vs "
+          f"CPU grid max abs err {report['grid_max_abs_err']} (depth {errs['depth']:.2e}); "
+          f"culled card {share_a}, CPU {share_b}; launches {launches}", flush=True)
+    if max(report["grid_max_abs_err"].values()) > TOL_FRAME or share_a != share_b \
+            or launches["FUSED-QMLP"] == 0:
+        raise AssertionError(f"card and CPU culled frames disagree: {report}")
+    if not share_a["proposal"] > 0.0:
+        raise AssertionError(f"the small culled frame culled {share_a}")
+    return report
+
+
+def _look_at(eye) -> np.ndarray:
+    """[4, 4] camera-to-world at ``eye`` looking at the origin."""
+    from samnerf_tpu_torch.utils.synthetic import look_at_c2w
+    return look_at_c2w(np.asarray(eye, np.float64), np.zeros(3))
+
+
+def _viewer_camera(m, eye, xs=(), moving=False, fov=65.0):
+    """A client camera message whose pose looks at the origin from ``eye``
+    (the client's column-major matrix; ``camera_from_message``'s two row
+    swaps cancel, so the matrix's top rows are the c2w)."""
+    mat = _look_at(eye)
+    return m.CameraMessage(aspect=1.0, render_aspect=1.0, fov=fov,
+                           matrix=tuple(mat.T.reshape(-1).tolist()),
+                           camera_type="perspective", is_moving=moving,
+                           timestamp=int(time.time() * 1e3), xs=list(xs), ys=[0.55] * len(xs))
+
+
+def _jpeg(msg):
+    import base64
+    import io
+
+    from PIL import Image
+    return np.asarray(Image.open(io.BytesIO(base64.b64decode(msg.base64_data))),
+                      np.float32) / 255.0
+
+
+def _require_viewer_packages():
+    missing = [n for n in ("websockets", "msgpack") if importlib.util.find_spec(n) is None]
+    if missing:
+        raise ModuleNotFoundError(f"the viewer phases need {', '.join(missing)}")
+
+
+def viewer_phase(dev, model, root: Path, size=VIEW_SIZE):
+    """The viewer over the cull phase's full-width int8 fused model
+    (``static`` preset, a seeded ``SamPredictor``, ``max_res`` 512) on
+    127.0.0.1 at a free port, driven by a ``websockets`` client in this
+    process: the replayed scene box; a static camera (high, 512 on the
+    long side), three moving ones (low_move at the dynamic resolution
+    through the "move" renderer) and a static one (low_static, then the
+    self-triggered high); "Output Render" = masked_rgb, SAM on and a click
+    (one locked 3D point, the mask in the frame); a crop; a frame with the
+    ball grid installed; a camera path saved through the client message
+    and rendered by ``scripts/render.py --traj filename`` on a run
+    directory saved from the model.  Each JPEG is held against the
+    output ``render_view`` gave for it (mean abs error <= TOL_JPEG).
+    ``stop()`` joins both threads."""
+    _require_viewer_packages()
+    import websockets.sync.client as wsc
+
+    from samnerf_tpu_torch.engine.eval_render import occupancy_from_cells
+    from samnerf_tpu_torch.engine.render_pipeline import SamNerfRenderer
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    from samnerf_tpu_torch.perception.sam.predictor import SamPredictor
+    from samnerf_tpu_torch.perception.sam.sam import Sam, init_decoder_params
+    from samnerf_tpu_torch.viewer import messages as m
+    from samnerf_tpu_torch.viewer.viewer_state import ViewerState
+
+    sam = Sam(device=dev)
+    sam.load_state_dict(init_decoder_params(torch.Generator().manual_seed(2), device=dev))
+    snr = SamNerfRenderer(model, sam_predictor=SamPredictor(sam), serve_preset="static")
+    state = ViewerState(snr, host="127.0.0.1", port=0, max_res=size)
+    state.camera_paths_dir = str(root / "camera_paths")
+    renders = []
+    render_view = state.render_view
+
+    def recorded(intrin, c2w, h, w, **kw):
+        before = _encode_launches(hg)
+        rm = state.render_machine
+        row = dict(state=rm.state, preset=kw.get("preset"), h=h, w=w,
+                   expected=rm._calculate_image_res(1.0), output=state.output_render)
+        t0 = time.perf_counter()
+        out = render_view(intrin, c2w, h, w, **kw)
+        row["render_ms"] = (time.perf_counter() - t0) * 1e3
+        row["points"] = 0 if kw.get("points") is None else len(kw["points"])
+        row["launches"] = {k: v - before[k] for k, v in _encode_launches(hg).items()}
+        key = state.output_render if state.output_render in out else "rgb"
+        row["image"] = np.clip(out[key], 0, 1)
+        row["mask_fraction"] = float((np.abs(out["masked_rgb"] - out["rgb"]).max(-1)
+                                      > 1e-6).mean())
+        renders.append(row)
+        return out
+
+    state.render_view = recorded
+    # the j-th image broadcast is the j-th the client receives: each notes
+    # the render it shows
+    frames, shown = [], []
+    set_background_image = state.server.set_background_image
+
+    def noted(image, **kw):
+        shown.append(len(renders) - 1)
+        return set_background_image(image, **kw)
+
+    state.server.set_background_image = noted
+
+    def expect_frame(ws, sent_at, what):
+        deadline = time.time() + VIEWER_TIMEOUT
+        while time.time() < deadline:
+            try:
+                msg = m.Message.deserialize(ws.recv(timeout=max(deadline - time.time(), 0.1)))
+            except TimeoutError:
+                break
+            if isinstance(msg, m.BackgroundImageMessage):
+                frames.append(dict(what=what, latency_ms=(time.perf_counter() - sent_at) * 1e3,
+                                   image=_jpeg(msg), render=shown[len(frames)]))
+                return frames[-1]
+        raise AssertionError(f"viewer: no frame for {what} in {VIEWER_TIMEOUT} s")
+
+    def send(ws, msg, what, n_frames=1):
+        t0 = time.perf_counter()
+        ws.send(msg.serialize())
+        return [expect_frame(ws, t0, what) for _ in range(n_frames)]
+
+    _reset_encode_launches(hg)
+    torch.cuda.reset_peak_memory_stats()
+    eye = np.array([1.2 * np.cos(0.3), 1.2 * np.sin(0.3), 0.45])
+    result = {}
+    try:
+        state.start()
+        state.init_scene()
+        with wsc.connect(f"ws://127.0.0.1:{state.server.port}", max_size=None) as ws:
+            deadline = time.time() + VIEWER_TIMEOUT
+            while True:
+                msg = m.Message.deserialize(ws.recv(timeout=max(deadline - time.time(), 0.1)))
+                if isinstance(msg, m.SceneBoxMessage):
+                    break
+            send(ws, _viewer_camera(m, eye), "static")
+            for i in range(VIEWER_MOVES):
+                send(ws, _viewer_camera(m, eye * (1.0 - 0.03 * (i + 1)), moving=True), "move")
+            send(ws, _viewer_camera(m, eye * 0.91), "stop", n_frames=2)
+            ws.send(m.GuiUpdateMessage(name="Output Render", value="masked_rgb").serialize())
+            ws.send(m.SamMessage(use_sam=True).serialize())
+            # a queued rerender is never replaced, so the click's can be dropped
+            # behind the toggles'; the client resends its camera with the click
+            deadline = time.time() + VIEWER_TIMEOUT
+            while snr.prompts is None and time.time() < deadline:
+                send(ws, _viewer_camera(m, eye * 0.91, xs=[0.45]), "click")
+            if snr.prompts is None or len(snr.prompts) != 1:
+                raise AssertionError(f"viewer: the click locked {snr.prompts}")
+            send(ws, m.CropParamsMessage(crop_enabled=True, crop_bg_color=(0, 0, 255),
+                                         crop_center=(0.0, 0.0, 0.0),
+                                         crop_scale=(1.5, 1.5, 1.5)), "crop")
+            ws.send(m.CropParamsMessage(crop_enabled=False, crop_bg_color=(0, 0, 0),
+                                        crop_center=(0.0, 0.0, 0.0),
+                                        crop_scale=(2.0, 2.0, 2.0)).serialize())
+            expect_frame(ws, time.perf_counter(), "uncrop")
+            snr.occ, result["ball_occupied"] = occupancy_from_cells(_ball_cells(), 0.5,
+                                                                    device=dev)
+            send(ws, _viewer_camera(m, eye * 0.9, xs=[0.45]), "grid")
+            snr.occ = None
+            path = {"camera_type": "perspective", "render_height": 256, "render_width": 256,
+                    "camera_path": [{"camera_to_world": _look_at(eye * s).reshape(-1).tolist(),
+                                     "fov": 65.0, "aspect": 1.0} for s in (1.0, 0.95, 0.9)],
+                    "fps": 24, "seconds": 1}
+            ws.send(m.CameraPathPayloadMessage(camera_path_filename="smoke_path",
+                                               camera_path=path).serialize())
+            ws.send(m.CameraPathOptionsRequest().serialize())
+            deadline = time.time() + VIEWER_TIMEOUT
+            while True:
+                msg = m.Message.deserialize(ws.recv(timeout=max(deadline - time.time(), 0.1)))
+                if isinstance(msg, m.CameraPathsMessage) and "smoke_path.json" in msg.payload:
+                    break
+    finally:
+        state.stop()
+    if state.render_machine.is_alive() or state.server._thread is not None:
+        raise AssertionError("viewer: stop() left a thread running")
+    launches = _encode_launches(hg)
+    peak = torch.cuda.max_memory_allocated()
+
+    errs = [float(np.abs(f["image"] - renders[f["render"]]["image"]).mean()) for f in frames]
+    states = [renders[f["render"]]["state"] for f in frames]
+    want = (["high"] + ["low_move"] * VIEWER_MOVES + ["low_static", "high"])
+    if states[:len(want)] != want:
+        raise AssertionError(f"viewer: the frames' states {states}, not {want}")
+    for f in frames:
+        r = renders[f["render"]]
+        if (r["h"], r["w"]) != r["expected"] or r["h"] % 32 or r["w"] % 32 or \
+                f["image"].shape[:2] != (r["h"], r["w"]):
+            raise AssertionError(f"viewer: frame {f['what']} {f['image'].shape} for "
+                                 f"{r['state']} at {r['h']}x{r['w']}, expected {r['expected']}")
+        if r["state"] == "high" and (r["h"], r["w"]) != (size, size):
+            raise AssertionError(f"viewer: a high frame at {r['h']}x{r['w']}")
+        if (r["preset"] == "move") != (r["state"] == "low_move"):
+            raise AssertionError(f"viewer: {r['state']} rendered with preset {r['preset']}")
+    if max(errs) > TOL_JPEG:
+        raise AssertionError(f"viewer: JPEG against render_view's output: {errs}")
+    if not any(renders[f["render"]]["output"] == "masked_rgb" and renders[f["render"]]["points"]
+               and renders[f["render"]]["mask_fraction"] > 0.0 for f in frames):
+        raise AssertionError("viewer: the click's mask reached no frame")
+    rows = [{k: v for k, v in renders[f["render"]].items() if k != "image"}
+            | dict(what=f["what"], latency_ms=f["latency_ms"], jpeg_mae=e)
+            for f, e in zip(frames, errs)]
+    by_state = {}
+    for r in rows:
+        by_state.setdefault(r["state"], []).append(r)
+    summary = {s: dict(latency_ms=statistics.median(x["latency_ms"] for x in rs),
+                       render_ms=statistics.median(x["render_ms"] for x in rs),
+                       sizes=sorted({(x["h"], x["w"]) for x in rs}),
+                       fused_per_frame=sorted({x["launches"]["FUSED-QMLP"] for x in rs}),
+                       frames=len(rs)) for s, rs in by_state.items()}
+    for s, v in summary.items():
+        print(f"viewer {s:10s}: {v['frames']} frames, median message->image "
+              f"{v['latency_ms']:.1f} ms (render_view {v['render_ms']:.1f} ms), sizes "
+              f"{v['sizes']}, FUSED-QMLP per frame {v['fused_per_frame']}", flush=True)
+    print(f"viewer: {len(frames)} frames, JPEG mean abs err max {max(errs):.4f} (tol "
+          f"{TOL_JPEG}); 1 locked point; launches {launches}; max_memory_allocated="
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    if launches["Q-ENC"] or launches["F32-ENC"] or launches["FUSED-QMLP"] != sum(
+            r["launches"]["FUSED-QMLP"] for r in renders):
+        raise AssertionError(f"viewer launched {launches}")
+    result.update(frames=rows, renders=len(renders), by_state=summary, launches=launches,
+                  max_memory_allocated=peak, jpeg_mae_max=max(errs),
+                  render_path=render_path_phase(dev, model, root,
+                                                Path(state.camera_paths_dir) / "smoke_path.json"))
+    return result
+
+
+def render_path_phase(dev, model, root: Path, path_file: Path):
+    """``scripts/render.py --traj filename`` on the camera path the viewer
+    saved, over a run directory holding the model's weights (a config
+    and a checkpoint on a small synthetic scene): a frame per keyframe,
+    the first equal to ``ImageRenderer``'s to one level."""
+    from samnerf_tpu_torch import train as train_entry
+    from samnerf_tpu_torch.core.camera_paths import get_path_from_json
+    from samnerf_tpu_torch.data.datamanager import DataManager
+    from samnerf_tpu_torch.engine.eval_render import ImageRenderer
+    from samnerf_tpu_torch.engine.trainer import Trainer
+    from samnerf_tpu_torch.scripts import render as render_script
+    from samnerf_tpu_torch.utils.synthetic import write_scene
+
+    from PIL import Image
+
+    scene = write_scene(root / "path_scene", num_train=2, num_test=1, h=64, w=64,
+                        with_features=True, feature_long_side=16)
+    run = root / "path_run"
+    config = train_entry.parse(["samnerf_distill", "--data", str(scene), "--vis", "none",
+                                "--trainer.output-dir", str(run)])
+    train_entry.save_config(config)
+    trainer = Trainer(config.model, config.trainer, config.optimizers,
+                      DataManager(config.datamanager, seed=0), device=dev)
+    baked = ("qtable8", "qscales8", "qtable4", "qscales4")
+    weights = {k: v for k, v in model.state_dict().items() if k.rsplit(".", 1)[-1] not in baked}
+    trainer.model.load_state_dict(weights)
+    trainer.save_checkpoint(0)
+    t0 = time.perf_counter()
+    rc = render_script.main([str(run), "--traj", "filename", "--camera-path-filename",
+                             str(path_file), "--output", str(root / "path_frames")], device=dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    frames = sorted((root / "path_frames").glob("frame_*.png"))
+    cams = get_path_from_json(json.loads(path_file.read_text())).to(dev)
+    ref = ImageRenderer(trainer.model).render_image(cams, 0)["rgb"]
+    first = np.asarray(Image.open(frames[0])).astype(np.int64)
+    diff = int(np.abs(first - (np.clip(ref, 0, 1) * 255).astype(np.int64)).max())
+    print(f"render_path: scripts/render.py --traj filename wrote {len(frames)} frames "
+          f"{first.shape} in {ms:.0f} ms; frame 0 against ImageRenderer max diff {diff}",
+          flush=True)
+    if rc != 0 or len(frames) != 3 or first.shape != (256, 256, 3) or diff > 1:
+        raise AssertionError(f"render.py: rc {rc}, {len(frames)} frames, diff {diff}")
+    del trainer
+    return dict(ms=ms, frames=len(frames), max_diff=diff)
+
+
+VIEWER_TRAIN_STEPS = 35         # the viewer re-renders every 30 steps
+
+
+def viewer_train_phase(dev, scene: Path, root: Path, train_step_ms: float):
+    """``train.train_loop`` with ``--vis viewer`` at full width on the
+    train phase's synthetic scene, free ports, 35 steps (so the viewer's
+    every-30-steps re-render fires).  The attach is watched: a failure
+    raises after the run (no "viewer unavailable").  A client connects as
+    the viewer starts, sends a camera and must get a frame before the last
+    step ends.  Step ms with the viewer attached beside the train phase's,
+    F32-ENC / F32-ENC-BWD launches against the steps and frames, finite
+    losses, and the viewer stopped with the run."""
+    _require_viewer_packages()
+    import threading
+
+    import websockets.sync.client as wsc
+    from websockets.exceptions import ConnectionClosedOK
+
+    from samnerf_tpu_torch import train as train_entry
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    from samnerf_tpu_torch.viewer import messages as m
+
+    config = train_entry.parse([
+        "samnerf_distill", "--data", str(scene), "--vis", "viewer",
+        "--websocket-port", "0", "--http-port", "0",
+        "--trainer.max-num-iterations", str(VIEWER_TRAIN_STEPS),
+        "--trainer.save-final", "false", "--trainer.output-dir", str(root / "out_viewer")])
+    attached, failures, frames, renders = [], [], [], []
+    done = threading.Event()
+    launch = train_entry._launch_viewer
+
+    def client(port):
+        try:
+            with wsc.connect(f"ws://127.0.0.1:{port}", max_size=None) as ws:
+                ws.send(_viewer_camera(m, (1.3, 0.4, 0.5)).serialize())
+                while not done.is_set():
+                    try:
+                        msg = m.Message.deserialize(ws.recv(timeout=0.5))
+                    except TimeoutError:
+                        continue
+                    if isinstance(msg, m.BackgroundImageMessage):
+                        frames.append((time.perf_counter(), _jpeg(msg).shape))
+        except ConnectionClosedOK:
+            pass                 # the viewer stops with the run
+        except Exception as e:   # reported after the run
+            failures.append(e)
+
+    def watched(trainer, cfg):
+        try:
+            state = launch(trainer, cfg)
+        except Exception as e:
+            failures.append(e)
+            raise
+        render_view = state.render_view
+
+        def counted(intrin, c2w, h, w, **kw):
+            renders.append((h, w))
+            return render_view(intrin, c2w, h, w, **kw)
+
+        state.render_view = counted
+        attached.append(state)
+        thread = threading.Thread(target=client, args=(state.server.port,), daemon=True)
+        thread.start()
+        attached.append(thread)
+        return state
+
+    losses, times, t_prev, last_step = [], [], [0.0], [0.0]
+
+    def on_step(step, metrics):
+        losses.append({k: float(v) for k, v in metrics.items()})
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if step > TRAIN_WARMUP:
+            times.append((now - t_prev[0]) * 1e3)
+        t_prev[0] = last_step[0] = now
+
+    _reset_encode_launches(hg)
+    train_entry._launch_viewer = watched
+    try:
+        trainer = train_entry.train_loop(config, device=dev, step_callback=on_step)
+    finally:
+        train_entry._launch_viewer = launch
+        done.set()
+    if failures or len(attached) != 2:
+        raise AssertionError(f"viewer_train: the viewer did not attach or its client "
+                             f"failed: {failures}")
+    state, thread = attached
+    thread.join(timeout=10)
+    if thread.is_alive() or state.render_machine.is_alive() or state.server._thread is not None:
+        raise AssertionError("viewer_train: a viewer or client thread outlived the run")
+    launches = {"F32-ENC": hg.parity_hash_encode.launches,
+                "F32-ENC-BWD": hg.parity_hash_encode_bwd.launches,
+                "Q-ENC": hg.parity_hash_encode_q8.launches}
+    del trainer
+    before_end = [f for f in frames if f[0] <= last_step[0]]
+    step_ms = statistics.median(times)
+    result = dict(step_ms=step_ms, step_ms_all=times, train_phase_step_ms=train_step_ms,
+                  steps=VIEWER_TRAIN_STEPS, frames=len(renders), frame_sizes=renders,
+                  frames_received=len(frames), frames_before_end=len(before_end),
+                  launches=launches, first_losses=losses[0], last_losses=losses[-1])
+    print(f"viewer_train: {VIEWER_TRAIN_STEPS} steps with the viewer attached, median step "
+          f"{step_ms:.2f} ms ({min(times):.1f}-{max(times):.1f}; train phase "
+          f"{train_step_ms:.2f}); {len(renders)} viewer frames {sorted(set(renders))}, "
+          f"{len(frames)} received, {len(before_end)} before the last step; launches "
+          f"{launches}; losses first {losses[0]} last {losses[-1]}", flush=True)
+    if not before_end:
+        raise AssertionError("viewer_train: no frame reached the client during training")
+    if not all(math.isfinite(v) for r in losses for v in r.values()):
+        raise AssertionError(f"viewer_train losses: {losses}")
+    if any(hw != (VIEW_SIZE, VIEW_SIZE) for hw in renders):
+        raise AssertionError(f"viewer_train: frames at {renders}")
+    want = {"F32-ENC": F32_PER_STEP * VIEWER_TRAIN_STEPS + F32_PER_FRAME * len(renders),
+            "F32-ENC-BWD": F32_PER_STEP * VIEWER_TRAIN_STEPS, "Q-ENC": 0}
+    if launches != want:
+        raise AssertionError(f"viewer_train launched {launches}, not {want}")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2361,6 +3022,10 @@ def main() -> int:
     serve = serve_phase(dev)
     reference = reference_phase(dev)
     view = view_phase(dev)
+    cull, fused_model = cull_phase(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        viewer = viewer_phase(dev, fused_model, Path(tmp))
+    del fused_model
     serve_bf16 = serve_bf16_phase(dev)
     train = train_phase(dev)
     train_reference = train_reference_phase(dev)
@@ -2385,6 +3050,7 @@ def main() -> int:
         no_distill_view = no_distill_view_phase(dev, checkpoint, clip_paths)
         no_distill_train = no_distill_train_phase(dev, root / "scene", root)
         train_bf16 = train_bf16_phase(dev, root)
+        viewer_train = viewer_train_phase(dev, root / "scene_bf16", root, train["step_ms"])
 
     source = "samnerf_tpu_torch/csrc/hash_encode.cu"
     kernels = []
@@ -2418,6 +3084,10 @@ def main() -> int:
                             and r["positions"] == "frame" and r["variant"] in ("f32", "q8"))})
     for k in kernels:
         k["launches_by_path"].update(serve_int8_fused=serve["int8_fused"]["launches"][k["name"]])
+    kernels[0]["launches_by_path"].update(cull_bake_f32=cull["bake"]["f32"]["launches"]["F32-ENC"],
+                                          viewer_train=viewer_train["launches"]["F32-ENC"])
+    kernels[1]["launches_by_path"].update(
+        cull_bake_int8=cull["bake"]["int8_fused"]["launches"]["Q-ENC"])
     f32_enc = kernels[0]
     f32_enc["max_abs_err"] = max(f32_enc["max_abs_err"],
                                  max(r["fwd_max_abs_err"] for r in train_rows
@@ -2445,7 +3115,9 @@ def main() -> int:
                     "launches": serve["int8_fused"]["launches"]["FUSED-QMLP"],
                     "launches_by_path": {
                         "serve_int8_fused": serve["int8_fused"]["launches"]["FUSED-QMLP"],
-                        "view": view["launches"], "view_text": text_view["launches"]},
+                        "view": view["launches"], "view_text": text_view["launches"],
+                        "cull": sum(r["launches"]["FUSED-QMLP"] for r in cull["runs"].values()),
+                        "viewer": viewer["launches"]["FUSED-QMLP"]},
                     "max_abs_err": max(r["max_abs_err"] for r in qmlp_rows),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
@@ -2462,7 +3134,8 @@ def main() -> int:
                     "launches_by_path": {
                         "train": train["launches"]["F32-ENC-BWD"],
                         "train_eval": evaluation["run_launches"]["F32-ENC-BWD"],
-                        "train_no_distill": no_distill_train["launches"]["F32-ENC-BWD"]},
+                        "train_no_distill": no_distill_train["launches"]["F32-ENC-BWD"],
+                        "viewer_train": viewer_train["launches"]["F32-ENC-BWD"]},
                     "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
@@ -2514,7 +3187,8 @@ def main() -> int:
          "no_distill_view": no_distill_view, "no_distill_train": no_distill_train,
          "serve_bf16": serve_bf16, "attn_bf16_kernel_rows": attn_bf16_rows,
          "encode_bf16": encode_bf16, "train_bf16": train_bf16,
-         "eval": evaluation, "amg": amg, "kernels": kernels}, indent=1))
+         "eval": evaluation, "amg": amg, "cull": cull, "viewer": viewer,
+         "viewer_train": viewer_train, "kernels": kernels}, indent=1, default=str))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

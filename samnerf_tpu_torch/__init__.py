@@ -6,8 +6,10 @@ against.  This package imports ``torch`` only.  It serves a
 ``samnerf_distill`` frame, trains the method (``python -m
 samnerf_tpu_torch.train``), and runs SAM's ViT image encoder
 (``perception.sam.predictor.SamPredictor``, ``python -m
-samnerf_tpu_torch.preprocessing.get_image_embeddings``).  Every hash
-encode and its table gradient, and the encoder's global attention, run a
+samnerf_tpu_torch.preprocessing.get_image_embeddings``), and drives the
+interactive viewer (``viewer``; ``--vis viewer`` on the train entry).
+Every hash encode and its table gradient, and the encoder's global
+attention, run a
 hand-written ``sm_90a`` kernel (``csrc/*.cu``) on CUDA tensors and their
 plain PyTorch version on CPU tensors.
 """

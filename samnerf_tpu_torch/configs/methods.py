@@ -4,9 +4,9 @@ Counterpart of ``samnerf_tpu/configs/methods.py``, same hyperparameters.
 Left out: ``sort_points`` and ``use_remat`` (they only schedule the TPU;
 the sort is exact and order-restoring, and activations fit the card), the
 trainer's ``steps_per_dispatch`` scan fusion (a Python loop takes its
-place), and the viewer's ports, which wait with the viewer.  ``vis``
-selects the event writers as in the JAX package; its ``viewer`` token
-trains headless until the viewer is ported.
+place).  ``vis`` selects the event writers and the viewer as in the
+JAX package; the viewer listens on ``websocket_port`` and serves its
+client on ``http_port``.
 """
 from __future__ import annotations
 
@@ -31,6 +31,8 @@ class MethodConfig:
     vis: str = "viewer"
     """Any of "viewer", "tensorboard", "wandb", "json", combinable
     ("tensorboard+json")."""
+    websocket_port: int = 7007
+    http_port: int = 7008
 
 
 def _no_distill(data: Path = Path("/data/mipnerf360/room/")) -> MethodConfig:

@@ -5,7 +5,8 @@ Counterpart of ``samnerf_tpu/engine/eval_render.py`` (the fused feature
 path): the feature grids reuse the rgb pass's top-k samples instead of
 re-running proposals and the nerf field on separate ray grids.  The loop
 over chunks replaces ``lax.map``.  The pixel stream is 2D-blocked like the
-JAX package's so both packages see the same chunks.
+JAX package's so both packages see the same chunks.  A baked occupancy
+grid (``occ``; :func:`bake_occupancy`) culls empty space in every chunk.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import torch
 
 from samnerf_tpu_torch.core.cameras import Cameras, generate_rays
 from samnerf_tpu_torch.models.sam_model import SAMModel
+from samnerf_tpu_torch.ops.occupancy import (ServeOccupancy, cells_from_density,
+                                             grid_cell_positions, pack_serve_occupancy)
 
 PIXEL_BLOCK = 32
 """Side of the 2D pixel blocks of the ray stream (32x32 = 1024 rays)."""
@@ -161,15 +164,16 @@ class ImageRenderer:
     def render_image(self, cameras: Cameras, camera_index: int,
                      width: Optional[int] = None, height: Optional[int] = None,
                      features: Tuple[str, ...] = (), crop_aabb=None,
-                     crop_bg=None) -> Dict[str, np.ndarray]:
+                     crop_bg=None, occ: Optional[ServeOccupancy] = None
+                     ) -> Dict[str, np.ndarray]:
         """Render one camera (the camera's size unless given) with depth,
         accumulation and the per-level median depths; returns host numpy
-        arrays.  ``crop_aabb`` [2, 3] and ``crop_bg`` [3] as in
+        arrays.  ``crop_aabb`` [2, 3], ``crop_bg`` [3] and ``occ`` as in
         :meth:`render_image_device`."""
         out = self.render_image_device(cameras, camera_index,
                                        width or cameras.width,
                                        height or cameras.height, features,
-                                       crop_aabb=crop_aabb, crop_bg=crop_bg)
+                                       crop_aabb=crop_aabb, crop_bg=crop_bg, occ=occ)
         return {k: v.cpu().numpy() for k, v in out.items()}
 
     @torch.no_grad()
@@ -177,13 +181,15 @@ class ImageRenderer:
                             width: int, height: int,
                             features: Tuple[str, ...] = (),
                             minimal: bool = False, crop_aabb=None,
-                            crop_bg=None) -> Dict[str, torch.Tensor]:
+                            crop_bg=None, occ: Optional[ServeOccupancy] = None
+                            ) -> Dict[str, torch.Tensor]:
         """Render one camera on the model's device.  ``minimal`` returns rgb
         and the requested feature grids only (the serve fast path);
         otherwise depth, accumulation and per-level median depths too.
         ``crop_aabb`` [2, 3] (min, max corner): the viewer's crop box; the
         rgb pass's rays are bounded to it and its empty space takes the
-        background ``crop_bg`` [3] (black unless given)."""
+        background ``crop_bg`` [3] (black unless given).  ``occ``: a baked
+        occupancy grid on the same device; its empty space is culled."""
         cfg, chunk = self.cfg, self.chunk
         device = cameras.camera_to_worlds.device
         plan = self._plan(height, width, tuple(features), device)
@@ -199,7 +205,7 @@ class ImageRenderer:
             rb = generate_rays(cameras, torch.full((c.shape[0],), camera_index,
                                                    device=device), c,
                                aabb_box=crop_aabb)
-            outs.append(self.model(rb, bg_color=bg, return_topk=fuse))
+            outs.append(self.model(rb, bg_color=bg, return_topk=fuse, occupancy=occ))
         out = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
         outputs = {"rgb": rgb_unflatten(out["rgb"])}
         if not minimal:
@@ -222,3 +228,41 @@ class ImageRenderer:
                                         ("clipseg",), 1024, k_top)
             outputs["clipseg"] = feats["clipseg"][:1024].reshape(32, 32, -1)
         return outputs
+
+
+@torch.no_grad()
+def bake_density_grid(model: SAMModel, res: int = 0, sub: int = 2,
+                      chunk: int = 1 << 17) -> np.ndarray:
+    """The nerf field's density at ``sub``^3 points in each cell of a
+    ``res``^3 grid in contracted unit space (``res`` 0: the model's
+    ``occ_res``), max-pooled per cell: [res, res, res] numpy.  The points
+    go through ``density_at_unit`` in chunks of ``chunk``, the last padded
+    with the sentinel 0.5."""
+    res = res or model.config.occ_res
+    device = model.fields.encoding.table.device
+    pts = torch.as_tensor(grid_cell_positions(res, sub), device=device)
+    n = pts.shape[0]
+    pad = (-n) % chunk
+    if pad:
+        pts = torch.cat([pts, pts.new_full((pad, 3), 0.5)])
+    d = torch.cat([model.fields.density_at_unit(p) for p in pts.split(chunk)])
+    d = d.reshape(-1)[:n].float().cpu().numpy()
+    return d.reshape(res ** 3, sub ** 3).max(axis=1).reshape(res, res, res)
+
+
+def occupancy_from_cells(cell_d: np.ndarray, threshold: float = 0.01, device="cuda"):
+    """Threshold a baked density grid and pack it on ``device``: (the
+    :class:`~samnerf_tpu_torch.ops.occupancy.ServeOccupancy`, the occupied
+    fraction of cells)."""
+    cells = cells_from_density(torch.as_tensor(np.asarray(cell_d)), threshold).numpy()
+    return pack_serve_occupancy(cells, device=device), float(cells.mean())
+
+
+def bake_occupancy(model: SAMModel, res: int = 0, threshold: float = 0.01,
+                   sub: int = 2, chunk: int = 1 << 17):
+    """A serve occupancy grid from a trained model, on its device:
+    :func:`bake_density_grid`, thresholded and packed with a one-cell
+    dilation.  Returns (grid, occupied fraction)."""
+    cell_d = bake_density_grid(model, res=res, sub=sub, chunk=chunk)
+    return occupancy_from_cells(cell_d, threshold,
+                                device=model.fields.encoding.table.device)

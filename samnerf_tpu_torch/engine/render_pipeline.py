@@ -7,8 +7,9 @@ the geometry of 3D prompt locking (``backproject``, ``project``,
 ``SamNerfRenderer`` with ``serve_frame_fn`` (the all-device frame),
 ``render_view`` (the viewer's flow, which locks clicks as 3D points,
 decodes ClipSeg text prompts on the rendered ClipSeg grid, and runs
-LanguageSAM on the rendered rgb for a model that distills nothing) and
-``bake_serve_tables``.
+LanguageSAM on the rendered rgb for a model that distills nothing),
+``bake_serve_tables`` and ``bake_occupancy`` (a serve occupancy grid that
+every later frame and view culls with).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from samnerf_tpu_torch.core.cameras import Cameras
-from samnerf_tpu_torch.engine.eval_render import ImageRenderer
+from samnerf_tpu_torch.engine.eval_render import ImageRenderer, bake_occupancy
 from samnerf_tpu_torch.fields.hash_encoding import ParityHashEncoding
 from samnerf_tpu_torch.models.sam_model import SAMModel
 from samnerf_tpu_torch.ops.hash_grid import bake_quantized_tables
@@ -169,7 +170,8 @@ class SamNerfRenderer:
     its text prompts; ``lang_sam`` (a
     :class:`~samnerf_tpu_torch.perception.langsam.LanguageSAM`) segments
     the rendered rgb of a model that distills nothing.  ``prompts`` [M, 3]
-    holds the locked 3D points."""
+    holds the locked 3D points, ``occ`` the installed occupancy grid (None:
+    no culling)."""
 
     #: "static" trims the SAM-field top-k to 8; "move" also halves the nerf
     #: and proposal counts (the renderer for a moving camera).
@@ -186,6 +188,7 @@ class SamNerfRenderer:
         self.clipseg = clipseg_predictor
         self.lang_sam = lang_sam
         self.prompts: Optional[np.ndarray] = None
+        self.occ = None
         self._move_renderer: Optional[ImageRenderer] = None
         if serve_preset == "static":
             self._move_renderer = ImageRenderer(
@@ -196,8 +199,21 @@ class SamNerfRenderer:
             return self._move_renderer
         return self.renderer
 
+    @property
+    def device(self) -> torch.device:
+        """The device the model renders on."""
+        return self.renderer.model.fields.encoding.table.device
+
     def clear_prompts(self) -> None:
         self.prompts = None
+
+    def bake_occupancy(self, **kw) -> float:
+        """Bake and install a serve occupancy grid from the model
+        (:func:`samnerf_tpu_torch.engine.eval_render.bake_occupancy`, same
+        keywords); frames and views cull empty space from then on.
+        Returns the occupied fraction of cells."""
+        self.occ, frac = bake_occupancy(self.renderer.model, **kw)
+        return frac
 
     @torch.no_grad()
     def bake_serve_tables(self, optimize: int = 12) -> None:
@@ -221,9 +237,11 @@ class SamNerfRenderer:
         """Returns ``serve(cameras, cam_idx, click_xy, return_mask=False)
         -> uint8 [H, W, 3]`` on the model's device: render rgb + SAM and
         ClipSeg grids, decode a mask from the click on the rendered SAM
-        embedding, composite the red overlay."""
+        embedding, composite the red overlay.  The occupancy grid installed
+        when this is called culls every frame of it."""
         H, W = height, width
         renderer = self._renderer_for(preset)
+        occ = self.occ
         cfg = self.cfg
         feats = (("sam", "clipseg") if cfg.distill_sam and cfg.use_clipseg_feature
                  else ("sam",) if cfg.distill_sam else ())
@@ -233,7 +251,7 @@ class SamNerfRenderer:
                   return_mask: bool = False):
             device = cameras.camera_to_worlds.device
             frame = renderer.render_image_device(cameras, cam_idx, W, H,
-                                                 features=feats, minimal=True)
+                                                 features=feats, minimal=True, occ=occ)
             # click -> 1024-frame coords (ResizeLongestSide convention)
             scale = 1024.0 / max(H, W)
             pts = np.zeros((1, max_points, 2), np.float32)
@@ -283,13 +301,13 @@ class SamNerfRenderer:
         count are new.  None or empty clears the locked points.
         crop_aabb [2, 3] / crop_bg [3]: the viewer's crop box and its
         background.  preset "move" renders through the reduced-sample
-        renderer when there is one.  Adds ``masked_rgb`` to the render's
-        outputs."""
+        renderer when there is one.  The installed occupancy grid culls.
+        Adds ``masked_rgb`` to the render's outputs."""
         cfg = self.cfg
         feats = ("sam", "clipseg") if cfg.distill_sam else ()
         outputs = self._renderer_for(preset).render_image(
             cameras, camera_index, width=width, height=height, features=feats,
-            crop_aabb=crop_aabb, crop_bg=crop_bg)
+            crop_aabb=crop_aabb, crop_bg=crop_bg, occ=self.occ)
         h, w = outputs["rgb"].shape[:2]
         outputs["masked_rgb"] = outputs["rgb"]
         prompt = text_prompt if text_prompt is not None else "a man is cooking"

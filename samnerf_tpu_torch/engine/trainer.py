@@ -12,11 +12,14 @@ cadence runs through :class:`samnerf_tpu_torch.engine.pipeline.VanillaPipeline`
 with PSNR / SSIM every ``steps_per_eval_image``), and every step's times
 and, at the ``log_every`` cadence, its losses go to the event writers of
 :mod:`samnerf_tpu_torch.utils.writer`.  The host reads a device value
-only when a cadence fires.
+only when a cadence fires.  Each step runs under ``train_lock``, which a
+viewer attached to the run takes for each frame, so a frame never reads
+the parameters in the middle of an optimizer update.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict, Optional, Sequence, Tuple
@@ -130,6 +133,7 @@ class Trainer:
                                            self.get_features)
         self.metrics_history = []
         self._pipeline_obj = None
+        self.train_lock = threading.Lock()
         if trainer_cfg.load_dir is not None:
             ckpts = sorted(Path(trainer_cfg.load_dir).glob("step-*.pt"))
             if not ckpts:
@@ -195,7 +199,8 @@ class Trainer:
         warm_step = warm_t = None
         t_prev = time.time()
         while step < self.cfg.max_num_iterations:
-            metrics = self.train_iteration(step)
+            with self.train_lock:
+                metrics = self.train_iteration(step)
             step += 1
             if warm_step is None:
                 if self.device.type == "cuda":

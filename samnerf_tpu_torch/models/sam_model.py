@@ -4,11 +4,14 @@ losses and schedules.
 
 Counterpart of ``samnerf_tpu/models/sam_model.py`` (``SAMModelConfig``,
 ``SAMModel.__call__``, ``features_from_topk``, ``get_loss_dict``,
-``proposal_anneal_value``, ``proposal_grad_gate``).  Early termination,
-occupancy culling, the DINO head and appearance embeddings wait (both
-presets leave them off).  ``use_remat`` and ``sort_points`` only schedule
-the TPU and are left out: activations fit the card, and the point sort is
-exact and order-restoring, so leaving it out changes no result.  The
+``proposal_anneal_value``, ``proposal_grad_gate``), with serve-time
+culling: an occupancy grid (``occupancy``, baked by
+:func:`samnerf_tpu_torch.engine.eval_render.bake_occupancy`) in every
+field, and early ray termination (``serve_transmittance_eps``).  The DINO
+head and appearance embeddings wait (both presets leave them off).
+``use_remat`` and ``sort_points`` only schedule the TPU and are left out:
+activations fit the card, and the point sort is exact and
+order-restoring, so leaving it out changes no result.  The
 state dict names follow the flax tree (see :mod:`samnerf_tpu_torch.convert`):
 ``fields``, ``proposal_networks.i``, ``sam_field``, ``conv``.
 """
@@ -21,11 +24,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from samnerf_tpu_torch.core.rays import RayBundle
+from samnerf_tpu_torch.core.rays import RayBundle, RaySamples
 from samnerf_tpu_torch.fields.nerfacto_field import HashMLPDensityField, NerfactoField
 from samnerf_tpu_torch.fields.sam_field import ConvHead, SAMField
 from samnerf_tpu_torch.ops import losses as loss_ops
 from samnerf_tpu_torch.ops import rendering as render_ops
+from samnerf_tpu_torch.ops.occupancy import ServeOccupancy
 from samnerf_tpu_torch.ops.samplers import proposal_sampling
 from samnerf_tpu_torch.utils.dtypes import resolve_dtype
 from samnerf_tpu_torch.utils.init import init_state
@@ -69,6 +73,9 @@ class SAMModelConfig:
     hashgrid_sizes: Tuple[int, ...] = (19, 19)
     patch_size: int = 4
     kernel_size: int = 3
+    occ_res: int = 96
+    """Resolution of the serve-time occupancy grid in contracted unit
+    space; it culls only when a grid is passed as ``occupancy``."""
     hash_q8_serve: bool = False
     serve_quant_bits: int = 8
     serve_quant_bits_props: int = 0
@@ -78,6 +85,10 @@ class SAMModelConfig:
     FUSED-QMLP launch (``ops.hash_grid.parity_hash_encode_qmlp``).  Takes
     effect with ``hash_q8_serve``; the SAM field's heads fuse when their
     pyramids share a table size."""
+    serve_transmittance_eps: float = 0.0
+    """Early ray termination at eval (0 = off): nerf samples whose
+    transmittance, estimated from the last proposal level's weights, is
+    at most this are culled.  Training never culls."""
     hash_fn: str = "reference"
     compute_dtype: Any = torch.float32
     """The type of every field MLP and the conv head (parameters stay
@@ -106,14 +117,14 @@ class SAMModel(nn.Module):
             log2_hashmap_size=cfg.log2_hashmap_size, hash_q8=cfg.hash_q8_serve,
             hash_fn=cfg.hash_fn, quant_bits=cfg.serve_quant_bits,
             fuse_mlp=cfg.serve_fuse_mlp, compute_dtype=cfg.compute_dtype,
-            device=device)
+            occ_res=cfg.occ_res, device=device)
         args = cfg.proposal_net_args
         self.proposal_networks = nn.ModuleList(
             HashMLPDensityField(
                 hash_q8=cfg.hash_q8_serve, hash_fn=cfg.hash_fn,
                 quant_bits=cfg.serve_quant_bits_props or cfg.serve_quant_bits,
                 fuse_mlp=cfg.serve_fuse_mlp, compute_dtype=cfg.compute_dtype,
-                device=device, **args[min(i, len(args) - 1)])
+                occ_res=cfg.occ_res, device=device, **args[min(i, len(args) - 1)])
             for i in range(cfg.num_proposal_iterations))
         if cfg.distill_sam:
             self.sam_field = SAMField(
@@ -134,7 +145,8 @@ class SAMModel(nn.Module):
                 jitter: Optional[Sequence[torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None,
                 anneal: float = 1.0,
-                proposal_grad: float = 1.0) -> Dict[str, Any]:
+                proposal_grad: float = 1.0,
+                occupancy: Optional[ServeOccupancy] = None) -> Dict[str, Any]:
         """Render a flat bundle of rays.
 
         ``get_features`` is a subset of ("sam", "clipseg"); with "sam" and
@@ -152,16 +164,21 @@ class SAMModel(nn.Module):
         ``generator``; with neither they are not jittered, as the JAX
         model without an rng.  ``anneal`` and ``proposal_grad`` are the
         values of :func:`proposal_anneal_value` and
-        :func:`proposal_grad_gate` for this step."""
+        :func:`proposal_grad_gate` for this step.
+
+        ``occupancy`` (serve): a grid from
+        :func:`samnerf_tpu_torch.ops.occupancy.pack_serve_occupancy` that
+        every proposal network and the nerf field cull with, so sampling
+        changes too."""
         if not train:
             with torch.no_grad():
                 return self._forward(ray_bundle, get_features, bg_color,
-                                     return_topk, False, None, 1.0, None)
+                                     return_topk, False, None, 1.0, None, occupancy)
         if jitter is None and generator is not None:
             jitter = self.draw_jitter(ray_bundle.origins.shape[0], generator,
                                       ray_bundle.origins.device)
         return self._forward(ray_bundle, get_features, bg_color, return_topk,
-                             True, jitter, anneal, proposal_grad)
+                             True, jitter, anneal, proposal_grad, occupancy)
 
     def draw_jitter(self, num_rays: int, generator: torch.Generator,
                     device) -> Tuple[torch.Tensor, ...]:
@@ -174,15 +191,21 @@ class SAMModel(nn.Module):
             for s in counts)
 
     def _forward(self, ray_bundle, get_features, bg_color, return_topk, train,
-                 jitter, anneal, proposal_grad) -> Dict[str, Any]:
+                 jitter, anneal, proposal_grad, occupancy) -> Dict[str, Any]:
         cfg = self.config
         if ray_bundle.nears is None or ray_bundle.fars is None:
             ray_bundle = ray_bundle.with_near_far(cfg.near_plane, cfg.far_plane)
+        density_fns = [lambda pos, p=p: p(pos, occupancy) for p in self.proposal_networks]
         ray_samples, weights_list, ray_samples_list = proposal_sampling(
-            ray_bundle, list(self.proposal_networks),
+            ray_bundle, density_fns,
             cfg.num_proposal_samples_per_ray, cfg.num_nerf_samples_per_ray,
             jitter=jitter, anneal=anneal, proposal_grad=proposal_grad)
-        field_out = self.fields(ray_samples.positions(), ray_samples.directions)
+        live_et = None
+        if not train and cfg.serve_transmittance_eps > 0.0:
+            live_et = _early_termination(weights_list[-1], ray_samples_list[-1],
+                                         ray_samples, cfg.serve_transmittance_eps)
+        field_out = self.fields(ray_samples.positions(), ray_samples.directions,
+                                occupancy, live_et)
         weights = ray_samples.get_weights(field_out["density"])
         if bg_color is not None:
             rgb = render_ops.render_rgb(field_out["rgb"], weights,
@@ -243,6 +266,22 @@ class SAMModel(nn.Module):
         if "clipseg" in feats:
             out["clipseg"] = render_ops.render_mean(feats["clipseg"], weights)
         return out
+
+
+def _early_termination(prop_weights: torch.Tensor, prop_samples: RaySamples,
+                       samples: RaySamples, eps: float) -> torch.Tensor:
+    """[R, S, 1] 0/1: nerf samples whose transmittance estimate exceeds
+    ``eps``.  The estimate before a sample is 1 minus the summed weights of
+    the proposal bins [R, P] that end at or before its mid; the sum runs
+    over P as the JAX package's does (a cumulative sum adds in another
+    order and can flip a sample that sits at ``eps``).  Holds an [R, S, P]
+    f32 intermediate."""
+    pw = prop_weights[..., 0]
+    pend = prop_samples.ends[..., 0]
+    tmid = (samples.starts + samples.ends)[..., 0] * 0.5
+    passed = pend[:, None, :] <= tmid[:, :, None]
+    t_est = 1.0 - torch.sum(torch.where(passed, pw[:, None, :], 0.0), dim=-1)
+    return (t_est > eps).to(torch.float32)[..., None]
 
 
 def init_params(config: SAMModelConfig, generator: torch.Generator,

@@ -10,14 +10,18 @@ Counterpart of ``samnerf_tpu/train.py`` for the ``samnerf_distill`` and
 Writes ``config.json`` and ``samnerf_tpu_torch_ckpts/step-*.pt`` under
 ``<output_dir>/<scene>/<method>/<timestamp>/``, and the event writers that
 ``--vis`` names there (``json``: ``metrics.json``; ``tensorboard``;
-``wandb``).  The viewer and the model zoo wait: a ``viewer`` token trains
-headless with a notice.  Evaluate a run with
+``wandb``).  The ``viewer`` token (the presets' default) attaches the
+interactive viewer to the run: open ``http://localhost:7008/?port=7007``
+(``--websocket-port``, ``--http-port``); ``--vis json`` trains without
+it.  When the viewer cannot start, training goes on headless with a
+notice.  The model zoo waits.  Evaluate a run with
 ``python -m samnerf_tpu_torch.scripts.eval <run_dir>``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import random
 import sys
 import time
@@ -65,8 +69,9 @@ def save_config(config: MethodConfig) -> None:
 
 
 def train_loop(config: MethodConfig, device="cuda", step_callback=None):
-    """Seed, build the data and the trainer, train (``step_callback(step,
-    metrics)`` after each step, as ``Trainer.train`` takes it)."""
+    """Seed, build the data and the trainer, set up ``config.vis``, train
+    (``step_callback(step, metrics)`` after each step, after the viewer's
+    own), and stop the viewer when training ends."""
     from samnerf_tpu_torch.data.datamanager import DataManager
     from samnerf_tpu_torch.engine.trainer import Trainer
 
@@ -76,23 +81,98 @@ def train_loop(config: MethodConfig, device="cuda", step_callback=None):
     dm = DataManager(config.datamanager, seed=seed)
     trainer = Trainer(config.model, config.trainer, config.optimizers, dm,
                       device=device)
-    _setup_vis(config)
-    trainer.train(step_callback=step_callback)
+    viewer = _setup_vis(config, trainer)
+    callbacks = [cb for cb in (viewer and viewer.step_callback, step_callback) if cb]
+
+    def on_step(step, metrics):
+        for cb in callbacks:
+            cb(step, metrics)
+
+    try:
+        trainer.train(step_callback=on_step if callbacks else None)
+    finally:
+        if viewer is not None:
+            viewer.stop()
     return trainer
 
 
-def _setup_vis(config: MethodConfig) -> None:
+def _setup_vis(config: MethodConfig, trainer=None):
     """One event writer per ``tensorboard``, ``wandb`` or ``json`` token
     of ``config.vis``, writing under the run's output directory (the
-    previous run's writers are flushed and dropped first)."""
+    previous run's writers are flushed and dropped first); with a
+    ``viewer`` token, the viewer attached to ``trainer``
+    (:func:`_launch_viewer`).  Returns the running ``ViewerState`` or
+    None; a viewer that cannot start prints a notice and gives None."""
     writer.reset()
     vis = (config.vis or "").lower()
     out = Path(config.trainer.output_dir)
     for kind in ("tensorboard", "wandb", "json"):
         if kind in vis:
             writer.setup_event_writer(kind, out)
-    if "viewer" in vis:
-        print("viewer unavailable (not ported yet); training continues headless")
+    if "viewer" not in vis or trainer is None:
+        return None
+    try:
+        return _launch_viewer(trainer, config)
+    except Exception as e:      # no free port, a missing package, no SAM weights
+        print(f"viewer unavailable ({e}); training continues headless")
+        return None
+
+
+def _sam_for_viewer(device):
+    """SAM for the viewer's mask decode: the checkpoint named by
+    ``$SAM_CHECKPOINT`` or found under ``./checkpoints/``, else a decoder
+    with seeded weights (with a notice)."""
+    from samnerf_tpu_torch.perception.sam.build_sam import build_sam
+    from samnerf_tpu_torch.perception.sam.sam import Sam, init_decoder_params
+
+    ckpt = os.environ.get("SAM_CHECKPOINT")
+    if not (ckpt and Path(ckpt).exists()):
+        ckpt = next((c for c in ("checkpoints/sam_vit_h_4b8939.pth",
+                                 "checkpoints/sam_vit_b_01ec64.pth") if Path(c).exists()),
+                    None)
+    if ckpt is not None:
+        return build_sam("vit_h" if "vit_h" in ckpt else "vit_b", checkpoint=ckpt,
+                         device=device)
+    print("viewer: no SAM checkpoint found ($SAM_CHECKPOINT or ./checkpoints/): "
+          "mask decode uses seeded random weights")
+    sam = Sam(device=device)
+    sam.load_state_dict(init_decoder_params(torch.Generator().manual_seed(1), device=device))
+    return sam
+
+
+def _launch_viewer(trainer, config: MethodConfig):
+    """Attach the interactive viewer to a training run: a renderer over
+    the trainer's model (``static`` preset, a SAM predictor), the
+    websocket server on ``config.websocket_port`` and the client's HTTP
+    server on ``config.http_port`` (0: free ports), the scene and the
+    training cameras sent; frames render under the trainer's
+    ``train_lock``.  Returns the started ``ViewerState``."""
+    from samnerf_tpu_torch.engine.render_pipeline import SamNerfRenderer
+    from samnerf_tpu_torch.perception.sam.predictor import SamPredictor
+    from samnerf_tpu_torch.viewer.server import serve_client
+    from samnerf_tpu_torch.viewer.viewer_state import ViewerState
+
+    renderer = SamNerfRenderer(trainer.model,
+                               sam_predictor=SamPredictor(_sam_for_viewer(trainer.device)),
+                               serve_preset="static")
+    dm = trainer.datamanager
+    state = ViewerState(renderer, cameras=dm.cameras, port=config.websocket_port,
+                        train_lock=trainer.train_lock,
+                        save_checkpoint_fn=trainer.save_checkpoint)
+    state.camera_paths_dir = str(Path(config.trainer.output_dir) / "camera_paths")
+    state.start()
+    try:
+        state.init_scene(cameras=dm.cameras, images=dm.images,
+                         config_base_dir=str(config.trainer.output_dir),
+                         data_base_dir=str(config.datamanager.dataparser.data),
+                         export_path_name=Path(str(config.trainer.output_dir)).stem)
+        state.http = serve_client(http_port=config.http_port)
+    except BaseException:
+        state.stop()
+        raise
+    print(f"viewer: http://localhost:{state.http.server_address[1]}/"
+          f"?port={state.server.port}", flush=True)
+    return state
 
 
 def main(argv=None) -> int:

@@ -143,10 +143,36 @@ def test_eval_image_index_cycles_as_jax(trainer, monkeypatch):
     assert seen == [(s // 3) % 2 for s in (3, 6, 9, 12)] == [1, 0, 1, 0]
 
 
-def test_train_loop_writes_eval_events(scene, tmp_path, clean_writer, capsys):
+def test_train_loop_writes_eval_events(scene, tmp_path, clean_writer, capsys,
+                                       monkeypatch):
     """The train entry with both cadences firing and ``vis="json+viewer"``:
     ``metrics.json`` holds the train, eval-batch and eval-image events at
-    their steps; the viewer token trains headless with a notice."""
+    their steps; the viewer attaches on free ports (seeded SAM weights,
+    with the notice), its step callback runs after every step, each step
+    holds the train lock, and the viewer is stopped when training ends."""
+    from samnerf_tpu_torch.viewer.viewer_state import ViewerState
+
+    calls = {"steps": [], "stopped": 0, "locked": []}
+    step_callback, stop, iteration = (ViewerState.step_callback, ViewerState.stop,
+                                      Trainer.train_iteration)
+
+    def on_step(self, step, metrics=None):
+        calls["steps"].append(step)
+        return step_callback(self, step, metrics)
+
+    def on_stop(self):
+        calls["stopped"] += 1
+        return stop(self)
+
+    def on_iteration(self, step):
+        calls["locked"].append(self.train_lock.locked())
+        return iteration(self, step)
+
+    monkeypatch.setattr(ViewerState, "step_callback", on_step)
+    monkeypatch.setattr(ViewerState, "stop", on_stop)
+    monkeypatch.setattr(Trainer, "train_iteration", on_iteration)
+    monkeypatch.delenv("SAM_CHECKPOINT", raising=False)
+    monkeypatch.chdir(tmp_path)             # no ./checkpoints/ here
     config = method_configs()["samnerf_distill"]
     config.model = TINY
     config.datamanager = _dm_config(scene)
@@ -155,9 +181,12 @@ def test_train_loop_writes_eval_events(scene, tmp_path, clean_writer, capsys):
                                    log_every=2, steps_per_eval_batch=2,
                                    steps_per_eval_image=3, output_dir=tmp_path)
     config.vis = "json+viewer"
+    config.websocket_port = config.http_port = 0
     tr = train_cli.train_loop(config, device="cpu")
-    assert "viewer unavailable (not ported yet); training continues headless" in \
-        capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "viewer unavailable" not in out
+    assert "viewer: no SAM checkpoint found" in out and "viewer: http://localhost:" in out
+    assert calls == {"steps": [1, 2, 3, 4], "stopped": 1, "locked": [True] * 4}
     rows = json.loads((tmp_path / "metrics.json").read_text())
     steps = {}
     for r in rows:
