@@ -49,8 +49,9 @@ which raises on failure:
    a static one (low_static, then high), "Output Render" masked_rgb, SAM
    and a click locked in 3D, a crop, a frame with the ball grid, and a
    camera path saved through the client's message and rendered by
-   ``scripts/render.py --traj filename``; each JPEG against its
-   ``render_view`` output, message -> image ms per render state;
+   ``scripts/render.py --traj filename``; each JPEG bit for bit the
+   JPEG of the ``render_view`` output it shows, message -> image ms per
+   render state;
    serve_bf16: the same model with ``compute_dtype=torch.bfloat16``:
    512x512 frames with f32 tables, baked int8, and baked int8 with
    ``serve_fuse_mlp`` (Q-ENC and the unfused bf16 MLPs: FUSED-QMLP
@@ -139,7 +140,23 @@ which raises on failure:
    full-width steps on that scene, a client that gets frames while it
    trains (step ms beside the train phase's; 6 + 6 launches a step and 22
    F32-ENC a 512x512 viewer frame);
-15. one ``{"kernels": [...]}`` line (the f32 kernels' layout passes
+15. dino: a seeded ``dino_vits8.pth`` (reference layout); ViT-S/8
+   descriptors (stride 4, layer 11 ``key``) of the train phase's
+   synthetic 512x512 scene through ``ViTExtractor`` (ms per image and
+   peak memory at 1024 to 8192 query rows per attention product and with
+   the whole attention) and
+   ``get_dino_embeddings.main``; a small image card vs CPU; 30 full-width
+   ``samnerf_distill`` steps with ``--model.use-dino-feature True
+   --datamanager.use-dino-feature True`` (step ms, the DINO loss falling,
+   6 + 6 launches a step);
+   data: every dataparser family's scene, its rays card vs CPU; the
+   scene as a Blender and an instant-ngp directory routed by
+   ``_detect_parser`` and trained at full width; the scene with an OpenCV
+   distortion (rays card vs CPU, trained, rendered along fisheye and
+   equirectangular camera paths by ``scripts/render.py``); a model with
+   appearance embeddings trained and served as baked int8 512x512
+   frames, fused (19 FUSED-QMLP) and not (22 Q-ENC);
+16. one ``{"kernels": [...]}`` line (the f32 kernels' layout passes
    listed under ``passes`` beside the kernel that needs them; the bf16
    FLASH-RELPOS routes as ``FLASH-RELPOS-BF16-WGMMA`` and
    ``FLASH-RELPOS-BF16``), then
@@ -2365,7 +2382,7 @@ CULL_FRAMES = 3                 # timed frames per culling setting, after a warm
 ETA_CANDIDATES = (1e-2, 1.2e-2, 8e-3, 1.5e-2, 6e-3)
 ETA_MARGIN = 1e-5
 # a JPEG (quality 70) of a frame against the frame: mean abs error in [0, 1]
-TOL_JPEG = 0.03
+VIEWER_JPEG_QUALITY = 70        # the render thread's JPEGs
 CULL_REF_FOCAL = 100.0          # the small culled frame's focal length (64 px wide)
 VIEWER_TIMEOUT = 60.0           # seconds for any expected viewer message
 VIEWER_MOVES = 3
@@ -2636,6 +2653,22 @@ def _jpeg(msg):
                       np.float32) / 255.0
 
 
+def _u8(image):
+    """A float image in [0, 1] as the render thread sends it: uint8."""
+    return (np.clip(np.asarray(image, np.float32), 0, 1) * 255).astype(np.uint8)
+
+
+def _jpeg_of(image_u8):
+    """The decoded quality-``VIEWER_JPEG_QUALITY`` JPEG of a uint8 image,
+    in [0, 1]."""
+    import io
+
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(image_u8).save(buf, format="JPEG", quality=VIEWER_JPEG_QUALITY)
+    return np.asarray(Image.open(io.BytesIO(buf.getvalue())), np.float32) / 255.0
+
+
 def _require_viewer_packages():
     missing = [n for n in ("websockets", "msgpack") if importlib.util.find_spec(n) is None]
     if missing:
@@ -2653,8 +2686,10 @@ def viewer_phase(dev, model, root: Path, size=VIEW_SIZE):
     (one locked 3D point, the mask in the frame); a crop; a frame with the
     ball grid installed; a camera path saved through the client message
     and rendered by ``scripts/render.py --traj filename`` on a run
-    directory saved from the model.  Each JPEG is held against the
-    output ``render_view`` gave for it (mean abs error <= TOL_JPEG).
+    directory saved from the model.  Each broadcast image is matched to
+    the ``render_view`` output it shows (its uint8 conversion, bit for
+    bit), and each JPEG the client receives is that image's quality-70
+    JPEG, bit for bit; the JPEG's own error is reported.
     ``stop()`` joins both threads."""
     _require_viewer_packages()
     import websockets.sync.client as wsc
@@ -2694,12 +2729,15 @@ def viewer_phase(dev, model, root: Path, size=VIEW_SIZE):
 
     state.render_view = recorded
     # the j-th image broadcast is the j-th the client receives: each notes
-    # the render it shows
-    frames, shown = [], []
+    # the render it shows, the newest whose output, converted as the render
+    # thread converts it, is this image, and keeps the image
+    frames, shown, sent = [], [], []
     set_background_image = state.server.set_background_image
 
     def noted(image, **kw):
-        shown.append(len(renders) - 1)
+        shown.append(next((i for i in range(len(renders) - 1, -1, -1)
+                           if np.array_equal(_u8(renders[i]["image"]), image)), None))
+        sent.append(image.copy())
         return set_background_image(image, **kw)
 
     state.server.set_background_image = noted
@@ -2712,8 +2750,12 @@ def viewer_phase(dev, model, root: Path, size=VIEW_SIZE):
             except TimeoutError:
                 break
             if isinstance(msg, m.BackgroundImageMessage):
+                j = len(frames)
+                if shown[j] is None:
+                    raise AssertionError(f"viewer: the frame for {what} shows no render")
                 frames.append(dict(what=what, latency_ms=(time.perf_counter() - sent_at) * 1e3,
-                                   image=_jpeg(msg), render=shown[len(frames)]))
+                                   image=_jpeg(msg), render=shown[j],
+                                   exact=np.array_equal(_jpeg(msg), _jpeg_of(sent[j]))))
                 return frames[-1]
         raise AssertionError(f"viewer: no frame for {what} in {VIEWER_TIMEOUT} s")
 
@@ -2793,8 +2835,9 @@ def viewer_phase(dev, model, root: Path, size=VIEW_SIZE):
             raise AssertionError(f"viewer: a high frame at {r['h']}x{r['w']}")
         if (r["preset"] == "move") != (r["state"] == "low_move"):
             raise AssertionError(f"viewer: {r['state']} rendered with preset {r['preset']}")
-    if max(errs) > TOL_JPEG:
-        raise AssertionError(f"viewer: JPEG against render_view's output: {errs}")
+    if not all(f["exact"] for f in frames):
+        raise AssertionError(f"viewer: JPEGs that are not the quality-{VIEWER_JPEG_QUALITY} "
+                             f"JPEG of their render: {[f['what'] for f in frames if not f['exact']]}")
     if not any(renders[f["render"]]["output"] == "masked_rgb" and renders[f["render"]]["points"]
                and renders[f["render"]]["mask_fraction"] > 0.0 for f in frames):
         raise AssertionError("viewer: the click's mask reached no frame")
@@ -2813,8 +2856,9 @@ def viewer_phase(dev, model, root: Path, size=VIEW_SIZE):
         print(f"viewer {s:10s}: {v['frames']} frames, median message->image "
               f"{v['latency_ms']:.1f} ms (render_view {v['render_ms']:.1f} ms), sizes "
               f"{v['sizes']}, FUSED-QMLP per frame {v['fused_per_frame']}", flush=True)
-    print(f"viewer: {len(frames)} frames, JPEG mean abs err max {max(errs):.4f} (tol "
-          f"{TOL_JPEG}); 1 locked point; launches {launches}; max_memory_allocated="
+    print(f"viewer: {len(frames)} frames, each the JPEG of its render bit for bit (JPEG "
+          f"mean abs err max {max(errs):.4f}); 1 locked point; launches {launches}; "
+          "max_memory_allocated="
           f"{peak / 2**30:.2f} GiB", flush=True)
     if launches["Q-ENC"] or launches["F32-ENC"] or launches["FUSED-QMLP"] != sum(
             r["launches"]["FUSED-QMLP"] for r in renders):
@@ -2989,6 +3033,524 @@ def viewer_train_phase(dev, scene: Path, root: Path, train_step_ms: float):
     return result
 
 
+# --- DINO distillation ------------------------------------------------------
+
+DINO_STRIDE = 4
+DINO_TIMED_IMAGES = 5           # timed extractions after a warm-up
+DINO_CHUNKS = (1024, 2048, 4096, 8192, None)    # query rows per attention product
+DINO_REF_SIZE = 64              # the card-vs-CPU image (a 15 x 15 patch grid)
+TOL_DINO = 1e-4                 # max abs error / max |CPU descriptor|, f32, 12 layers
+DINO_TRAIN_WARMUP, DINO_TRAIN_STEPS = 3, 30
+
+
+def _timed_train(config, dev, warmup: int, steps: int, what: str):
+    """``train.train_loop`` over ``warmup + steps`` steps: (trainer, losses,
+    ms per step after the warm-up, encode launches and peak memory over
+    those steps).  Raises unless every loss is finite and each step
+    launched ``F32_PER_STEP`` F32-ENC and F32-ENC-BWD and no Q-ENC."""
+    from samnerf_tpu_torch import train as train_entry
+    from samnerf_tpu_torch.ops import hash_grid as hg
+
+    losses, times, t_prev = [], [], [0.0]
+
+    def on_step(step, metrics):
+        losses.append({k: float(v) for k, v in metrics.items()})
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if step == warmup:
+            torch.cuda.reset_peak_memory_stats()
+            _reset_encode_launches(hg)
+        elif step > warmup:
+            times.append((now - t_prev[0]) * 1e3)
+        t_prev[0] = now
+
+    config.trainer.max_num_iterations = warmup + steps
+    trainer = train_entry.train_loop(config, device=dev, step_callback=on_step)
+    launches = {"F32-ENC": hg.parity_hash_encode.launches,
+                "F32-ENC-BWD": hg.parity_hash_encode_bwd.launches,
+                "Q-ENC": hg.parity_hash_encode_q8.launches}
+    peak = torch.cuda.max_memory_allocated()
+    if len(losses) != warmup + steps or not all(
+            math.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError(f"{what} losses: {losses}")
+    if launches["F32-ENC"] != F32_PER_STEP * len(times) \
+            or launches["F32-ENC-BWD"] != F32_PER_STEP * len(times) or launches["Q-ENC"]:
+        raise AssertionError(f"{what} launched {launches} in {len(times)} steps, not "
+                             f"{F32_PER_STEP} + {F32_PER_STEP} per step")
+    return trainer, losses, times, launches, peak
+
+
+def dino_phase(dev, root: Path, train_step_ms: float):
+    """A seeded ``dino_vits8.pth`` (reference layout, 21.7 M parameters);
+    descriptors of the train phase's synthetic scene (24 + 2 images at
+    512x512: 127 x 127 patches at stride 4, layer 11 ``key``) through
+    ``ViTExtractor`` (ms per image and peak memory by query rows per
+    attention product, ``DINO_CHUNKS``) and ``get_dino_embeddings.main``;
+    a small image's descriptors on the card against the CPU; then
+    ``DINO_TRAIN_STEPS``
+    full-width ``samnerf_distill`` steps with ``--model.use-dino-feature
+    True --datamanager.use-dino-feature True`` through the train entry
+    (step ms beside the train phase's, the DINO loss falling, 6 + 6
+    launches a step).  Returns the result and the scene."""
+    from PIL import Image
+
+    from samnerf_tpu_torch import train as train_entry
+    from samnerf_tpu_torch.preprocessing import get_dino_embeddings as gde
+    from samnerf_tpu_torch.utils.synthetic import write_scene
+
+    ckpt = root / "dino_vits8.pth"
+    state = gde.seeded_dino_state_dict("dino_vits8", seed=11)
+    torch.save(state, ckpt)
+    num_params = sum(v.numel() for v in state.values())
+    scene = write_scene(root / "scene_dino", num_train=24, num_test=2, h=512, w=512,
+                        with_features=True, feature_long_side=64)
+    paths = gde.image_paths(scene / "images")
+    with Image.open(paths[0]) as im:
+        grid = tuple(1 + (side - 8) // DINO_STRIDE for side in im.size[::-1])
+    timed = {}
+    for chunk in DINO_CHUNKS:
+        tag = "whole" if chunk is None else str(chunk)
+        ex = gde.ViTExtractor("dino_vits8", DINO_STRIDE, checkpoint=str(ckpt),
+                              query_chunk=chunk, device=dev)
+        ex.extract_descriptors(ex.preprocess(paths[0]))                # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for p in paths[1:1 + DINO_TIMED_IMAGES]:
+            batch = ex.preprocess(p)
+            t0 = time.perf_counter()
+            desc = ex.extract_descriptors(batch)
+            times.append((time.perf_counter() - t0) * 1e3)
+        timed[tag] = dict(ms=statistics.median(times), ms_all=times,
+                          max_memory_allocated=torch.cuda.max_memory_allocated())
+        if desc.shape != (1, 1, grid[0] * grid[1], 384) or ex.num_patches != grid:
+            raise AssertionError(f"DINO descriptors {desc.shape} on {ex.num_patches}")
+        del ex
+    # a small image, card against CPU
+    img = np.random.default_rng(12).integers(0, 256, (DINO_REF_SIZE, DINO_REF_SIZE, 3),
+                                             dtype=np.uint8)
+    outs = {}
+    for d in (dev, "cpu"):
+        ex = gde.ViTExtractor("dino_vits8", DINO_STRIDE, checkpoint=str(ckpt), device=d)
+        outs[str(d)] = ex.extract_descriptors(ex.preprocess(img))
+    ref = outs["cpu"]
+    ref_err = float(np.abs(outs[str(dev)] - ref).max() / np.abs(ref).max())
+    t0 = time.perf_counter()
+    gde.main([str(scene / "images"), "--output-path", str(scene / "dino_features"),
+              "--checkpoint", str(ckpt)], device=dev)
+    main_s = time.perf_counter() - t0
+    files = sorted((scene / "dino_features").glob("*.pt"))
+    first = torch.load(files[0])
+    train_names = [f["file_path"] for f in json.loads(
+        (scene / "transforms_train.json").read_text())["frames"]]
+    host_bytes = sum(torch.load(scene / "dino_features" / (Path(n).stem + ".pt")).nbytes
+                     for n in train_names)
+    default = timed[str(gde.QUERY_CHUNK)]
+    print(f"dino: seeded dino_vits8 ({num_params / 1e6:.2f} M parameters), 512x512 at "
+          f"stride {DINO_STRIDE} ({first.shape[0]}x{first.shape[1]} patches): "
+          f"{default['ms']:.1f} ms per image "
+          f"({', '.join(f'{t:.1f}' for t in default['ms_all'])}), peak "
+          f"{default['max_memory_allocated'] / 2**30:.2f} GiB with {gde.QUERY_CHUNK}-query "
+          "chunks (the default); by query rows per product: "
+          + ", ".join(f"{k} {v['ms']:.1f} ms / {v['max_memory_allocated'] / 2**30:.2f} GiB"
+                      for k, v in timed.items())
+          + f"; main() wrote {len(files)} files in {main_s:.1f} s, "
+          f"{tuple(first.shape)} each, train split {host_bytes / 1e6:.1f} MB on the host; "
+          f"{DINO_REF_SIZE}x{DINO_REF_SIZE} card vs CPU max err {ref_err:.2e} of max |desc| "
+          f"(tol {TOL_DINO:g})", flush=True)
+    if len(files) != len(paths) or tuple(first.shape) != (*grid, 384) \
+            or first.dtype != torch.float32:
+        raise AssertionError(f"get_dino_embeddings wrote {len(files)} files {first.shape}")
+    if not ref_err <= TOL_DINO:
+        raise AssertionError(f"DINO descriptors: card vs CPU {ref_err:.2e} > {TOL_DINO}")
+
+    config = train_entry.parse([
+        "samnerf_distill", "--data", str(scene), "--model.use-dino-feature", "True",
+        "--datamanager.use-dino-feature", "True", "--vis", "none",
+        "--trainer.save-final", "false", "--trainer.output-dir", str(root / "out_dino")])
+    trainer, losses, times, launches, peak = _timed_train(
+        config, dev, DINO_TRAIN_WARMUP, DINO_TRAIN_STEPS, "the DINO train path")
+    if trainer.get_features != ("sam", "dino", "clipseg") \
+            or tuple(trainer.device_data["dino_features"].shape) != (len(train_names), *grid,
+                                                                    384):
+        raise AssertionError(f"DINO trainer: {trainer.get_features}")
+    rays = trainer.datamanager.config.train_num_rays_per_batch
+    del trainer
+    dino = [m["dino_loss"] for m in losses]
+    step_ms = statistics.median(times)
+    result = dict(num_params=num_params, extract=timed, main_s=main_s, files=len(files),
+                  feature_shape=list(first.shape), host_bytes=host_bytes,
+                  card_vs_cpu_rel_err=ref_err, step_ms=step_ms, step_ms_all=times,
+                  train_phase_step_ms=train_step_ms, rays_per_s=rays / step_ms * 1e3,
+                  launches=launches,
+                  launches_per_step={k: v / len(times) for k, v in launches.items()},
+                  max_memory_allocated=peak, dino_loss=dino,
+                  first_losses=losses[0], last_losses=losses[-1])
+    print(f"train_dino samnerf_distill --model.use-dino-feature True, {rays} rays/step: "
+          f"median step {step_ms:.2f} ms over {len(times)} steps ({min(times):.1f}-"
+          f"{max(times):.1f}; train phase {train_step_ms:.2f}), "
+          f"{result['rays_per_s']:,.0f} rays/s; launches/step "
+          + ", ".join(f"{k}={v:g}" for k, v in result["launches_per_step"].items())
+          + f"; max_memory_allocated={peak / 2**30:.2f} GiB; dino_loss {dino[0]:.4f} -> "
+          f"{dino[-1]:.4f}", flush=True)
+    if not statistics.mean(dino[-5:]) < statistics.mean(dino[:5]):
+        raise AssertionError(f"the DINO loss did not fall: {dino}")
+    return result, scene
+
+
+# --- data beyond the nerfstudio format ----------------------------------------
+
+DATA_TRAIN_STEPS = 5            # full-width steps per routed scene, the first a warm-up
+DATA_RAYS = 4096                # rays held card against CPU per scene
+TOL_RAY_DIR = 1e-5              # unit directions, card vs CPU
+TOL_RAY_AREA = 1e-3             # pixel areas, relative
+DISTORTION = dict(k1=0.04, k2=-0.01, k3=0.002, p1=0.002, p2=-0.001)
+DATA_PATH_SIZES = {"fisheye": (256, 256), "equirectangular": (256, 512)}
+DATA_SERVE_SIZE = 512
+
+
+def _pose(i: int):
+    m = np.eye(4)
+    m[:3, :3] = np.array([[np.cos(0.3 * i), -np.sin(0.3 * i), 0.0],
+                          [np.sin(0.3 * i), np.cos(0.3 * i), 0.0], [0.0, 0.0, 1.0]])
+    m[:3, 3] = [0.1 * i, -0.05 * i, 1.0 + 0.1 * i]
+    return m
+
+
+def family_scenes(root: Path):
+    """A minimal scene of each dataparser family (the layouts the JAX
+    package's tests write) parsed by the port: {family: outputs}."""
+    import struct
+
+    from samnerf_tpu_torch.data import dataparsers_extra as dpe
+
+    out = {}
+
+    def make(name):
+        d = root / name
+        d.mkdir(parents=True)
+        return d
+
+    def frames(key="transform_matrix", n=4, **extra):
+        return [{"file_path": f"./train/r_{i}", key: _pose(i).tolist(), **extra}
+                for i in range(n)]
+
+    d = make("blender")
+    (d / "transforms_train.json").write_text(json.dumps(
+        {"camera_angle_x": 0.7, "frames": frames()}))
+    out["blender"] = dpe.parse_blender_data(dpe.BlenderDataparserConfig(data=d))
+    d = make("dnerf")
+    (d / "transforms_train.json").write_text(json.dumps(
+        {"camera_angle_x": 0.7, "frames": [dict(f, time=i / 3) for i, f in
+                                           enumerate(frames())]}))
+    out["dnerf"], _ = dpe.parse_dnerf_data(dpe.DNeRFDataparserConfig(data=d))
+    d = make("instant_ngp")
+    (d / "transforms.json").write_text(json.dumps(
+        {"camera_angle_x": 0.9, "cx": 320.0, "cy": 240.0, "h": 480, "w": 640,
+         "aabb_scale": 4, "frames": frames()}))
+    out["instant_ngp"] = dpe.parse_instant_ngp_data(dpe.InstantNGPDataparserConfig(data=d))
+    d = make("minimal")
+    np.savez(d / "train.npz", poses=np.stack([_pose(i)[:3] for i in range(2)]),
+             image_filenames=np.array(["a.png", "b.png"]), fx=100.0, fy=101.0, cx=32.0,
+             cy=30.0, height=64, width=64)
+    out["minimal"] = dpe.parse_minimal_data(dpe.MinimalDataparserConfig(data=d))
+    d = make("phototourism")
+    with open(d / "cameras.bin", "wb") as f:
+        f.write(struct.pack("<Q", 1) + struct.pack("<iiQQ", 1, 1, 640, 480)
+                + struct.pack("<4d", 400.0, 410.0, 320.0, 240.0))
+    with open(d / "images.bin", "wb") as f:
+        f.write(struct.pack("<Q", 2))
+        for iid, name in ((1, b"a.png"), (2, b"b.png")):
+            q = np.array([1.0, 0.1 * iid, -0.2, 0.05])
+            f.write(struct.pack("<I", iid) + struct.pack("<4d", *(q / np.linalg.norm(q)))
+                    + struct.pack("<3d", 0.0, 0.1, float(iid)) + struct.pack("<I", 1)
+                    + name + b"\x00" + struct.pack("<Q", 0))
+    out["phototourism"] = dpe.parse_phototourism_data(
+        dpe.PhototourismDataparserConfig(data=d))
+    d = make("sdfstudio")
+    (d / "meta_data.json").write_text(json.dumps(
+        {"height": 48, "width": 64, "frames": [
+            {"rgb_path": f"rgb/{i}.png", "camtoworld": _pose(i).tolist(),
+             "intrinsics": [[50, 0, 32, 0], [0, 50, 24, 0], [0, 0, 1, 0], [0, 0, 0, 1]]}
+            for i in range(2)]}))
+    out["sdfstudio"] = dpe.parse_sdfstudio_data(dpe.SDFStudioDataparserConfig(data=d))
+    d = make("scannet")
+    for sub in ("intrinsic", "pose", "color"):
+        (d / sub).mkdir()
+    np.savetxt(d / "intrinsic" / "intrinsic_color.txt", np.diag([500.0, 505.0, 1.0, 1.0]))
+    for i in range(2):
+        np.savetxt(d / "pose" / f"{i}.txt", _pose(i))
+    out["scannet"] = dpe.parse_scannet_data(dpe.ScanNetDataparserConfig(data=d))
+    d = make("arkitscenes")
+    (d / "lowres_wide_intrinsics").mkdir()
+    traj = []
+    for i, ts in enumerate(("100.000", "100.500")):
+        traj.append(f"{ts} 0.1 {0.2 * i} -0.05 {i * 0.3} 0.1 1.5")
+        (d / "lowres_wide_intrinsics" / f"{ts}.pincam").write_text(
+            f"256 192 {210 + i} {211 + i} 128.5 96.5")
+    (d / "lowres_wide.traj").write_text("\n".join(traj))
+    out["arkitscenes"] = dpe.parse_arkitscenes_data(dpe.ARKitScenesDataparserConfig(data=d))
+    d = make("dycheck")
+    (d / "camera").mkdir()
+    (d / "dataset.json").write_text(json.dumps({"train_ids": ["0_00000", "0_00001"]}))
+    for i, name in enumerate(("0_00000", "0_00001")):
+        (d / "camera" / f"{name}.json").write_text(json.dumps(
+            {"orientation": _pose(i)[:3, :3].tolist(), "position": [0, 0, 1 + i],
+             "focal_length": 100.0, "principal_point": [32, 24], "image_size": [64, 48]}))
+    out["dycheck"], _ = dpe.parse_dycheck_data(dpe.DycheckDataparserConfig(data=d))
+    d = make("sitcoms3d")
+    (d / "cameras.json").write_text(json.dumps(
+        {"frames": [{"intrinsics": [[100, 0, 64], [0, 100, 48], [0, 0, 1]],
+                     "camtoworld": _pose(i).tolist(), "image_name": f"f{i}.png"}
+                    for i in range(2)], "aabb": [[-2, -2, -2], [2, 2, 2]]}))
+    out["sitcoms3d"] = dpe.parse_sitcoms3d_data(dpe.Sitcoms3DDataparserConfig(data=d))
+    d = make("nuscenes")
+    tdir = d / "v1.0-mini"
+    tdir.mkdir()
+    tables = {"scene": [{"token": "sc0", "name": "scene-0001"}], "sample": [],
+              "sample_data": [], "ego_pose": [], "calibrated_sensor": [],
+              "sensor": [{"token": "se0", "channel": "CAM_FRONT", "modality": "camera"}]}
+    for i in range(10):
+        tables["sample"].append({"token": f"s{i}", "scene_token": "sc0",
+                                 "timestamp": 1000 + i})
+        tables["ego_pose"].append({"token": f"e{i}", "rotation": [1.0, 0.0, 0.0, 0.1 * i],
+                                   "translation": [float(i), 0.2 * i, 1.5]})
+        tables["calibrated_sensor"].append(
+            {"token": f"c{i}", "sensor_token": "se0", "rotation": [0.5, -0.5, 0.5, -0.5],
+             "translation": [1.5, 0.0, 1.6], "camera_intrinsic": [
+                 [1266.0, 0.0, 800.0], [0.0, 1266.0, 450.0], [0.0, 0.0, 1.0]]})
+        tables["sample_data"].append(
+            {"token": f"sd{i}", "sample_token": f"s{i}", "ego_pose_token": f"e{i}",
+             "calibrated_sensor_token": f"c{i}", "is_key_frame": True,
+             "filename": f"samples/CAM_FRONT/img_{i}.jpg"})
+    for name, rows in tables.items():
+        (tdir / f"{name}.json").write_text(json.dumps(rows))
+    out["nuscenes"] = dpe.parse_nuscenes_data(dpe.NuScenesDataparserConfig(
+        data="scene-0001", data_dir=d))
+    return out
+
+
+def _rays_card_vs_cpu(cameras, dev, seed: int, rays: int = DATA_RAYS):
+    """(max direction error, max relative pixel-area error, origins equal)
+    of ``rays`` random pixels' rays generated on the card and on the CPU."""
+    from samnerf_tpu_torch.core.cameras import generate_rays
+
+    rng = np.random.default_rng(seed)
+    idx = torch.from_numpy(rng.integers(0, cameras.num_cameras, rays))
+    coords = torch.from_numpy(np.stack([rng.integers(0, cameras.height, rays),
+                                        rng.integers(0, cameras.width, rays)], -1))
+    cpu = generate_rays(cameras, idx, coords)
+    card = generate_rays(cameras.to(dev), idx.to(dev), coords.to(dev))
+    d_err = float((card.directions.cpu() - cpu.directions).abs().max())
+    a_err = float(((card.pixel_area.cpu() - cpu.pixel_area).abs()
+                   / cpu.pixel_area.abs().clamp_min(1e-30)).max())
+    same_o = bool(torch.equal(card.origins.cpu(), cpu.origins))
+    return d_err, a_err, same_o
+
+
+def _formatted_scenes(scene: Path, root: Path):
+    """The synthetic scene in three more layouts over its images and
+    feature maps (symlinked): Blender (``camera_angle_x``), instant-ngp
+    (``aabb_scale``, OpenCV-flipped rotations, the field of view) and
+    nerfstudio with a shared OpenCV distortion."""
+    train = json.loads((scene / "transforms_train.json").read_text())
+    test = json.loads((scene / "transforms_test.json").read_text())
+    angle = 2.0 * math.atan(train["w"] / (2.0 * train["fl_x"]))
+    dirs = {}
+    for name in ("blender", "instant_ngp", "distorted"):
+        d = root / f"scene_{name}"
+        d.mkdir()
+        for sub in ("images", "sam_features", "clipseg_features"):
+            (d / sub).symlink_to(scene / sub, target_is_directory=True)
+        dirs[name] = d
+    for split, meta in (("train", train), ("test", test)):
+        (dirs["blender"] / f"transforms_{split}.json").write_text(json.dumps(
+            {"camera_angle_x": angle, "frames": [
+                {"file_path": "./" + f["file_path"][:-len(".png")],
+                 "transform_matrix": f["transform_matrix"]} for f in meta["frames"]]}))
+        (dirs["distorted"] / f"transforms_{split}.json").write_text(json.dumps(
+            {**meta, **DISTORTION}))
+    flipped = []
+    for f in train["frames"] + test["frames"]:
+        m = np.array(f["transform_matrix"])
+        m[0:3, 1:3] *= -1
+        flipped.append({"file_path": f["file_path"], "transform_matrix": m.tolist()})
+    (dirs["instant_ngp"] / "transforms.json").write_text(json.dumps(
+        {"camera_angle_x": angle, "cx": train["cx"], "cy": train["cy"], "h": train["h"],
+         "w": train["w"], "aabb_scale": 4, "frames": flipped}))
+    return dirs
+
+
+def _camera_path(kind: str, h: int, w: int):
+    from samnerf_tpu_torch.utils.synthetic import look_at_c2w
+
+    frames = []
+    for i in range(2):
+        ang = 0.4 + 0.5 * i
+        c2w = look_at_c2w(np.array([2.0 * math.cos(ang), 2.0 * math.sin(ang), 0.8]),
+                          np.zeros(3))
+        frames.append({"camera_to_world": c2w.reshape(-1).tolist(), "fov": 70.0,
+                       "aspect": w / h})
+    return {"camera_type": kind, "render_height": h, "render_width": w,
+            "camera_path": frames, "fps": 24, "seconds": 1}
+
+
+def data_phase(dev, scene: Path, root: Path, train_step_ms: float):
+    """Every dataparser family's scene parsed, its rays on the card
+    against the CPU; the synthetic scene as a Blender and an instant-ngp
+    directory routed by ``_detect_parser``, each trained
+    ``DATA_TRAIN_STEPS`` full-width steps through the train entry; the
+    scene with a shared OpenCV distortion (rays card vs CPU, trained, its
+    run directory rendered along fisheye and equirectangular camera paths
+    by ``scripts/render.py``); the scene trained with appearance
+    embeddings and served as baked int8 512x512 frames, fused and not
+    (FUSED-QMLP and Q-ENC launches)."""
+    from samnerf_tpu_torch import train as train_entry
+    from samnerf_tpu_torch.core.camera_paths import get_path_from_json
+    from samnerf_tpu_torch.data import dataparsers_extra as dpe
+    from samnerf_tpu_torch.data.datamanager import _detect_parser
+    from samnerf_tpu_torch.data.dataparser import DataparserConfig
+    from samnerf_tpu_torch.engine.eval_render import ImageRenderer
+    from samnerf_tpu_torch.engine.render_pipeline import SamNerfRenderer
+    from samnerf_tpu_torch.models.sam_model import SAMModel
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    from samnerf_tpu_torch.perception.sam.sam import Sam, init_decoder_params
+    from samnerf_tpu_torch.scripts import render as render_script
+    from PIL import Image
+
+    families = {}
+    for i, (name, out) in enumerate(family_scenes(root / "families").items()):
+        d_err, a_err, same_o = _rays_card_vs_cpu(out.cameras, dev, seed=i)
+        families[name] = dict(cameras=out.cameras.num_cameras,
+                              size=[out.cameras.height, out.cameras.width],
+                              dir_err=d_err, area_rel_err=a_err, origins_equal=same_o)
+        if d_err > TOL_RAY_DIR or a_err > TOL_RAY_AREA or not same_o:
+            raise AssertionError(f"{name} rays card vs CPU: {families[name]}")
+    print(f"data families: {len(families)} parsed ("
+          + ", ".join(f"{k} {v['cameras']}" for k, v in families.items())
+          + f"); rays card vs CPU max direction err "
+          f"{max(v['dir_err'] for v in families.values()):.2e} (tol {TOL_RAY_DIR:g}), "
+          f"pixel area {max(v['area_rel_err'] for v in families.values()):.2e} "
+          f"(tol {TOL_RAY_AREA:g})", flush=True)
+    if len(families) != len(dpe.dataparser_registry) - 1:      # all but nerfstudio's
+        raise AssertionError(f"families {sorted(families)}")
+
+    dirs = _formatted_scenes(scene, root)
+    routed, runs = {}, {}
+    for name, parser, family in (
+            ("blender", dpe.parse_blender_data, dpe.BlenderDataparserConfig),
+            ("instant_ngp", dpe.parse_instant_ngp_data, dpe.InstantNGPDataparserConfig)):
+        got = _detect_parser(DataparserConfig(data=dirs[name]))(
+            DataparserConfig(data=dirs[name]), "train")
+        want = parser(family(data=dirs[name]), "train")
+        routed[name] = (got.image_filenames == want.image_filenames
+                        and torch.equal(got.cameras.fx, want.cameras.fx)
+                        and got.dataparser_transform.shape == (3, 4))
+        config = train_entry.parse([
+            "samnerf_distill", "--data", str(dirs[name]), "--vis", "none",
+            "--trainer.save-final", "false", "--trainer.output-dir", str(root / f"out_{name}")])
+        trainer, losses, times, launches, _ = _timed_train(
+            config, dev, 1, DATA_TRAIN_STEPS - 1, f"the {name} train path")
+        runs[name] = dict(step_ms=statistics.median(times), launches=launches,
+                          images=trainer.datamanager.num_train_images,
+                          last_losses=losses[-1])
+        del trainer
+    if not all(routed.values()):
+        raise AssertionError(f"_detect_parser routed {routed}")
+
+    # the distorted scene: its rays, a run directory, camera paths
+    config = train_entry.parse([
+        "samnerf_distill", "--data", str(dirs["distorted"]), "--vis", "none",
+        "--trainer.output-dir", str(root / "run_distorted")])
+    train_entry.save_config(config)
+    trainer, losses, times, launches, _ = _timed_train(
+        config, dev, 1, DATA_TRAIN_STEPS - 1, "the distorted train path")
+    cams = trainer.datamanager.cameras
+    if cams.distortion_params is None:
+        raise AssertionError("the distorted scene parsed without distortion")
+    d_err, a_err, same_o = _rays_card_vs_cpu(cams, dev, seed=99, rays=16384)
+    runs["distorted"] = dict(step_ms=statistics.median(times), launches=launches,
+                             dir_err=d_err, area_rel_err=a_err, last_losses=losses[-1])
+    if d_err > TOL_RAY_DIR or a_err > TOL_RAY_AREA or not same_o:
+        raise AssertionError(f"distorted rays card vs CPU: {runs['distorted']}")
+    renders = {}
+    for kind, (h, w) in DATA_PATH_SIZES.items():
+        path_file = root / f"path_{kind}.json"
+        path_file.write_text(json.dumps(_camera_path(kind, h, w)))
+        out_dir = root / f"frames_{kind}"
+        t0 = time.perf_counter()
+        rc = render_script.main([str(root / "run_distorted"), "--traj", "filename",
+                                 "--camera-path-filename", str(path_file), "--output",
+                                 str(out_dir)], device=dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        frames = sorted(out_dir.glob("frame_*.png"))
+        path_cams = get_path_from_json(json.loads(path_file.read_text())).to(dev)
+        ref = ImageRenderer(trainer.model).render_image(path_cams, 0)["rgb"]
+        first = np.asarray(Image.open(frames[0])).astype(np.int64)
+        diff = int(np.abs(first - (np.clip(ref, 0, 1) * 255).astype(np.int64)).max())
+        renders[kind] = dict(rc=rc, frames=len(frames), shape=list(first.shape), ms=ms,
+                             max_diff=diff)
+        if rc != 0 or len(frames) != 2 or first.shape != (h, w, 3) or diff > 1:
+            raise AssertionError(f"render.py {kind}: {renders[kind]}")
+    del trainer
+
+    # appearance embeddings: train, then serve baked int8 frames
+    config = train_entry.parse([
+        "samnerf_distill", "--data", str(scene), "--model.use-appearance-embedding", "True",
+        "--vis", "none", "--trainer.save-final", "false",
+        "--trainer.output-dir", str(root / "out_appearance")])
+    trainer, losses, times, launches, _ = _timed_train(
+        config, dev, 1, DATA_TRAIN_STEPS - 1, "the appearance-embedding train path")
+    emb = trainer.model.fields.embedding_appearance.weight
+    runs["appearance"] = dict(step_ms=statistics.median(times), launches=launches,
+                              embeddings=list(emb.shape), last_losses=losses[-1])
+    if tuple(emb.shape) != (trainer.datamanager.num_train_images, 32):
+        raise AssertionError(f"appearance embeddings {tuple(emb.shape)}")
+    sam = Sam(device=dev)
+    sam.load_state_dict(init_decoder_params(torch.Generator().manual_seed(0), device=dev))
+    weights = trainer.model.state_dict()
+    serve = {}
+    for tag, fuse in (("int8_fused", True), ("int8", False)):
+        model = SAMModel(dataclasses.replace(trainer.model_cfg, hash_q8_serve=True,
+                                             serve_fuse_mlp=fuse), device=dev)
+        model.load_state_dict(weights)
+        snr = SamNerfRenderer(model, serve_preset="static")
+        snr.bake_serve_tables()
+        n = DATA_SERVE_SIZE
+        fn = snr.serve_frame_fn(sam, n, n)
+        fn(_cameras(dev, 0, n, n, 400.0 * n / 512), 0, (n / 2, n / 2))          # warm-up
+        torch.cuda.synchronize()
+        _reset_encode_launches(hg)
+        t0 = time.perf_counter()
+        img = fn(_cameras(dev, 1, n, n, 400.0 * n / 512), 0, (0.4 * n, 0.6 * n))
+        torch.cuda.synchronize()
+        serve[tag] = dict(frame_ms=(time.perf_counter() - t0) * 1e3,
+                          launches=_encode_launches(hg))
+        if img.dtype != torch.uint8 or tuple(img.shape) != (n, n, 3):
+            raise AssertionError(f"appearance frame {img.dtype} {tuple(img.shape)}")
+        del model, snr, fn
+    del trainer
+    if serve["int8_fused"]["launches"] != {"F32-ENC": 0, "Q-ENC": 0,
+                                          "FUSED-QMLP": FUSED_PER_FRAME} \
+            or serve["int8"]["launches"]["Q-ENC"] != F32_PER_FRAME \
+            or serve["int8"]["launches"]["FUSED-QMLP"]:
+        raise AssertionError(f"appearance serve launches {serve}")
+    result = dict(families=families, routed=routed, runs=runs, renders=renders,
+                  serve_appearance=serve, train_phase_step_ms=train_step_ms)
+    print("data train (full width, median of "
+          f"{DATA_TRAIN_STEPS - 1} steps after one): "
+          + ", ".join(f"{k} {v['step_ms']:.2f} ms" for k, v in runs.items())
+          + f" (train phase {train_step_ms:.2f}); 6 + 6 launches a step; distorted rays "
+          f"card vs CPU {runs['distorted']['dir_err']:.2e}; render.py fisheye "
+          f"{renders['fisheye']['ms']:.0f} ms, equirectangular "
+          f"{renders['equirectangular']['ms']:.0f} ms for 2 frames (diff "
+          f"{max(r['max_diff'] for r in renders.values())}); appearance model 512x512 "
+          f"int8 fused {serve['int8_fused']['frame_ms']:.1f} ms "
+          f"({serve['int8_fused']['launches']}), int8 {serve['int8']['frame_ms']:.1f} ms "
+          f"({serve['int8']['launches']})", flush=True)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3030,6 +3592,9 @@ def main() -> int:
     train = train_phase(dev)
     train_reference = train_reference_phase(dev)
     evaluation = eval_phase(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        dino, dino_scene = dino_phase(dev, Path(tmp), train["step_ms"])
+        data = data_phase(dev, dino_scene, Path(tmp), train["step_ms"])
     attn_rows = attn_kernel_phase(dev)
     attn_bf16_rows = attn_bf16_kernel_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3087,7 +3652,12 @@ def main() -> int:
     kernels[0]["launches_by_path"].update(cull_bake_f32=cull["bake"]["f32"]["launches"]["F32-ENC"],
                                           viewer_train=viewer_train["launches"]["F32-ENC"])
     kernels[1]["launches_by_path"].update(
-        cull_bake_int8=cull["bake"]["int8_fused"]["launches"]["Q-ENC"])
+        cull_bake_int8=cull["bake"]["int8_fused"]["launches"]["Q-ENC"],
+        serve_appearance_int8=data["serve_appearance"]["int8"]["launches"]["Q-ENC"])
+    data_train = {k: sum(r["launches"][k] for r in data["runs"].values())
+                  for k in ("F32-ENC", "F32-ENC-BWD")}
+    kernels[0]["launches_by_path"].update(train_dino=dino["launches"]["F32-ENC"],
+                                          data_train=data_train["F32-ENC"])
     f32_enc = kernels[0]
     f32_enc["max_abs_err"] = max(f32_enc["max_abs_err"],
                                  max(r["fwd_max_abs_err"] for r in train_rows
@@ -3117,7 +3687,9 @@ def main() -> int:
                         "serve_int8_fused": serve["int8_fused"]["launches"]["FUSED-QMLP"],
                         "view": view["launches"], "view_text": text_view["launches"],
                         "cull": sum(r["launches"]["FUSED-QMLP"] for r in cull["runs"].values()),
-                        "viewer": viewer["launches"]["FUSED-QMLP"]},
+                        "viewer": viewer["launches"]["FUSED-QMLP"],
+                        "serve_appearance_int8_fused":
+                            data["serve_appearance"]["int8_fused"]["launches"]["FUSED-QMLP"]},
                     "max_abs_err": max(r["max_abs_err"] for r in qmlp_rows),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
@@ -3135,7 +3707,9 @@ def main() -> int:
                         "train": train["launches"]["F32-ENC-BWD"],
                         "train_eval": evaluation["run_launches"]["F32-ENC-BWD"],
                         "train_no_distill": no_distill_train["launches"]["F32-ENC-BWD"],
-                        "viewer_train": viewer_train["launches"]["F32-ENC-BWD"]},
+                        "viewer_train": viewer_train["launches"]["F32-ENC-BWD"],
+                        "train_dino": dino["launches"]["F32-ENC-BWD"],
+                        "data_train": data_train["F32-ENC-BWD"]},
                     "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
@@ -3188,7 +3762,8 @@ def main() -> int:
          "serve_bf16": serve_bf16, "attn_bf16_kernel_rows": attn_bf16_rows,
          "encode_bf16": encode_bf16, "train_bf16": train_bf16,
          "eval": evaluation, "amg": amg, "cull": cull, "viewer": viewer,
-         "viewer_train": viewer_train, "kernels": kernels}, indent=1, default=str))
+         "viewer_train": viewer_train, "dino": dino, "data": data,
+         "kernels": kernels}, indent=1, default=str))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,9 @@ Both packages then compute the same function.
   -> torch [in, out, kh, kw], spatially flipped back: the inverse of
   ``build_sam._conv_t``;
 - ``LayerNorm`` ``scale`` -> ``weight``; ``Embed`` ``embedding`` ->
-  ``weight``;
+  ``weight`` (the nerfacto field's ``embedding_appearance`` [images, 32]
+  keeps its layout; the DINO head ``sam_field.dino_net`` is an ``MLP``
+  like the others);
 - hash ``table``, ``qtable{b}``, ``qscales{b}``, the encoder's
   ``pos_embed`` ([1, 64, 64, C] in both) and ``rel_pos_*`` and
   everything else pass through unchanged.

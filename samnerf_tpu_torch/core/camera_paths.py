@@ -4,9 +4,10 @@ Counterpart of ``samnerf_tpu/core/camera_paths.py``: the viewer's saved
 camera path (``get_path_from_json``), a slerp path through dataset
 cameras (``get_interpolated_camera_path``) and a spiral around one camera
 (``get_spiral_path``).  Poses are built in numpy on the host; the
-returned ``Cameras`` lie on the CPU (``.to(device)`` moves them).  The
-port's cameras are perspective only: a fisheye or equirectangular path
-raises (ROADMAP A10).
+returned ``Cameras`` lie on the CPU (``.to(device)`` moves them).  A
+saved path's ``camera_type`` (perspective, fisheye or equirectangular)
+goes into the cameras, whose rays follow it
+(:func:`samnerf_tpu_torch.core.cameras.generate_rays`).
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from samnerf_tpu_torch.core.cameras import Cameras
+from samnerf_tpu_torch.core.cameras import EQUIRECTANGULAR, FISHEYE, PERSPECTIVE, Cameras
 
 
 def three_js_perspective_camera_focal_length(fov_deg: float, image_height: int) -> float:
@@ -87,9 +88,10 @@ def get_interpolated_poses(pose_a: np.ndarray, pose_b: np.ndarray,
     return np.stack(out)
 
 
-def _cameras(poses: np.ndarray, fx, fy, cx, cy, width: int, height: int) -> Cameras:
+def _cameras(poses: np.ndarray, fx, fy, cx, cy, width: int, height: int,
+             camera_type: Optional[int] = None) -> Cameras:
     """Host ``Cameras`` from [N, 3, 4] poses and per-camera (or shared)
-    intrinsics."""
+    intrinsics, of one ``camera_type`` when given."""
     n = poses.shape[0]
 
     def col(v):
@@ -97,7 +99,9 @@ def _cameras(poses: np.ndarray, fx, fy, cx, cy, width: int, height: int) -> Came
 
     return Cameras(camera_to_worlds=torch.as_tensor(poses.astype(np.float32)),
                    fx=col(fx), fy=col(fy), cx=col(cx), cy=col(cy),
-                   width=int(width), height=int(height))
+                   width=int(width), height=int(height),
+                   camera_type=(None if camera_type is None else
+                                torch.full((n, 1), camera_type, dtype=torch.int32)))
 
 
 def get_interpolated_camera_path(cameras: Cameras, steps: int) -> Cameras:
@@ -155,16 +159,23 @@ def get_spiral_path(camera: Cameras, steps: int = 30, radius: Optional[float] = 
 def get_path_from_json(camera_path: Dict[str, Any]) -> Cameras:
     """The viewer's saved camera path (``render_height``, ``render_width``,
     ``camera_path``: keyframes of a row-major 4x4 ``camera_to_world`` and a
-    ``fov``) -> ``Cameras`` centred on the image."""
+    ``fov``, and a ``camera_type``) -> ``Cameras`` centred on the image.
+    An equirectangular path takes fx = width / 2 and fy = height; an
+    unknown type is perspective."""
     h = int(camera_path["render_height"])
     w = int(camera_path["render_width"])
     kind = camera_path.get("camera_type", "perspective")
-    if kind in ("fisheye", "equirectangular"):
-        raise ValueError(f"a {kind} camera path needs the camera models of "
-                         "ROADMAP A10; the port renders perspective cameras")
-    c2ws, fs = [], []
+    ctype = {"perspective": PERSPECTIVE, "fisheye": FISHEYE,
+             "equirectangular": EQUIRECTANGULAR}.get(kind, PERSPECTIVE)
+    c2ws, fxs, fys = [], [], []
     for cam in camera_path["camera_path"]:
         c2ws.append(np.asarray(cam["camera_to_world"], np.float32).reshape(4, 4)[:3])
-        fs.append(three_js_perspective_camera_focal_length(cam.get("fov"), h))
-    f = np.asarray(fs, np.float32)
-    return _cameras(np.stack(c2ws), f, f, w / 2.0, h / 2.0, w, h)
+        if ctype == EQUIRECTANGULAR:
+            fxs.append(w / 2.0)
+            fys.append(float(h))
+        else:
+            f = three_js_perspective_camera_focal_length(cam.get("fov"), h)
+            fxs.append(f)
+            fys.append(f)
+    return _cameras(np.stack(c2ws), np.asarray(fxs, np.float32), np.asarray(fys, np.float32),
+                    w / 2.0, h / 2.0, w, h, camera_type=ctype)

@@ -1,9 +1,13 @@
 """DataManager: a scene's cameras, images and precomputed features.
 
-Counterpart of ``samnerf_tpu/data/datamanager.py`` for the
-nerfstudio-format scene (:mod:`samnerf_tpu_torch.data.dataparser`).  All
-images are decoded once into one uint8 numpy array and each feature set
-into one float32 array; they stay in host memory until
+Counterpart of ``samnerf_tpu/data/datamanager.py``.  The scene's format
+picks its parser as in the JAX package (:func:`_detect_parser`): a Blender
+scene (``transforms_train.json`` with ``camera_angle_x`` and no
+``fl_x``) and an instant-ngp one (``transforms.json`` with ``aabb_scale``
+and no ``fl_x``) go to :mod:`samnerf_tpu_torch.data.dataparsers_extra`,
+the rest to the nerfstudio parser.  All images are decoded once into one
+uint8 numpy array and each feature set (SAM, DINO, ClipSeg) into one
+float32 array; they stay in host memory until
 :func:`samnerf_tpu_torch.data.device_data.build_device_dataset` moves the
 whole set to the card, where the trainer samples every batch.  The JAX
 package's host batch path for training (``next_train``) is not ported.
@@ -15,6 +19,7 @@ seeded like the JAX DataManager's, with the same arithmetic
 from __future__ import annotations
 
 import dataclasses
+import json
 from pathlib import Path
 from typing import Dict
 
@@ -32,6 +37,7 @@ class DataManagerConfig:
     eval_num_rays_per_batch: int = 4096 * 4
     patch_size: int = 1
     distill_sam: bool = False
+    use_dino_feature: bool = False
     use_clipseg_feature: bool = False
 
 
@@ -65,13 +71,51 @@ def sample_uniform(rng: np.random.Generator, batch_size: int, num_images: int,
     return idx
 
 
+def _family_config(cls, dp_config):
+    """A family parser's config carrying every field of the user's
+    ``DataparserConfig`` that it shares by name (``data``, ``scale_factor``,
+    ...), so routing keeps the user's overrides."""
+    return cls(**{f.name: getattr(dp_config, f.name) for f in dataclasses.fields(cls)
+                  if hasattr(dp_config, f.name)})
+
+
+def _read_json(path: Path) -> dict:
+    """The file's JSON object, or {} when it cannot be read or parsed."""
+    try:
+        return json.loads(path.read_text())
+    except (OSError, ValueError):
+        return {}
+
+
+def _detect_parser(dp_config):
+    """The parse function for the scene at ``dp_config.data``, by its files:
+    Blender, instant-ngp, else nerfstudio."""
+    from samnerf_tpu_torch.data import dataparsers_extra as extra
+
+    data = Path(dp_config.data)
+    tt = data / "transforms_train.json"
+    if tt.exists():
+        meta = _read_json(tt)
+        if "camera_angle_x" in meta and "fl_x" not in meta:
+            return lambda cfg, split: extra.parse_blender_data(
+                _family_config(extra.BlenderDataparserConfig, cfg), split=split)
+    tj = data / "transforms.json"
+    if tj.exists():
+        meta = _read_json(tj)
+        if "aabb_scale" in meta and "fl_x" not in meta:
+            return lambda cfg, split: extra.parse_instant_ngp_data(
+                _family_config(extra.InstantNGPDataparserConfig, cfg), split=split)
+    return parse_nerfstudio_data
+
+
 class DataManager:
     def __init__(self, config: DataManagerConfig, seed: int = 0):
         self.config = config
         self.rng = np.random.default_rng(seed)
         dp = config.dataparser
-        self.train_outputs = parse_nerfstudio_data(dp, split="train")
-        self.eval_outputs = parse_nerfstudio_data(dp, split="test")
+        parse = _detect_parser(dp)
+        self.train_outputs = parse(dp, split="train")
+        self.eval_outputs = parse(dp, split="test")
         self.cameras = self.train_outputs.cameras
         self.eval_cameras = self.eval_outputs.cameras
 
@@ -83,11 +127,14 @@ class DataManager:
         self.eval_images = (load_split(self.eval_outputs)
                             if self.eval_outputs.image_filenames else None)
         # [n, fh, fw, c] float32, or None when the config does not use them
-        self.sam_features = self.clipseg_features = None
+        self.sam_features = self.dino_features = self.clipseg_features = None
         names = self.train_outputs.image_filenames
         if config.distill_sam:
             self.sam_features = load_features(
                 [self._sibling(p, "sam_features", ".npy") for p in names])
+        if config.use_dino_feature:
+            self.dino_features = load_features(
+                [self._sibling(p, "dino_features", ".pt") for p in names])
         if config.use_clipseg_feature:
             self.clipseg_features = load_features(
                 [self._sibling(p, "clipseg_features", ".pt") for p in names],

@@ -2,9 +2,12 @@
 ``transforms.json`` -> cameras and scene box (host numpy, then torch).
 
 Counterpart of ``samnerf_tpu/data/dataparser.py`` (``parse_nerfstudio_data``
-with ``auto_orient_and_center_poses``), for pinhole cameras without
-distortion, the format the synthetic scene writes.  Blender and
-instant-ngp layouts, and lens distortion, wait.
+with ``auto_orient_and_center_poses``): pinhole intrinsics shared or per
+frame, and OpenCV distortion (``k1 k2 k3 k4 p1 p2``) shared at the top of
+the file or per frame, as the JAX package reads them (the top level counts
+as shared when it names any of ``k1 k2 k3 p1 p2``; all-zero parameters
+give undistorted cameras).  The other formats are parsed by
+:mod:`samnerf_tpu_torch.data.dataparsers_extra`.
 """
 from __future__ import annotations
 
@@ -44,6 +47,7 @@ class DataparserOutputs:
     dataparser_scale: float
     dataparser_transform: np.ndarray  # [3, 4]
     downscale_factor: int = 1
+    mask_filenames: Optional[List[Path]] = None
 
 
 def _rotation_between(a: np.ndarray, b: np.ndarray) -> np.ndarray:
@@ -95,18 +99,22 @@ def parse_nerfstudio_data(config: DataparserConfig,
         meta = json.loads((data / "transforms.json").read_text())
         data_dir = data
 
-    if any(float(src.get(k, 0.0)) for src in [meta, *meta["frames"]]
-           for k in _DISTORTION):
-        raise NotImplementedError("lens distortion is not ported yet")
     intrinsics = ("fl_x", "fl_y", "cx", "cy", "h", "w")
     per_frame = {k: [] for k in intrinsics if k not in meta}
-    image_filenames, poses = [], []
+    distort_fixed = any(k in meta for k in ("k1", "k2", "k3", "p1", "p2"))
+
+    def frame_dist(src):
+        return np.array([float(src.get(k, 0.0)) for k in _DISTORTION], np.float32)
+
+    image_filenames, poses, dists = [], [], []
     for frame in meta["frames"]:
         fp = Path(frame["file_path"])
         image_filenames.append(fp if fp.is_absolute() else data_dir / fp)
         poses.append(np.array(frame["transform_matrix"], np.float32))
         for k in per_frame:
             per_frame[k].append(float(frame[k]))
+        if not distort_fixed:
+            dists.append(frame_dist(frame))
 
     num_images = len(image_filenames)
     if config.train_val_json_split:
@@ -139,16 +147,20 @@ def parse_nerfstudio_data(config: DataparserConfig,
         df = 1
         while max(height, width) / df > MAX_AUTO_RESOLUTION:
             df *= 2
-    f = 1.0 / df
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
 
+    if distort_fixed:
+        dist = np.tile(frame_dist(meta)[None], (len(indices), 1))
+    else:
+        dist = np.stack(dists, axis=0)[indices]
     cameras = Cameras(
-        camera_to_worlds=t(poses[:, :3, :4]),
-        fx=t(pick("fl_x") * f), fy=t(pick("fl_y") * f),
-        cx=t(pick("cx") * f), cy=t(pick("cy") * f),
-        width=int(round(width * f)), height=int(round(height * f)))
+        camera_to_worlds=t(poses[:, :3, :4]), fx=t(pick("fl_x")), fy=t(pick("fl_y")),
+        cx=t(pick("cx")), cy=t(pick("cy")), width=width, height=height,
+        distortion_params=t(dist) if dist.any() else None)
+    if df > 1:
+        cameras = cameras.rescale_output_resolution(1.0 / df)
     return DataparserOutputs(
         image_filenames=[image_filenames[i] for i in indices], cameras=cameras,
         scene_box_aabb=np.array([[-config.scene_scale] * 3,

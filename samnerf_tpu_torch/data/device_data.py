@@ -3,7 +3,8 @@
 Counterpart of ``samnerf_tpu/data/device_data.py``: uint8 images and
 float32 feature maps live in device memory once; each batch is drawn on
 the device from a ``torch.Generator`` (uniform pixels, or patch-major
-patches with the SAM target at each patch's centre pixel), so a step
+patches with the SAM target at each patch's centre pixel, the DINO and
+ClipSeg targets at every pixel), so a step
 moves nothing from the host.  The index arithmetic after the uniform
 draw (:func:`indices_from_uniform`) and the gathers (:func:`gather_batch`)
 are the JAX package's; only the random numbers differ.  This is the
@@ -21,6 +22,8 @@ def build_device_dataset(datamanager, device) -> Dict[str, torch.Tensor]:
     data = {"images": torch.as_tensor(datamanager.images, device=device)}
     if datamanager.sam_features is not None:
         data["sam_features"] = torch.as_tensor(datamanager.sam_features, device=device)
+    if datamanager.dino_features is not None:
+        data["dino_features"] = torch.as_tensor(datamanager.dino_features, device=device)
     if datamanager.clipseg_features is not None:
         data["clipseg_features"] = torch.as_tensor(datamanager.clipseg_features,
                                                    device=device)
@@ -79,13 +82,15 @@ def lookup_features(features: torch.Tensor, indices: torch.Tensor,
 def gather_batch(data: Dict[str, torch.Tensor], indices: torch.Tensor, patch_size: int,
                  image_hw) -> Dict[str, torch.Tensor]:
     """The batch at ``indices``: rgb in [0, 1], the SAM target at each
-    patch centre, the ClipSeg target at each pixel."""
+    patch centre, the DINO and ClipSeg targets at each pixel."""
     batch = {"indices": indices,
              "image": data["images"][indices[:, 0], indices[:, 1], indices[:, 2]]
              .float() / 255.0}
     if "sam_features" in data:
         batch["sam"] = lookup_features(data["sam_features"],
                                        patch_centers(indices, patch_size), image_hw)
+    if "dino_features" in data:
+        batch["dino"] = lookup_features(data["dino_features"], indices, image_hw)
     if "clipseg_features" in data:
         batch["clipseg"] = lookup_features(data["clipseg_features"], indices, image_hw)
     return batch

@@ -4,7 +4,8 @@ Counterpart of ``samnerf_tpu/data/feature_loader.py``: every per-image map
 goes into one ``[n, h, w, c]`` float32 numpy array, which
 :func:`samnerf_tpu_torch.data.device_data.build_device_dataset` moves to
 the card; lookups happen there (``device_data.lookup_features``).  SAM
-maps are ``.npy`` [c, h, w]; ClipSeg maps are ``.pt`` activation dicts.
+maps are ``.npy`` [c, h, w]; DINO maps are ``.pt`` tensors [h, w, c];
+ClipSeg maps are ``.pt`` activation dicts.
 """
 from __future__ import annotations
 

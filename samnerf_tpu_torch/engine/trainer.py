@@ -121,8 +121,10 @@ class Trainer:
         self.model = SAMModel(model_cfg, device=self.device)
         self.model.load_state_dict(init_params(
             model_cfg, torch.Generator().manual_seed(trainer_cfg.seed), self.device))
-        self.get_features = ((("sam", "clipseg") if model_cfg.use_clipseg_feature
-                              else ("sam",)) if model_cfg.distill_sam else ())
+        self.get_features = tuple(
+            f for f, on in (("sam", True), ("dino", model_cfg.use_dino_feature),
+                            ("clipseg", model_cfg.use_clipseg_feature))
+            if on and model_cfg.distill_sam)
         self.optimizer = build_optimizer(optimizer_groups, self.model)
         self.state = TrainState()
         self.cameras = datamanager.cameras.to(self.device)

@@ -11,9 +11,12 @@ as one FUSED-QMLP launch.  Serve-time culling (an occupancy grid,
 to the sentinel 0.5 before the encode and zeroes their density; the grid
 is tested per tile of the JAX package's point stream
 (:func:`samnerf_tpu_torch.ops.occupancy.stream_tile_live`), so both
-packages cull the same points.  Appearance embeddings (off in both
-presets) wait.  ``compute_dtype`` sets the MLPs' type; the hash encodes
-return f32, which the MLPs cast.
+packages cull the same points.  With ``use_appearance_embedding`` (off in
+both presets) the colour head also reads a 32-d embedding per training
+image: the rays' ``camera_indices`` in training, the mean embedding at
+eval (zeros without ``use_average_appearance_embedding``); the base MLP
+fuses as before, the colour head never did.  ``compute_dtype`` sets the
+MLPs' type; the hash encodes return f32, which the MLPs cast.
 """
 from __future__ import annotations
 
@@ -92,10 +95,16 @@ class NerfactoField(nn.Module):
                  num_layers_color: int = 3, hidden_dim_color: int = 64,
                  hash_q8: bool = False, hash_fn: str = "reference",
                  quant_bits: int = 8, fuse_mlp: bool = False,
-                 compute_dtype=torch.float32, occ_res: int = 0, device="cuda"):
+                 compute_dtype=torch.float32, occ_res: int = 0,
+                 num_images: int = 1, use_appearance_embedding: bool = False,
+                 appearance_embedding_dim: int = 32,
+                 use_average_appearance_embedding: bool = True, device="cuda"):
         super().__init__()
         self.fuse = hash_q8 and fuse_mlp
         self.occ_res = occ_res
+        self.use_appearance_embedding = use_appearance_embedding
+        self.use_average_appearance_embedding = use_average_appearance_embedding
+        self.appearance_embedding_dim = appearance_embedding_dim
         self.encoding = ParityHashEncoding(
             num_levels=num_levels, min_res=16, max_res=max_res,
             log2_hashmap_size=log2_hashmap_size, features_per_level=2,
@@ -104,10 +113,14 @@ class NerfactoField(nn.Module):
         self.mlp_base = MLP(self.encoding.out_dim, hidden_dim, num_layers - 1,
                             1 + geo_feat_dim, compute_dtype=compute_dtype,
                             device=device)
-        self.mlp_head = MLP(16 + geo_feat_dim, hidden_dim_color,
+        emb_dim = appearance_embedding_dim if use_appearance_embedding else 0
+        self.mlp_head = MLP(16 + geo_feat_dim + emb_dim, hidden_dim_color,
                             num_layers_color - 1, 3,
                             output_activation=sigmoid,
                             compute_dtype=compute_dtype, device=device)
+        if use_appearance_embedding:
+            self.embedding_appearance = nn.Embedding(num_images, appearance_embedding_dim,
+                                                     device=device)
 
     def get_density(self, positions: torch.Tensor, occ: Optional[ServeOccupancy] = None,
                     live_in: Optional[torch.Tensor] = None):
@@ -133,13 +146,28 @@ class NerfactoField(nn.Module):
 
     def forward(self, positions: torch.Tensor, directions: torch.Tensor,
                 occ: Optional[ServeOccupancy] = None,
-                live_in: Optional[torch.Tensor] = None) -> dict:
+                live_in: Optional[torch.Tensor] = None,
+                camera_indices: Optional[torch.Tensor] = None,
+                train: bool = False) -> dict:
         """positions [R, S, 3], directions [R, 3] -> density, rgb; ``occ``
-        and ``live_in`` as in :meth:`get_density`."""
+        and ``live_in`` as in :meth:`get_density`; ``camera_indices`` [R, 1]
+        pick the appearance embeddings when ``train``."""
         density, geo = self.get_density(positions, occ, live_in)
         d_enc = sh_encoding(directions)[..., None, :].expand(
             *positions.shape[:-1], 16)
-        rgb = self.mlp_head(torch.cat([d_enc, geo], dim=-1))
+        h = [d_enc, geo]
+        if self.use_appearance_embedding:
+            dim = self.appearance_embedding_dim
+            rays = positions.shape[0]
+            table = self.embedding_appearance.weight
+            if train and camera_indices is not None:
+                emb = self.embedding_appearance(camera_indices[..., 0].long())
+            elif self.use_average_appearance_embedding:
+                emb = table.mean(dim=0).expand(rays, dim)
+            else:
+                emb = table.new_zeros(rays, dim)
+            h.append(emb[..., None, :].expand(*positions.shape[:-1], dim))
+        rgb = self.mlp_head(torch.cat(h, dim=-1))
         return {"density": density, "rgb": rgb}
 
 

@@ -1,7 +1,10 @@
-"""SAM / ClipSeg feature distillation field and the patch conv head,
-counterpart of ``samnerf_tpu/fields/sam_field.py`` (the DINO head waits).
-With ``hash_q8`` and ``fuse_mlp`` (serve only) each head's two pyramids
-and its MLP run as one FUSED-QMLP launch."""
+"""SAM / DINO / ClipSeg feature distillation field and the patch conv
+head, counterpart of ``samnerf_tpu/fields/sam_field.py``.  The DINO head
+reads the SAM pyramids' features.  With ``hash_q8`` and ``fuse_mlp``
+(serve only) each head's two pyramids and its MLP run as one FUSED-QMLP
+launch; a request for ``dino`` keeps the SAM head unfused, since both
+heads then share one encode of the SAM pyramids (the JAX package's rule).
+"""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
@@ -18,14 +21,15 @@ from samnerf_tpu_torch.utils.dtypes import conv2d, resolve_dtype
 
 class SAMField(nn.Module):
     """Two hash-grid pyramids per head feeding a 1-hidden-layer MLP:
-    256-d SAM and 192-d ClipSeg embeddings at contracted points."""
+    256-d SAM, 384-d DINO (on the SAM pyramids, with ``use_dino``) and
+    192-d ClipSeg embeddings at contracted points."""
 
     def __init__(self, grid_layers: Tuple[int, ...] = (12, 12),
                  grid_sizes: Tuple[int, ...] = (19, 19),
                  grid_resolutions: Tuple[Tuple[int, int], ...] = ((16, 128), (128, 512)),
                  features_per_level: int = 8, hidden_layers: int = 1,
-                 hidden_dim: int = 256, sam_dim: int = 256,
-                 clipseg_dim: int = 192, use_clipseg: bool = True,
+                 hidden_dim: int = 256, sam_dim: int = 256, dino_dim: int = 384,
+                 clipseg_dim: int = 192, use_dino: bool = False, use_clipseg: bool = True,
                  hash_q8: bool = False, hash_fn: str = "reference",
                  quant_bits: int = 8, fuse_mlp: bool = False,
                  compute_dtype=torch.float32, device="cuda"):
@@ -48,6 +52,10 @@ class SAMField(nn.Module):
         self.sam_enc = pyramids()
         self.sam_net = MLP(in_dim, hidden_dim, hidden_layers, sam_dim,
                            compute_dtype=compute_dtype, device=device)
+        self.use_dino = use_dino
+        if use_dino:
+            self.dino_net = MLP(in_dim, hidden_dim, 1, dino_dim,
+                                compute_dtype=compute_dtype, device=device)
         self.use_clipseg = use_clipseg
         if use_clipseg:
             self.clipseg_enc = pyramids()
@@ -66,15 +74,22 @@ class SAMField(nn.Module):
         if live is not None:
             flat = torch.where(live.reshape(-1, 1) > 0, flat, 0.5)
 
-        def head(encs, net):
-            if self.fuse and _mlp_is_fusable(net):
-                h = _fused_encode_mlp(encs, net, flat)
-            else:
-                h = net(torch.cat([e(flat) for e in encs], dim=-1))
+        def unflat(h):
             return h.reshape(*positions.shape[:-1], h.shape[-1])
 
+        def head(encs, net):
+            if self.fuse and _mlp_is_fusable(net):
+                return unflat(_fused_encode_mlp(encs, net, flat))
+            return unflat(net(torch.cat([e(flat) for e in encs], dim=-1)))
+
         out = {}
-        if "sam" in get_features:
+        wants_dino = "dino" in get_features and self.use_dino
+        if wants_dino:
+            x = torch.cat([e(flat) for e in self.sam_enc], dim=-1)
+            if "sam" in get_features:
+                out["sam"] = unflat(self.sam_net(x))
+            out["dino"] = unflat(self.dino_net(x))
+        elif "sam" in get_features:
             out["sam"] = head(self.sam_enc, self.sam_net)
         if "clipseg" in get_features and self.use_clipseg:
             out["clipseg"] = head(self.clipseg_enc, self.clipseg_net)

@@ -1,6 +1,6 @@
 """SAMModel: proposal sampling, nerfacto field, volume rendering, top-k
-sharpened samples and the SAM / ClipSeg feature render, with the training
-losses and schedules.
+sharpened samples and the SAM / DINO / ClipSeg feature render, with the
+training losses and schedules.
 
 Counterpart of ``samnerf_tpu/models/sam_model.py`` (``SAMModelConfig``,
 ``SAMModel.__call__``, ``features_from_topk``, ``get_loss_dict``,
@@ -8,10 +8,12 @@ Counterpart of ``samnerf_tpu/models/sam_model.py`` (``SAMModelConfig``,
 culling: an occupancy grid (``occupancy``, baked by
 :func:`samnerf_tpu_torch.engine.eval_render.bake_occupancy`) in every
 field, and early ray termination (``serve_transmittance_eps``).  The DINO
-head and appearance embeddings wait (both presets leave them off).
-``use_remat`` and ``sort_points`` only schedule the TPU and are left out:
-activations fit the card, and the point sort is exact and
-order-restoring, so leaving it out changes no result.  The
+head (``use_dino_feature``, its loss ``dino_loss_weight``) and appearance
+embeddings (``use_appearance_embedding`` over ``num_images`` training
+images) are off in both presets.  ``use_remat`` and ``sort_points`` only
+schedule the TPU and are left out: activations fit the card, and the
+point sort is exact and order-restoring, so leaving it out changes no
+result.  The
 state dict names follow the flax tree (see :mod:`samnerf_tpu_torch.convert`):
 ``fields``, ``proposal_networks.i``, ``sam_field``, ``conv``.
 """
@@ -48,6 +50,7 @@ class SAMModelConfig:
     num_levels: int = 16
     max_res: int = 2048
     log2_hashmap_size: int = 19
+    use_appearance_embedding: bool = False
     num_proposal_samples_per_ray: Tuple[int, ...] = (64,)
     num_nerf_samples_per_ray: int = 32
     proposal_update_every: int = 5
@@ -62,8 +65,10 @@ class SAMModelConfig:
     interlevel_loss_mult: float = 1.0
     distortion_loss_mult: float = 0.002
     sam_loss_weight: float = 1.0
+    dino_loss_weight: float = 1.0
     clipseg_loss_weight: float = 1.0
     distill_sam: bool = True
+    use_dino_feature: bool = False
     use_clipseg_feature: bool = True
     num_sam_samples: int = 16
     sharpening_temperature: float = 10.0
@@ -90,6 +95,9 @@ class SAMModelConfig:
     transmittance, estimated from the last proposal level's weights, is
     at most this are culled.  Training never culls."""
     hash_fn: str = "reference"
+    num_images: int = 1
+    """Training images, one appearance embedding each (``train.py`` sets
+    it from the data)."""
     compute_dtype: Any = torch.float32
     """The type of every field MLP and the conv head (parameters stay
     f32): ``torch.float32`` / ``torch.bfloat16`` or the CLI's
@@ -117,7 +125,8 @@ class SAMModel(nn.Module):
             log2_hashmap_size=cfg.log2_hashmap_size, hash_q8=cfg.hash_q8_serve,
             hash_fn=cfg.hash_fn, quant_bits=cfg.serve_quant_bits,
             fuse_mlp=cfg.serve_fuse_mlp, compute_dtype=cfg.compute_dtype,
-            occ_res=cfg.occ_res, device=device)
+            occ_res=cfg.occ_res, num_images=cfg.num_images,
+            use_appearance_embedding=cfg.use_appearance_embedding, device=device)
         args = cfg.proposal_net_args
         self.proposal_networks = nn.ModuleList(
             HashMLPDensityField(
@@ -130,7 +139,7 @@ class SAMModel(nn.Module):
             self.sam_field = SAMField(
                 grid_layers=cfg.hashgrid_layers, grid_sizes=cfg.hashgrid_sizes,
                 grid_resolutions=cfg.hashgrid_resolutions,
-                hidden_layers=cfg.hidden_layers,
+                hidden_layers=cfg.hidden_layers, use_dino=cfg.use_dino_feature,
                 use_clipseg=cfg.use_clipseg_feature, hash_q8=cfg.hash_q8_serve,
                 hash_fn=cfg.hash_fn,
                 quant_bits=cfg.serve_quant_bits_sam or cfg.serve_quant_bits,
@@ -149,8 +158,8 @@ class SAMModel(nn.Module):
                 occupancy: Optional[ServeOccupancy] = None) -> Dict[str, Any]:
         """Render a flat bundle of rays.
 
-        ``get_features`` is a subset of ("sam", "clipseg"); with "sam" and
-        ``patch_size > 1`` rays arrive patch-major.  ``return_topk`` also
+        ``get_features`` is a subset of ("sam", "dino", "clipseg"); with
+        "sam" and ``patch_size > 1`` rays arrive patch-major.  ``return_topk`` also
         emits the per-ray top-k sharpened weights ``topk_w`` [R, K, 1] and
         euclidean sample mids ``topk_mid`` [R, K] for the fused feature
         pass of :mod:`samnerf_tpu_torch.engine.eval_render`.
@@ -205,7 +214,7 @@ class SAMModel(nn.Module):
             live_et = _early_termination(weights_list[-1], ray_samples_list[-1],
                                          ray_samples, cfg.serve_transmittance_eps)
         field_out = self.fields(ray_samples.positions(), ray_samples.directions,
-                                occupancy, live_et)
+                                occupancy, live_et, ray_bundle.camera_indices, train)
         weights = ray_samples.get_weights(field_out["density"])
         if bg_color is not None:
             rgb = render_ops.render_rgb(field_out["rgb"], weights,
@@ -246,8 +255,8 @@ class SAMModel(nn.Module):
     def features_from_topk(self, positions: torch.Tensor, weights: torch.Tensor,
                            get_features: Sequence[str],
                            cull: bool = False) -> Dict[str, Any]:
-        """SAM / ClipSeg field at pre-selected top-k samples: positions
-        [R, K, 3], sharpened weights [R, K, 1] -> weighted means, the SAM
+        """SAM / DINO / ClipSeg field at pre-selected top-k samples:
+        positions [R, K, 3], sharpened weights [R, K, 1] -> weighted means, the SAM
         one through the patch conv head.  ``cull`` (serve only): zero-weight
         samples take the sentinel position (exact; see ``SAMField``).  The
         serve path calls this under ``torch.no_grad``."""
@@ -263,6 +272,8 @@ class SAMModel(nn.Module):
                     sam_render.reshape(-1, ps, ps, sam_render.shape[-1]))
             else:
                 out["sam"] = sam_render
+        if "dino" in feats:
+            out["dino"] = render_ops.render_mean(feats["dino"], weights)
         if "clipseg" in feats:
             out["clipseg"] = render_ops.render_mean(feats["clipseg"], weights)
         return out
@@ -295,7 +306,8 @@ def init_params(config: SAMModelConfig, generator: torch.Generator,
 def get_loss_dict(config: SAMModelConfig, outputs: Dict[str, Any],
                   batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Training losses.  ``batch['image']`` is [R, 3]; with patch_size > 1
-    the SAM target ``batch['sam']`` is per patch [R / ps^2, 256]."""
+    the SAM target ``batch['sam']`` is per patch [R / ps^2, 256]; the DINO
+    and ClipSeg targets are per ray."""
     loss_dict = {"rgb_loss": torch.mean((batch["image"] - outputs["rgb"]) ** 2)}
     if "weights_list" in outputs:
         loss_dict["interlevel_loss"] = config.interlevel_loss_mult * loss_ops.interlevel_loss(
@@ -305,6 +317,9 @@ def get_loss_dict(config: SAMModelConfig, outputs: Dict[str, Any],
     if config.distill_sam and "sam" in outputs:
         loss_dict["sam_loss"] = config.sam_loss_weight * loss_ops.masked_feature_mse(
             outputs["sam"], batch["sam"])
+        if config.use_dino_feature and "dino" in outputs:
+            loss_dict["dino_loss"] = config.dino_loss_weight * loss_ops.masked_feature_mse(
+                outputs["dino"], batch["dino"])
         if config.use_clipseg_feature and "clipseg" in outputs:
             loss_dict["clipseg_loss"] = config.clipseg_loss_weight * \
                 loss_ops.masked_feature_mse(outputs["clipseg"], batch["clipseg"])

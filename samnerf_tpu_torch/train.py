@@ -5,7 +5,11 @@ Counterpart of ``samnerf_tpu/train.py`` for the ``samnerf_distill`` and
 
     python -m samnerf_tpu_torch.train samnerf_distill --data /path/to/scene \\
         [--trainer.max-num-iterations N] [--model.hash-fn reference] \\
-        [--model.compute-dtype bfloat16] ...
+        [--model.compute-dtype bfloat16] [--model.use-dino-feature True \\
+        --datamanager.use-dino-feature True] ...
+
+``--data`` takes a nerfstudio, Blender or instant-ngp directory (routed
+by ``data.datamanager._detect_parser``).
 
 Writes ``config.json`` and ``samnerf_tpu_torch_ckpts/step-*.pt`` under
 ``<output_dir>/<scene>/<method>/<timestamp>/``, and the event writers that
@@ -79,6 +83,7 @@ def train_loop(config: MethodConfig, device="cuda", step_callback=None):
     random.seed(seed)
     np.random.seed(seed)
     dm = DataManager(config.datamanager, seed=seed)
+    config.model = dataclasses.replace(config.model, num_images=dm.num_train_images)
     trainer = Trainer(config.model, config.trainer, config.optimizers, dm,
                       device=device)
     viewer = _setup_vis(config, trainer)

@@ -81,6 +81,7 @@ def eval_setup(run_dir: Path, device="cuda"):
         config.model = dataclasses.replace(config.model, compute_dtype="bfloat16")
     config.trainer.output_dir = run_dir
     dm = DataManager(config.datamanager, seed=config.trainer.seed)
+    config.model = dataclasses.replace(config.model, num_images=dm.num_train_images)
     trainer = Trainer(config.model, config.trainer, config.optimizers, dm, device=device)
     ckpt = find_latest_checkpoint(run_dir / CKPT_DIR)
     if ckpt is not None:

@@ -19,9 +19,10 @@ def init_state(module: nn.Module, generator: torch.Generator, device="cuda",
       ``in_proj_weight``): normal with variance 1 / fan_in, fan_in = the
       product of all but the leading dim (lecun normal, untruncated);
     - norm weights of rank 1: ones; biases (and ``in_proj_bias``): zeros;
-    - the ViT's position embedding and rel-pos tables (``pos_embed``,
-      ``rel_pos_h``, ``rel_pos_w``; zeros in the reference's init):
-      normal with std 0.02, so the bias they give is not zero;
+    - the ViTs' position embeddings, rel-pos tables and DINO's class token
+      (``pos_embed``, ``rel_pos_h``, ``rel_pos_w``, ``cls_token``; zeros or
+      truncated normal in the references' inits): normal with std 0.02, so
+      the bias they give is not zero;
     - CLIP's ``class_embedding``, ``positional_embedding``, ``proj`` and
       ``text_projection``: normal with std width ** -0.5, CLIP's own scale
       (width the last dim of a position embedding, else the leading one);
@@ -43,7 +44,7 @@ def init_state(module: nn.Module, generator: torch.Generator, device="cuda",
                 / math.sqrt(fan_in)
         elif leaf == "weight":
             t = torch.ones(shape)
-        elif leaf in ("pos_embed", "rel_pos_h", "rel_pos_w"):
+        elif leaf in ("pos_embed", "rel_pos_h", "rel_pos_w", "cls_token"):
             t = torch.randn(shape, generator=generator, device=gdev) * 0.02
         elif leaf in ("class_embedding", "positional_embedding", "proj", "text_projection"):
             width = shape[-1] if leaf == "positional_embedding" else shape[0]

@@ -104,8 +104,12 @@ def test_path_from_json_matches_jax():
 
 @pytest.mark.parametrize("kind", ("fisheye", "equirectangular"))
 def test_path_from_json_refuses_other_camera_models(kind):
-    with pytest.raises(ValueError, match="A10"):
-        tcp.get_path_from_json(_path_json(kind=kind))
+    """Fisheye and equirectangular paths are no longer refused: their
+    cameras, camera types included, are the JAX package's."""
+    path = _path_json(kind=kind)
+    t, j = tcp.get_path_from_json(path), jcp.get_path_from_json(path)
+    _assert_same(t, j)
+    np.testing.assert_array_equal(t.camera_type.numpy(), np.asarray(j.camera_type))
 
 
 def test_quaternion_helpers_match_jax():

@@ -68,8 +68,19 @@ def test_crossed_matches_jax():
             (step, n, every)
 
 
-def test_json_rows_match_jax(tmp_path, clean_writer):
-    """The same events through both writer modules give the same rows."""
+def _drain(w):
+    """Drop ``w``'s writers, its queued events and its running averages.
+
+    Under xdist a worker that ran a JAX test file earlier can leave events
+    queued in ``jwriter._EVENTS`` and ``jwriter.GLOBAL_BUFFER``; ``reset``
+    clears only the writers, so without this the JAX side writes extra rows.
+    """
+    w.reset()
+    w.write_out_storage()
+    w.GLOBAL_BUFFER["events"].clear()
+
+
+def _json_rows(tmp_path):
     img = np.zeros((4, 4, 3), np.float32)
 
     def emit(w):
@@ -83,7 +94,7 @@ def test_json_rows_match_jax(tmp_path, clean_writer):
 
     rows = {}
     for name, w in (("port", writer), ("jax", jwriter)):
-        w.reset()
+        _drain(w)
         w.setup_event_writer("json", tmp_path / name)
         (tmp_path / name).mkdir()
         emit(w)
@@ -94,6 +105,20 @@ def test_json_rows_match_jax(tmp_path, clean_writer):
         "Test PSNR", "Eval Loss Dict/rgb_loss", "Train Iter (time)", "Test Rays / Sec"]
     assert writer.GLOBAL_BUFFER["events"]["Train Iter (time)"]["avg"] == \
         jwriter.GLOBAL_BUFFER["events"]["Train Iter (time)"]["avg"] == 0.125
+
+
+def test_json_rows_match_jax(tmp_path, clean_writer):
+    """The same events through both writer modules give the same rows."""
+    _json_rows(tmp_path)
+
+
+def test_json_rows_match_jax_after_queued_events(tmp_path, clean_writer):
+    """Events queued in either module before the comparison (as an earlier
+    test file in the same process leaves them) do not reach its rows."""
+    jwriter.put_time(jwriter.EventName.ITER_TRAIN_TIME, 0.5, 1)
+    jwriter.put_scalar(jwriter.EventName.CURR_TEST_PSNR, 9.0, 1)
+    writer.put_time(writer.EventName.ITER_TRAIN_TIME, 0.5, 1)
+    _json_rows(tmp_path)
 
 
 @pytest.fixture(scope="module")
