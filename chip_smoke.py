@@ -3551,6 +3551,251 @@ def data_phase(dev, scene: Path, root: Path, train_step_ms: float):
     return result
 
 
+# --- the model zoo ---------------------------------------------------------
+
+ZOO_STEPS = 32                  # steps of each zoo method through the train entry
+ZOO_NGP_STEPS = 288             # instant-ngp: the grid updates before steps 257 and 273
+ZOO_WARMUP = 2                  # steps before the timed ones
+ZOO_RAYS = 4096                 # rays per step, the zoo's default
+ZOO_CLASSES = 16
+ZOO_F32_PER_STEP = {"instant-ngp": 1, "depth-nerfacto": 2, "semantic-nerfw": 3}
+"""F32-ENC and F32-ENC-BWD launches per step: the nerfacto field's
+pyramid, the proposal network's, and semantic-NeRF-W's second read of
+the field for its head."""
+ZOO_F32_PER_CHUNK = {"instant-ngp": 1, "depth-nerfacto": 2, "semantic-nerfw": 2}
+"""F32-ENC launches per 4096-ray eval chunk (semantic-NeRF-W evaluates
+without its head)."""
+
+
+def zoo_scene_extras(scene: Path, seed: int = 5):
+    """Seeded depth maps (``depths/<stem>.npy`` in metres for the even
+    images, 16-bit ``.png`` millimetres for the odd ones, zero, i.e. no
+    depth, on a tenth of the pixels) and 16-class ``semantics/<stem>.png``
+    masks (a class per 32x32 block) beside the scene's images.  Returns
+    the images' (height, width)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    (scene / "depths").mkdir(exist_ok=True)
+    (scene / "semantics").mkdir(exist_ok=True)
+    for i, img in enumerate(sorted((scene / "images").glob("*.png"))):
+        w, h = Image.open(img).size
+        depth = rng.uniform(1.0, 3.0, (h, w)).astype(np.float32)
+        depth[rng.uniform(size=(h, w)) < 0.1] = 0.0
+        if i % 2 == 0:
+            np.save(scene / "depths" / f"{img.stem}.npy", depth)
+        else:
+            Image.fromarray(np.round(depth * 1000).astype(np.uint16)).save(
+                scene / "depths" / f"{img.stem}.png")
+        blocks = rng.integers(0, ZOO_CLASSES, (-(-h // 32), -(-w // 32)))
+        classes = np.kron(blocks, np.ones((32, 32), np.int64))[:h, :w].astype(np.uint8)
+        Image.fromarray(classes).save(scene / "semantics" / f"{img.stem}.png")
+    return h, w
+
+
+def _zoo_kernel_hold(dev, run):
+    """F32-ENC and F32-ENC-BWD against their plain versions at the
+    positions and cotangent of one instant-ngp train render (4096 rays x
+    192 samples of the trained model, with its grid): one 16-level pyramid
+    of one pack at 2^19 rows and the reference hash."""
+    from samnerf_tpu_torch.core.cameras import generate_rays
+    from samnerf_tpu_torch.ops import hash_grid as hg
+
+    model, enc, cap = run.model, run.model.field.encoding, {}
+
+    def hook(module, args, out):
+        cap["positions"] = args[0].detach().clone()
+        out.register_hook(lambda g: cap.setdefault("cotangent", g.detach().clone()))
+
+    handle = enc.register_forward_hook(hook)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cams = _cameras(dev, 2, 512, 512, 400.0)
+    idx = torch.randint(0, 512, (ZOO_RAYS, 2), generator=gen, device=dev)
+    rb = generate_rays(cams, torch.zeros(ZOO_RAYS, dtype=torch.long, device=dev), idx)
+    out = model(rb, train=True, generator=gen, occupancy=run.occupancy)
+    out["rgb"].square().mean().backward()
+    handle.remove()
+    model.zero_grad(set_to_none=True)
+    pos, g = cap["positions"], cap["cotangent"].contiguous()
+    args = (pos, enc.scalings, enc.num_steps, enc.hash_fn)
+    fwd_err = (hg.parity_hash_encode(enc.table.detach(), *args)
+               - hg.parity_hash_encode_ref(enc.table.detach(), *args)).abs().max().item()
+    grad, ref = hg.parity_hash_encode_bwd(g, *args), hg.parity_hash_encode_bwd_ref(g, *args)
+    bwd_err = (grad - ref).abs().max().item()
+    ratio = _tol_ratio(grad, ref, **TOL_TABLE_GRAD)
+    del grad, ref
+    hold = dict(points=pos.shape[0], levels=len(enc.scalings), packs=enc.table.shape[0]
+                // len(enc.scalings), num_steps=enc.num_steps, hash_fn=enc.hash_fn,
+                f32_enc_max_abs_err=fwd_err, f32_enc_bwd_max_abs_err=bwd_err,
+                f32_enc_bwd_tol_ratio=ratio)
+    if not (fwd_err <= TOL_KERNEL and math.isfinite(ratio) and ratio <= 1.0):
+        raise AssertionError(f"the f32 kernels at instant-ngp's step disagree: {hold}")
+    return hold
+
+
+def zoo_phase(dev, scene: Path, root: Path):
+    """Each of the eight zoo methods through ``train.main([method, "--data",
+    scene, ...])`` at its default widths and 4096 rays a step (instant-ngp
+    ``ZOO_NGP_STEPS``, the others ``ZOO_STEPS``): ms per step (median after
+    ``ZOO_WARMUP``), rays/s, peak memory over the timed steps, the first
+    and last losses (finite; the rgb loss falling), the eval PSNR of
+    view 0 (finite) and its render's ms, and for the hash methods the
+    F32-ENC / F32-ENC-BWD launches per step and per eval image; the
+    instant-ngp grid's occupied share after each update (two, in (0, 1]);
+    then F32-ENC and F32-ENC-BWD held against their plain versions at an
+    instant-ngp step's positions."""
+    from samnerf_tpu_torch import train as train_entry
+    from samnerf_tpu_torch.configs.zoo import zoo_methods
+    from samnerf_tpu_torch.ops import hash_grid as hg
+
+    h, w = zoo_scene_extras(scene)
+    chunks = -(-h * w // train_entry.EVAL_CHUNK)     # eval view 0 is as large as the images
+    results, hold = {}, None
+    for name in zoo_methods():
+        steps = ZOO_NGP_STEPS if name == "instant-ngp" else ZOO_STEPS
+        losses, times, per_step, t_prev, counts = [], [], [], [0.0], {}
+        runs = []
+
+        def on_step(step, metrics):
+            losses.append({k: float(v) for k, v in metrics.items()})
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            launches = (hg.parity_hash_encode.launches, hg.parity_hash_encode_bwd.launches)
+            if step == ZOO_WARMUP:
+                torch.cuda.reset_peak_memory_stats()
+            elif step > ZOO_WARMUP:
+                times.append((now - t_prev[0]) * 1e3)
+                per_step.append((launches[0] - counts["last"][0]
+                                 - ("occupied" in metrics), launches[1] - counts["last"][1]))
+            if step == steps:
+                counts["peak"] = torch.cuda.max_memory_allocated()
+            counts["last"] = launches
+            t_prev[0] = now
+
+        _reset_encode_launches(hg)
+        rc = train_entry.main(
+            [name, "--data", str(scene), "--max-num-iterations", str(steps),
+             "--rays-per-batch", str(ZOO_RAYS), "--output-dir", str(root / "zoo"),
+             "--log-every", str(steps)],
+            device=dev, step_callback=on_step, run_callback=runs.append)
+        run = runs[0]
+        eval_launches = hg.parity_hash_encode.launches - counts["last"][0]
+        rgb_key = "rgb_loss_fine" if "rgb_loss_fine" in losses[0] else "rgb_loss"
+        rgb = [m[rgb_key] for m in losses]
+        step_ms = statistics.median(times)
+        res = dict(steps=steps, step_ms=step_ms, step_ms_all=times,
+                   rays_per_s=ZOO_RAYS / step_ms * 1e3, max_memory_allocated=counts["peak"],
+                   first_losses=losses[0], last_losses=losses[-1], rgb_loss_key=rgb_key,
+                   psnr=run.psnr, eval_ms=run.eval_ms,
+                   occupancy_updates=run.occupancy_updates,
+                   f32_enc_per_step=sorted({a for a, _ in per_step}),
+                   f32_enc_bwd_per_step=sorted({b for _, b in per_step}),
+                   f32_enc_per_eval_image=eval_launches, eval_chunks=chunks)
+        results[name] = res
+        per = ZOO_F32_PER_STEP.get(name, 0)
+        print(f"zoo {name}: {ZOO_RAYS} rays/step, median step {step_ms:.2f} ms over "
+              f"{len(times)} steps, {res['rays_per_s']:,.0f} rays/s, peak "
+              f"{counts['peak'] / 2**30:.2f} GiB; {rgb_key} {rgb[0]:.5f} -> {rgb[-1]:.5f}, "
+              f"total {losses[0]['total_loss']:.5f} -> {losses[-1]['total_loss']:.5f}; "
+              f"eval view 0 PSNR {run.psnr:.2f} ({run.eval_ms:.0f} ms for {h}x{w}); F32-ENC "
+              f"{res['f32_enc_per_step']}/step, F32-ENC-BWD {res['f32_enc_bwd_per_step']}"
+              f"/step, F32-ENC {eval_launches}/eval image"
+              + (f"; grid updates (step, occupied share) {run.occupancy_updates}"
+                 if run.occupancy_updates else ""), flush=True)
+        if rc != 0 or not all(math.isfinite(v) for m in losses for v in m.values()) \
+                or not math.isfinite(run.psnr):
+            raise AssertionError(f"zoo {name}: rc {rc}, losses {losses[0]} -> {losses[-1]}, "
+                                 f"PSNR {run.psnr}")
+        if not statistics.mean(rgb[-4:]) < statistics.mean(rgb[:4]):
+            raise AssertionError(f"zoo {name}: the rgb loss did not fall: {rgb}")
+        if res["f32_enc_per_step"] != [per] or res["f32_enc_bwd_per_step"] != [per] \
+                or eval_launches != ZOO_F32_PER_CHUNK.get(name, 0) * chunks:
+            raise AssertionError(f"zoo {name}: launches per step F32-ENC "
+                                 f"{res['f32_enc_per_step']}, F32-ENC-BWD "
+                                 f"{res['f32_enc_bwd_per_step']}, not [{per}]; per eval "
+                                 f"image {eval_launches} for {chunks} chunks")
+        if name == "instant-ngp":
+            if [s for s, _ in run.occupancy_updates] != [257, 273] or not all(
+                    0.0 < share <= 1.0 for _, share in run.occupancy_updates):
+                raise AssertionError(f"instant-ngp grid updates {run.occupancy_updates}")
+            hold = _zoo_kernel_hold(dev, run)
+            print(f"zoo kernels at an instant-ngp step ({hold['points']} points, "
+                  f"{hold['levels']} levels x {hold['packs']} pack, {hold['num_steps']} "
+                  f"steps, {hold['hash_fn']} hash): F32-ENC max abs err "
+                  f"{hold['f32_enc_max_abs_err']:.2e} (tol {TOL_KERNEL:g}), F32-ENC-BWD "
+                  f"{hold['f32_enc_bwd_max_abs_err']:.2e} ({hold['f32_enc_bwd_tol_ratio']:.3f}"
+                  f" x tol)", flush=True)
+        del run, runs
+        torch.cuda.empty_cache()
+    return dict(methods=results, kernel_hold=hold,
+                launches={"F32-ENC": sum((r["f32_enc_per_step"][0] * len(r["step_ms_all"])
+                                          for r in results.values())),
+                          "F32-ENC-BWD": sum((r["f32_enc_bwd_per_step"][0]
+                                              * len(r["step_ms_all"])
+                                              for r in results.values()))})
+
+
+ZOO_REF_RAYS = 256
+
+
+def zoo_reference_phase(dev):
+    """One small instant-ngp step (16 levels at 2^14 rows, 48 samples, a
+    16^3 grid built on each device from the same cells and jitter) on the
+    card vs on the CPU, where every kernel runs its plain version: the
+    grid bit for bit, the losses, every gradient and the eval outputs."""
+    from samnerf_tpu_torch.configs import zoo
+    from samnerf_tpu_torch.core.cameras import generate_rays
+    from samnerf_tpu_torch.models.instant_ngp import InstantNGPConfig, InstantNGPModel
+    from samnerf_tpu_torch.ops.occupancy import update_occupancy
+
+    cfg = InstantNGPConfig(num_samples=48, log2_hashmap_size=14)
+    state = {k: v * 2000.0 if k.endswith("table") else v for k, v in zoo.init_zoo_params(
+        InstantNGPModel(cfg, device="meta"), torch.Generator().manual_seed(0), "cpu").items()}
+    g = torch.Generator().manual_seed(1)
+    idx = torch.stack([torch.zeros(ZOO_REF_RAYS, dtype=torch.long),
+                       torch.randint(0, 64, (ZOO_REF_RAYS,), generator=g),
+                       torch.randint(0, 64, (ZOO_REF_RAYS,), generator=g)], -1)
+    batch = {"indices": idx, "image": torch.rand((ZOO_REF_RAYS, 3), generator=g)}
+    draws = {"jitter": (torch.rand((ZOO_REF_RAYS, 1), generator=g),),
+             "bg_rgb": torch.rand((ZOO_REF_RAYS, 3), generator=g)}
+    cells, jit = torch.randint(0, 16 ** 3, (2048,), generator=g), torch.rand((2048, 3),
+                                                                          generator=g)
+    method = zoo.zoo_methods()["instant-ngp"]
+    outs = []
+    for d in (torch.device(dev), torch.device("cpu")):
+        model = InstantNGPModel(cfg, device=d)
+        model.load_state_dict(state)
+        _, grid = update_occupancy(torch.full((16 ** 3,), 0.005, device=d), model.density_fn,
+                                   model.aabb, idx=cells.to(d), jitter=jit.to(d))
+        cams = _cameras(d, 1, 64, 64, 50.0)
+        losses, _ = zoo.zoo_loss_and_grads(
+            method, model, cfg, cams, {k: v.to(d) for k, v in batch.items()},
+            occupancy=grid, draws={k: tuple(x.to(d) for x in v) if isinstance(v, tuple)
+                                   else v.to(d) for k, v in draws.items()})
+        ev = model(generate_rays(cams, idx[:, 0].to(d), idx[:, 1:].to(d)), train=False,
+                   occupancy=grid)
+        outs.append((grid.cpu(), {k: v.item() for k, v in losses.items()},
+                     {n: p.grad.cpu() for n, p in model.named_parameters()},
+                     {k: v.cpu() for k, v in ev.items()}))
+    (ga, la, gra, eva), (gb, lb, grb, evb) = outs
+    loss_err = max(abs(la[k] - lb[k]) / max(abs(lb[k]), 1e-12) for k in lb)
+    ratios = {n: _tol_ratio(gra[n], grb[n], **(TOL_TABLE_GRAD if n.endswith("table")
+                                               else TOL_DENSE_GRAD)) for n in grb}
+    eval_err = max((eva[k] - evb[k]).abs().max().item() for k in evb)
+    worst = max(ratios, key=ratios.get)
+    report = dict(grid_equal=torch.equal(ga, gb), occupied=float(gb.mean()),
+                  loss_max_rel_err=loss_err, grad_tol_ratio=ratios, worst=worst,
+                  eval_max_abs_err=eval_err, losses=la)
+    print(f"zoo reference: instant-ngp card vs CPU step, grid equal {report['grid_equal']} "
+          f"(occupied {report['occupied']:.3f}), losses max rel err {loss_err:.2e} (tol "
+          f"{TOL_LOSS:g}), gradients within {ratios[worst]:.3f} x tol at worst ({worst}), "
+          f"eval max abs err {eval_err:.2e} (tol {TOL_FRAME:g})", flush=True)
+    if not report["grid_equal"] or loss_err > TOL_LOSS or eval_err > TOL_FRAME \
+            or not all(math.isfinite(r) and r <= 1.0 for r in ratios.values()):
+        raise AssertionError(f"card and CPU instant-ngp steps disagree: {report}")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3595,6 +3840,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         dino, dino_scene = dino_phase(dev, Path(tmp), train["step_ms"])
         data = data_phase(dev, dino_scene, Path(tmp), train["step_ms"])
+        zoo = zoo_phase(dev, dino_scene, Path(tmp))
+    zoo_reference = zoo_reference_phase(dev)
     attn_rows = attn_kernel_phase(dev)
     attn_bf16_rows = attn_bf16_kernel_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3657,11 +3904,13 @@ def main() -> int:
     data_train = {k: sum(r["launches"][k] for r in data["runs"].values())
                   for k in ("F32-ENC", "F32-ENC-BWD")}
     kernels[0]["launches_by_path"].update(train_dino=dino["launches"]["F32-ENC"],
-                                          data_train=data_train["F32-ENC"])
+                                          data_train=data_train["F32-ENC"],
+                                          zoo_train=zoo["launches"]["F32-ENC"])
     f32_enc = kernels[0]
     f32_enc["max_abs_err"] = max(f32_enc["max_abs_err"],
                                  max(r["fwd_max_abs_err"] for r in train_rows
-                                     if r["kernel"] == "F32-ENC-BWD"))
+                                     if r["kernel"] == "F32-ENC-BWD"),
+                                 zoo["kernel_hold"]["f32_enc_max_abs_err"])
     step_rep = next(r for r in train_rows if r["kernel"] == "F32-ENC-BWD"
                     and r["shape"] == "nerfacto" and r["positions"] == "step")
     f32_enc["ms_step_positions"] = step_rep["fwd_ms"]
@@ -3709,8 +3958,10 @@ def main() -> int:
                         "train_no_distill": no_distill_train["launches"]["F32-ENC-BWD"],
                         "viewer_train": viewer_train["launches"]["F32-ENC-BWD"],
                         "train_dino": dino["launches"]["F32-ENC-BWD"],
-                        "data_train": data_train["F32-ENC-BWD"]},
-                    "max_abs_err": max(r["max_abs_err"] for r in bwd_rows),
+                        "data_train": data_train["F32-ENC-BWD"],
+                        "zoo_train": zoo["launches"]["F32-ENC-BWD"]},
+                    "max_abs_err": max(max(r["max_abs_err"] for r in bwd_rows),
+                                       zoo["kernel_hold"]["f32_enc_bwd_max_abs_err"]),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
                     "library_ms": None, "ms_step_positions": step_rep["ms"],
@@ -3762,7 +4013,8 @@ def main() -> int:
          "serve_bf16": serve_bf16, "attn_bf16_kernel_rows": attn_bf16_rows,
          "encode_bf16": encode_bf16, "train_bf16": train_bf16,
          "eval": evaluation, "amg": amg, "cull": cull, "viewer": viewer,
-         "viewer_train": viewer_train, "dino": dino, "data": data,
+         "viewer_train": viewer_train, "dino": dino, "data": data, "zoo": zoo,
+         "zoo_reference": zoo_reference,
          "kernels": kernels}, indent=1, default=str))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -25,6 +25,9 @@ Both packages then compute the same function.
   ``pos_embed`` ([1, 64, 64, C] in both) and ``rel_pos_*`` and
   everything else pass through unchanged.
 
+``zoo_params_from_jax`` does the same for a model of the zoo
+(``configs/zoo.py``): their flax names already map to the port's.
+
 ``train_checkpoint_from_jax`` bridges a whole training checkpoint of the
 JAX ``Trainer`` (parameters, optax Adam moments, step) to the port's.
 
@@ -94,6 +97,30 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 state[".".join([_module_name(p) for p in path] + [name])] = t
 
     walk(tree, ())
+    return state
+
+
+_ZOO_TOP_LEVEL = {
+    "vanilla-nerf": {"field_coarse", "field_fine"}, "mipnerf": {"field"},
+    "instant-ngp": {"field"}, "tensorf": {"field"},
+    "depth-nerfacto": {"fields", "proposal_networks"},
+    "semantic-nerfw": {"backbone", "semantic_head"},
+    "nerfplayer-nerfacto": {"field"}, "nerfplayer-ngp": {"field"}}
+
+
+def zoo_params_from_jax(name: str, tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The flax params of zoo method ``name``'s model -> the port model's
+    state dict.  :func:`params_from_jax` with no renames: the port names
+    its modules as the flax ones (``field.mlp_base.layers.0``,
+    ``field.density_planes``, ``backbone.proposal_networks.0``).  Raises
+    when the tree's top-level modules are not that method's."""
+    if name not in _ZOO_TOP_LEVEL:
+        raise KeyError(f"unknown zoo method {name!r}")
+    state = params_from_jax(tree)
+    top = {k.split(".", 1)[0] for k in state}
+    if top != _ZOO_TOP_LEVEL[name]:
+        raise ValueError(f"{name} params have top-level modules {sorted(top)}, "
+                         f"not {sorted(_ZOO_TOP_LEVEL[name])}")
     return state
 
 

@@ -23,6 +23,7 @@ class RayBundle:
     camera_indices: Optional[torch.Tensor] = None  # [R, 1] int
     nears: Optional[torch.Tensor] = None  # [R, 1]
     fars: Optional[torch.Tensor] = None  # [R, 1]
+    times: Optional[torch.Tensor] = None  # [R, 1] in [0, 1]
 
     def with_near_far(self, near: float, far: float) -> "RayBundle":
         """NearFarCollider: constant near/far for every ray."""
@@ -43,6 +44,9 @@ class RaySamples:
     spacing_ends: torch.Tensor  # [R, S, 1]
     s_near: torch.Tensor  # [R, 1]
     s_far: torch.Tensor  # [R, 1]
+    pixel_area: Optional[torch.Tensor] = None  # [R, 1]
+    camera_indices: Optional[torch.Tensor] = None  # [R, 1] int
+    times: Optional[torch.Tensor] = None  # [R, 1] in [0, 1]
 
     @property
     def deltas(self) -> torch.Tensor:

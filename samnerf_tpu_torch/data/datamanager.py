@@ -109,7 +109,9 @@ def _detect_parser(dp_config):
 
 
 class DataManager:
-    def __init__(self, config: DataManagerConfig, seed: int = 0):
+    def __init__(self, config: DataManagerConfig, seed: int = 0, load_images: bool = True):
+        """``load_images=False`` leaves ``images`` and ``eval_images`` None
+        (a subclass that keeps its own, as ``VariableResDataManager``)."""
         self.config = config
         self.rng = np.random.default_rng(seed)
         dp = config.dataparser
@@ -123,9 +125,11 @@ class DataManager:
             return np.stack([_load_image(p, outputs.downscale_factor)
                              for p in outputs.image_filenames])
 
-        self.images = load_split(self.train_outputs)
-        self.eval_images = (load_split(self.eval_outputs)
-                            if self.eval_outputs.image_filenames else None)
+        self.images = self.eval_images = None
+        if load_images:
+            self.images = load_split(self.train_outputs)
+            self.eval_images = (load_split(self.eval_outputs)
+                                if self.eval_outputs.image_filenames else None)
         # [n, fh, fw, c] float32, or None when the config does not use them
         self.sam_features = self.dino_features = self.clipseg_features = None
         names = self.train_outputs.image_filenames

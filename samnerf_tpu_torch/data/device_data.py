@@ -18,7 +18,9 @@ import torch
 
 
 def build_device_dataset(datamanager, device) -> Dict[str, torch.Tensor]:
-    """Images [N, H, W, 3] uint8 and feature maps [N, fh, fw, C] f32."""
+    """Images [N, H, W, 3] uint8, feature maps [N, fh, fw, C] f32, and the
+    depth datamanager's ``depths`` [N, H, W] f32 or the semantic one's
+    ``semantics`` [N, H, W] int32."""
     data = {"images": torch.as_tensor(datamanager.images, device=device)}
     if datamanager.sam_features is not None:
         data["sam_features"] = torch.as_tensor(datamanager.sam_features, device=device)
@@ -27,6 +29,9 @@ def build_device_dataset(datamanager, device) -> Dict[str, torch.Tensor]:
     if datamanager.clipseg_features is not None:
         data["clipseg_features"] = torch.as_tensor(datamanager.clipseg_features,
                                                    device=device)
+    for name in ("depths", "semantics"):          # the zoo's extra channels
+        if getattr(datamanager, name, None) is not None:
+            data[name] = torch.as_tensor(getattr(datamanager, name), device=device)
     return data
 
 
@@ -82,7 +87,9 @@ def lookup_features(features: torch.Tensor, indices: torch.Tensor,
 def gather_batch(data: Dict[str, torch.Tensor], indices: torch.Tensor, patch_size: int,
                  image_hw) -> Dict[str, torch.Tensor]:
     """The batch at ``indices``: rgb in [0, 1], the SAM target at each
-    patch centre, the DINO and ClipSeg targets at each pixel."""
+    patch centre, the DINO and ClipSeg targets at each pixel, and the
+    depth (``depth_image``) or class id (``semantics``) at each pixel, [B,
+    1]."""
     batch = {"indices": indices,
              "image": data["images"][indices[:, 0], indices[:, 1], indices[:, 2]]
              .float() / 255.0}
@@ -93,6 +100,12 @@ def gather_batch(data: Dict[str, torch.Tensor], indices: torch.Tensor, patch_siz
         batch["dino"] = lookup_features(data["dino_features"], indices, image_hw)
     if "clipseg_features" in data:
         batch["clipseg"] = lookup_features(data["clipseg_features"], indices, image_hw)
+    if "depths" in data:
+        batch["depth_image"] = data["depths"][indices[:, 0], indices[:, 1],
+                                              indices[:, 2]][:, None]
+    if "semantics" in data:
+        batch["semantics"] = data["semantics"][indices[:, 0], indices[:, 1],
+                                               indices[:, 2]][:, None]
     return batch
 
 

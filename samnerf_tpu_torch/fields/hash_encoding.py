@@ -1,5 +1,7 @@
-"""The parity hash grid as a module, counterpart of
-``samnerf_tpu/fields/hash_encoding.py`` (``ParityHashEncoding``)."""
+"""The hash grids as modules, counterpart of
+``samnerf_tpu/fields/hash_encoding.py``: ``ParityHashEncoding`` (the
+Pallas kernels' layout, F32-ENC / Q-ENC here) and ``HashEncoding`` (the
+flat feature-major table, plain PyTorch)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -7,10 +9,34 @@ from typing import Optional
 import torch
 from torch import nn
 
+from samnerf_tpu_torch.ops import encodings as enc_ops
 from samnerf_tpu_torch.ops.encodings import hash_grid_scalings
 from samnerf_tpu_torch.ops.hash_grid import (LANES, PARITIES, hash_encode,
                                              interleave_packs, parity_hash_encode_q8,
                                              quantize_parity_table)
+
+
+class HashEncoding(nn.Module):
+    """Multiresolution hash grid over the flat table: parameter ``table``
+    [F, L * 2^S] f32; positions [N, 3] in [0, 1] -> [N, F*L]
+    (feature-major channels, :func:`samnerf_tpu_torch.ops.encodings.hash_encode`)."""
+
+    def __init__(self, num_levels: int = 16, min_res: int = 16, max_res: int = 2048,
+                 log2_hashmap_size: int = 19, features_per_level: int = 2,
+                 device="cuda"):
+        super().__init__()
+        self.log2_hashmap_size = log2_hashmap_size
+        self.scalings = tuple(hash_grid_scalings(num_levels, min_res, max_res).tolist())
+        self.table = nn.Parameter(torch.empty(
+            (features_per_level, num_levels << log2_hashmap_size), device=device))
+
+    @property
+    def out_dim(self) -> int:
+        return self.table.shape[0] * len(self.scalings)
+
+    def forward(self, positions: torch.Tensor) -> torch.Tensor:
+        return enc_ops.hash_encode(self.table, positions, self.scalings,
+                                   self.log2_hashmap_size)
 
 
 class ParityHashEncoding(nn.Module):

@@ -1,8 +1,8 @@
-"""NeRF losses: interlevel (proposal), distortion and the masked feature MSE.
+"""NeRF losses: interlevel (proposal), distortion, the masked feature MSE,
+and the model zoo's normal, depth and MiDaS losses.
 
-Counterpart of ``samnerf_tpu/ops/losses.py:22-91``; ``take_along_last``
-becomes ``torch.gather``.  The normal, depth and MiDaS losses serve the
-model zoo and wait.
+Counterpart of ``samnerf_tpu/ops/losses.py``; ``take_along_last``
+becomes ``torch.gather``.
 """
 from __future__ import annotations
 
@@ -77,3 +77,94 @@ def masked_feature_mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor
     per_pix = torch.mean((pred - target) ** 2, dim=-1)
     denom = torch.clamp_min(torch.sum(valid), 1)
     return torch.sum(torch.where(valid, per_pix, 0.0)) / denom
+
+
+def orientation_loss(weights: torch.Tensor, normals: torch.Tensor,
+                     view_dirs: torch.Tensor) -> torch.Tensor:
+    """Ref-NeRF's penalty on normals facing away from the camera, [R]:
+    weights [R, S, 1], normals [R, S, 3], view_dirs [R, 3]."""
+    n_dot_v = torch.sum(normals * view_dirs[..., None, :], dim=-1)
+    return torch.sum(weights[..., 0] * torch.clamp_max(n_dot_v, 0.0) ** 2, dim=-1)
+
+
+def pred_normal_loss(weights: torch.Tensor, normals: torch.Tensor,
+                     pred_normals: torch.Tensor) -> torch.Tensor:
+    """Agreement of density-gradient and predicted normals, [R]."""
+    return torch.sum(weights[..., 0] * (1.0 - torch.sum(normals * pred_normals, dim=-1)),
+                     dim=-1)
+
+
+def ds_nerf_depth_loss(weights: torch.Tensor, termination_depth: torch.Tensor,
+                       steps: torch.Tensor, lengths: torch.Tensor,
+                       sigma: float) -> torch.Tensor:
+    """DS-NeRF's depth likelihood: weights, sample mids ``steps`` and
+    interval ``lengths`` [R, S, 1], termination_depth [R, 1] (rays with
+    depth <= 0 carry no loss)."""
+    depth_mask = (termination_depth > 0).to(weights.dtype)
+    loss = -torch.log(weights + 1e-5) * torch.exp(
+        -((steps - termination_depth[:, None]) ** 2) / (2 * sigma)) * lengths
+    return torch.mean(torch.sum(loss, dim=-2) * depth_mask)
+
+
+def urban_radiance_field_depth_loss(weights: torch.Tensor,
+                                    termination_depth: torch.Tensor,
+                                    predicted_depth: torch.Tensor,
+                                    steps: torch.Tensor,
+                                    sigma: float) -> torch.Tensor:
+    """URF's depth loss: expected-depth L2 plus the line-of-sight terms
+    (near the surface, weights follow a normalized Gaussian; before it,
+    they are zero)."""
+    depth_mask = (termination_depth > 0).to(weights.dtype)
+    expected_depth_loss = (termination_depth - predicted_depth) ** 2
+    td = termination_depth[:, None]
+    near_mask = ((steps <= td + sigma) & (steps >= td - sigma)).to(weights.dtype)
+    w_target = torch.exp(-((steps - td) ** 2) / (2 * sigma))
+    w_target = w_target / torch.clamp_min(torch.sum(w_target, dim=-2, keepdim=True), 1e-6)
+    near = torch.sum(near_mask * (weights - w_target) ** 2, dim=-2)
+    empty = torch.sum((steps < td - sigma).to(weights.dtype) * weights ** 2, dim=-2)
+    return torch.mean((expected_depth_loss + near + empty) * depth_mask)
+
+
+def midas_scale_shift(prediction: torch.Tensor, target: torch.Tensor,
+                      mask: torch.Tensor):
+    """Per-image least-squares (scale, shift) [B] taking ``prediction`` to
+    ``target`` over ``mask`` [B, H, W]; (0, 0) where the system is
+    singular."""
+    a00 = torch.sum(mask * prediction * prediction, dim=(-2, -1))
+    a01 = torch.sum(mask * prediction, dim=(-2, -1))
+    a11 = torch.sum(mask, dim=(-2, -1))
+    b0 = torch.sum(mask * prediction * target, dim=(-2, -1))
+    b1 = torch.sum(mask * target, dim=(-2, -1))
+    det = a00 * a11 - a01 * a01
+    valid = det > 0
+    safe = torch.where(valid, det, 1.0)
+    scale = torch.where(valid, (a11 * b0 - a01 * b1) / safe, 0.0)
+    shift = torch.where(valid, (-a01 * b0 + a00 * b1) / safe, 0.0)
+    return scale, shift
+
+
+def midas_depth_loss(prediction: torch.Tensor, target: torch.Tensor,
+                     mask: torch.Tensor, scales: int = 4) -> torch.Tensor:
+    """MiDaS's scale-and-shift-invariant MSE plus 0.5 x the gradient
+    matching term at ``scales`` scales; [B, H, W] inputs."""
+    scale, shift = midas_scale_shift(prediction, target, mask)
+    pred = scale[:, None, None] * prediction + shift[:, None, None]
+
+    def mse_term(p, t, m):
+        res = p - t
+        num = torch.clamp_min(torch.sum(m, dim=(-2, -1)), 1.0)
+        return torch.sum(m * res * res, dim=(-2, -1)) / (2.0 * num)
+
+    def grad_term(p, t, m):
+        diff = (p - t) * m
+        gx = torch.abs(diff[:, :, 1:] - diff[:, :, :-1]) * m[:, :, 1:] * m[:, :, :-1]
+        gy = torch.abs(diff[:, 1:, :] - diff[:, :-1, :]) * m[:, 1:, :] * m[:, :-1, :]
+        num = torch.clamp_min(torch.sum(m, dim=(-2, -1)), 1.0)
+        return (torch.sum(gx, dim=(-2, -1)) + torch.sum(gy, dim=(-2, -1))) / num
+
+    loss = mse_term(pred, target, mask)
+    for s in range(scales):
+        step = 2 ** s
+        loss = loss + 0.5 * grad_term(pred[:, ::step, ::step], target[:, ::step, ::step],
+                                      mask[:, ::step, ::step])
+    return torch.mean(loss)

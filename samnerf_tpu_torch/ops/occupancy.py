@@ -1,11 +1,12 @@
-"""Serve-time occupancy culling: a dense dilated occupancy grid in
-contracted unit space and the liveness tests the fields cull with.
+"""Occupancy grids: the training-time grid of the model zoo's ngp methods,
+and serve-time culling with a dense dilated grid in contracted unit space.
 
-Counterpart of the serve half of ``samnerf_tpu/ops/occupancy.py``
+Counterpart of ``samnerf_tpu/ops/occupancy.py``.  Training half
+(``occupancy_mask``, ``update_occupancy``): a dense [res^3] EMA of
+sampled densities in a world-space box, thresholded into a 0/1 grid that
+multiplies the density of samples in empty cells to zero.  Serve half
 (``ServeOccupancy``, ``pack_serve_occupancy``, ``occupancy_live``,
 ``tile_live_points``, ``cells_from_density``, ``grid_cell_positions``).
-The training-time grid (``occupancy_mask``, ``update_occupancy``) serves
-other models of the zoo and is not here.
 
 Liveness is decided per tile of the JAX package's encode stream, so a
 culled frame keeps exactly the samples the JAX package keeps: the fields
@@ -14,7 +15,7 @@ test tiles on a view of their points in that stream order
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +28,48 @@ SAMPLE_BLOCK = 1024
 pixel block of the serve path's 2D-tiled rays)."""
 LIVE_TILE = 8192
 """The largest tile of points tested as one box."""
+
+
+def occupancy_mask(grid: torch.Tensor, positions: torch.Tensor,
+                   aabb: torch.Tensor) -> torch.Tensor:
+    """Nearest-cell lookup: grid [res, res, res] 0/1, world positions
+    [..., 3], aabb [2, 3] -> [..., 1]; 0 outside the box."""
+    res = grid.shape[0]
+    p = (positions - aabb[0]) / (aabb[1] - aabb[0])
+    inside = ((p >= 0.0) & (p < 1.0)).all(dim=-1)
+    ijk = torch.clamp((p * res).to(torch.int64), 0, res - 1)
+    flat = (ijk[..., 0] * res + ijk[..., 1]) * res + ijk[..., 2]
+    return (grid.reshape(-1)[flat] * inside)[..., None]
+
+
+def update_occupancy(grid_density: torch.Tensor, density_fn: Callable,
+                     aabb: torch.Tensor, generator: Optional[torch.Generator] = None,
+                     num_samples: int = 262144, ema: float = 0.95,
+                     threshold: float = 0.01, idx: Optional[torch.Tensor] = None,
+                     jitter: Optional[torch.Tensor] = None):
+    """One EMA round of the training grid: ``num_samples`` random cells
+    (``idx`` [n] in [0, res^3)), a random point in each (``jitter`` [n, 3]
+    in [0, 1)), both drawn from ``generator`` unless given; each cell keeps
+    the max of its decayed density and the fresh ``density_fn`` ([n, 3]
+    world -> [n, 1]; run without gradient) at its points.  Returns (new
+    grid_density [res^3], grid [res, res, res] f32 0/1 above
+    ``threshold``).  The max is order-free, so the result is
+    deterministic on any device."""
+    cells = grid_density.shape[0]
+    res = round(cells ** (1 / 3))
+    device = grid_density.device
+    if idx is None:
+        idx = torch.randint(0, cells, (num_samples,), generator=generator, device=device)
+    if jitter is None:
+        jitter = torch.rand((idx.shape[0], 3), generator=generator, device=device)
+    idx = idx.long()
+    ijk = torch.stack([(idx // (res * res)) % res, (idx // res) % res, idx % res], dim=-1)
+    pos = aabb[0] + (ijk + jitter) / res * (aabb[1] - aabb[0])
+    with torch.no_grad():
+        d = density_fn(pos)[..., 0].float()
+    updated = (grid_density * ema).scatter_reduce(0, idx, d, "amax", include_self=True)
+    occ = (updated > threshold).to(torch.float32).reshape(res, res, res)
+    return updated, occ
 
 
 class ServeOccupancy(NamedTuple):

@@ -13,8 +13,9 @@ def render_rgb(rgb: torch.Tensor, weights: torch.Tensor,
                bg_rgb: Optional[torch.Tensor] = None,
                training: bool = True) -> torch.Tensor:
     """Composite per-sample rgb [R, S, 3] with weights [R, S, 1] over a
-    'last_sample', 'black', 'white' or 'explicit' (``bg_rgb`` [3])
-    background.  Outside training NaNs become 0 and the result is
+    'last_sample', 'black', 'white' or 'explicit' background (``bg_rgb``
+    [3] for all rays, or [R, 3] per ray, as instant-ngp's random training
+    background).  Outside training NaNs become 0 and the result is
     clipped to [0, 1]."""
     if not training:
         rgb = torch.nan_to_num(rgb)
@@ -51,6 +52,15 @@ def render_depth_median(weights: torch.Tensor,
     return torch.gather(steps[..., 0], -1, idx)
 
 
+def render_depth_expected(weights: torch.Tensor, ray_samples: RaySamples,
+                          eps: float = 1e-10) -> torch.Tensor:
+    """Weight-averaged sample mid [R, 1], clipped to the range of all the
+    bundle's sample mids."""
+    steps = (ray_samples.starts + ray_samples.ends) / 2.0
+    depth = torch.sum(weights * steps, dim=-2) / (torch.sum(weights, dim=-2) + eps)
+    return torch.clamp(depth, torch.min(steps), torch.max(steps))
+
+
 def render_mean(embeds: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Weighted sum of per-sample embeddings [R, K, C] -> [R, C]."""
     return torch.sum(weights * embeds, dim=-2)
@@ -65,3 +75,23 @@ def topk_sharpened_weights(weights: torch.Tensor, k: int,
     w = torch.gather(w, -1, order) ** temperature
     w = w / (torch.sum(w, dim=-1, keepdim=True) + 1e-37)
     return w[..., None], ids
+
+
+def render_semantics(semantics: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Weighted sum of per-sample class logits [R, S, C] -> [R, C]."""
+    return torch.sum(weights * semantics, dim=-2)
+
+
+def render_uncertainty(betas: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """Weighted sum of per-sample uncertainties [R, S, 1] -> [R, 1]."""
+    return torch.sum(weights * betas, dim=-2)
+
+
+def render_normals(normals: torch.Tensor, weights: torch.Tensor,
+                   normalize: bool = True) -> torch.Tensor:
+    """Weighted sum of per-sample normals [R, S, 3] -> [R, 3], by default
+    scaled to unit length (at least 1e-9 before scaling)."""
+    n = torch.sum(weights * normals, dim=-2)
+    if normalize:
+        n = n / torch.clamp_min(torch.linalg.norm(n, dim=-1, keepdim=True), 1e-9)
+    return n

@@ -5,7 +5,10 @@ Counterpart of ``samnerf_tpu/ops/samplers.py``.  Training draws jitter;
 the caller passes it in as uniform [0, 1) tensors (one per sampling
 level, [R, 1] for single jitter or [R, S+1]), so a test can hand both
 packages the same numbers.  Without jitter sampling is deterministic per
-ray (eval and serving).
+ray (eval and serving).  JAX's ``single_jitter`` is the jitter's shape
+here (:func:`jitter_shape`).  The spacing warp defaults to the piecewise
+one; the zoo's linear-spacing models pass :func:`spacing_linear` as
+``spacing_fn`` and ``spacing_inv``.
 """
 from __future__ import annotations
 
@@ -26,8 +29,21 @@ def spacing_piecewise_inv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x < 0.5, 2.0 * x, 1.0 / (2.0 - 2.0 * x))
 
 
-def spacing_to_euclidean(s, s_near, s_far):
-    return spacing_piecewise_inv(s * s_far + (1.0 - s) * s_near)
+def spacing_linear(x: torch.Tensor) -> torch.Tensor:
+    """The identity warp: samples evenly spaced in euclidean distance."""
+    return x
+
+
+def spacing_to_euclidean(s, s_near, s_far,
+                         spacing_inv: Callable = spacing_piecewise_inv):
+    """Undo the spacing warp of normalized bins ``s``."""
+    return spacing_inv(s * s_far + (1.0 - s) * s_near)
+
+
+def jitter_shape(num_rays: int, num_samples: int, single_jitter: bool = True):
+    """Shape of one level's uniform jitter: [R, 1] (one offset per ray)
+    or [R, S+1] (one per bin edge)."""
+    return (num_rays, 1) if single_jitter else (num_rays, num_samples + 1)
 
 
 def _make_ray_samples(ray_bundle: RayBundle, euclid_bins, spacing_bins,
@@ -37,13 +53,18 @@ def _make_ray_samples(ray_bundle: RayBundle, euclid_bins, spacing_bins,
         origins=ray_bundle.origins, directions=ray_bundle.directions,
         starts=euclid_bins[..., :-1, None], ends=euclid_bins[..., 1:, None],
         spacing_starts=spacing_bins[..., :-1, None],
-        spacing_ends=spacing_bins[..., 1:, None], s_near=s_near, s_far=s_far)
+        spacing_ends=spacing_bins[..., 1:, None], s_near=s_near, s_far=s_far,
+        pixel_area=ray_bundle.pixel_area, camera_indices=ray_bundle.camera_indices,
+        times=ray_bundle.times)
 
 
 def initial_samples(ray_bundle: RayBundle, num_samples: int,
-                    jitter: Optional[torch.Tensor] = None) -> RaySamples:
-    """Evenly spaced bins in the piecewise spacing; with ``jitter`` each
-    edge moves uniformly within its half-bins (stratified)."""
+                    jitter: Optional[torch.Tensor] = None,
+                    spacing_fn: Callable = spacing_piecewise,
+                    spacing_inv: Callable = spacing_piecewise_inv) -> RaySamples:
+    """Evenly spaced bins in the ``spacing_fn`` warp of [near, far]; with
+    ``jitter`` each edge moves uniformly within its half-bins
+    (stratified)."""
     num_rays = ray_bundle.origins.shape[0]
     bins = torch.linspace(0.0, 1.0, num_samples + 1,
                           device=ray_bundle.origins.device)[None, :]
@@ -54,10 +75,11 @@ def initial_samples(ray_bundle: RayBundle, num_samples: int,
         bins = lower + (upper - lower) * jitter
     else:
         bins = bins.expand(num_rays, num_samples + 1)
-    s_near = spacing_piecewise(ray_bundle.nears)
-    s_far = spacing_piecewise(ray_bundle.fars)
-    return _make_ray_samples(ray_bundle, spacing_to_euclidean(bins, s_near, s_far),
-                             bins, s_near, s_far)
+    s_near = spacing_fn(ray_bundle.nears)
+    s_far = spacing_fn(ray_bundle.fars)
+    return _make_ray_samples(
+        ray_bundle, spacing_to_euclidean(bins, s_near, s_far, spacing_inv),
+        bins, s_near, s_far)
 
 
 def searchsorted_right(sorted_seq: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
@@ -70,12 +92,16 @@ def searchsorted_right(sorted_seq: torch.Tensor, values: torch.Tensor) -> torch.
 def pdf_samples(ray_bundle: RayBundle, ray_samples: RaySamples,
                 weights: torch.Tensor, num_samples: int,
                 jitter: Optional[torch.Tensor] = None,
-                histogram_padding: float = 0.01, eps: float = 1e-5) -> RaySamples:
+                histogram_padding: float = 0.01, eps: float = 1e-5,
+                include_original: bool = False,
+                spacing_inv: Callable = spacing_piecewise_inv) -> RaySamples:
     """Inverse-CDF resampling of ``weights`` [R, S_in, 1] at
     ``num_samples + 1`` evenly spaced quantiles, offset by ``jitter`` /
-    (S+1) or else by half a quantile step.  The new bins carry no
-    gradient (the reference's ``stop_gradient``), so neither do the
-    weights here."""
+    (S+1) or else by half a quantile step.  ``include_original`` merges
+    the input's S_in + 1 edges into the new ones (sorted), giving
+    ``num_samples + S_in + 1`` samples.  The new bins carry no gradient
+    (the reference's ``stop_gradient``), so neither do the weights
+    here."""
     num_bins = num_samples + 1
     w = weights[..., 0].detach() + histogram_padding
     w_sum = torch.sum(w, dim=-1, keepdim=True)
@@ -101,7 +127,10 @@ def pdf_samples(ray_bundle: RayBundle, ray_samples: RaySamples,
     bins_g1 = torch.gather(existing_bins, -1, above)
     t = torch.clamp(torch.nan_to_num((u - cdf_g0) / (cdf_g1 - cdf_g0)), 0.0, 1.0)
     bins = bins_g0 + t * (bins_g1 - bins_g0)
-    euclid = spacing_to_euclidean(bins, ray_samples.s_near, ray_samples.s_far)
+    if include_original:
+        bins = torch.sort(torch.cat([existing_bins, bins], dim=-1), dim=-1).values
+    euclid = spacing_to_euclidean(bins, ray_samples.s_near, ray_samples.s_far,
+                                  spacing_inv)
     return _make_ray_samples(ray_bundle, euclid, bins, ray_samples.s_near,
                              ray_samples.s_far)
 

@@ -1,12 +1,15 @@
 """Training entry point of the port.
 
-Counterpart of ``samnerf_tpu/train.py`` for the ``samnerf_distill`` and
-``samnerf_no_distill`` presets on one NVIDIA GPU::
+Counterpart of ``samnerf_tpu/train.py`` on one NVIDIA GPU: the
+``samnerf_distill`` and ``samnerf_no_distill`` presets and the model zoo::
 
     python -m samnerf_tpu_torch.train samnerf_distill --data /path/to/scene \\
         [--trainer.max-num-iterations N] [--model.hash-fn reference] \\
         [--model.compute-dtype bfloat16] [--model.use-dino-feature True \\
         --datamanager.use-dino-feature True] ...
+    python -m samnerf_tpu_torch.train instant-ngp --data /path/to/scene \\
+        [--max-num-iterations 30000] [--rays-per-batch 4096] [--lr LR] \\
+        [--output-dir outputs] [--seed 42] [--log-every 100]
 
 ``--data`` takes a nerfstudio, Blender or instant-ngp directory (routed
 by ``data.datamanager._detect_parser``).
@@ -18,8 +21,18 @@ Writes ``config.json`` and ``samnerf_tpu_torch_ckpts/step-*.pt`` under
 interactive viewer to the run: open ``http://localhost:7008/?port=7007``
 (``--websocket-port``, ``--http-port``); ``--vis json`` trains without
 it.  When the viewer cannot start, training goes on headless with a
-notice.  The model zoo waits.  Evaluate a run with
+notice.  Evaluate a run with
 ``python -m samnerf_tpu_torch.scripts.eval <run_dir>``.
+
+A zoo method (:func:`samnerf_tpu_torch.configs.zoo.zoo_methods`:
+vanilla-nerf, mipnerf, instant-ngp, tensorf, depth-nerfacto,
+semantic-nerfw, nerfplayer-nerfacto, nerfplayer-ngp) trains through
+:func:`train_zoo` with the JAX ``train_zoo``'s options: an rgb loop (with
+the depth or semantic channel for depth-nerfacto and semantic-nerfw,
+read from ``depths/`` or ``semantics/`` beside ``images/``), the
+occupancy grid of the ngp methods, one checkpoint at the end
+(``<output_dir>/<scene>/<method>/<timestamp>/samnerf_tpu_torch_ckpts/``)
+and the PSNR of eval view 0.
 """
 from __future__ import annotations
 
@@ -30,7 +43,7 @@ import random
 import sys
 import time
 from pathlib import Path
-from typing import List
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -43,13 +56,16 @@ from samnerf_tpu_torch.utils import writer
 def parse(argv: List[str]) -> MethodConfig:
     """``<method> [--dotted.option value ...]`` -> the preset with its
     overrides applied.  Help exits 0, an unknown method 2."""
+    from samnerf_tpu_torch.configs.zoo import zoo_methods
+
     registry = method_configs()
     if not argv or argv[0] in ("-h", "--help"):
         print(__doc__)
-        print("methods:", ", ".join(registry))
+        print("methods:", ", ".join(registry), "| zoo:", ", ".join(zoo_methods()))
         raise SystemExit(0)
     if argv[0] not in registry:
-        print(f"unknown method {argv[0]!r}; available: {', '.join(registry)}")
+        print(f"unknown method {argv[0]!r}; available: {', '.join(registry)}"
+              f" | zoo: {', '.join(zoo_methods())}")
         raise SystemExit(2)
     return apply_overrides(registry[argv[0]], argv[1:])
 
@@ -180,17 +196,192 @@ def _launch_viewer(trainer, config: MethodConfig):
     return state
 
 
-def main(argv=None) -> int:
+OCC_RES = 64
+OCC_WARMUP = 256
+OCC_EVERY = 16
+"""The zoo's occupancy schedule (the JAX ``train_zoo``'s): a 64^3 grid,
+all ones until it is first updated, then an update with ``res**3 // 4``
+samples before each step s (counted from 1) with s > 256 and
+(s - 1) % 16 == 0."""
+EVAL_CHUNK = 4096
+
+
+def occupancy_update_due(step: int) -> bool:
+    """Is the grid updated before ``step`` (counted from 1)?"""
+    return step > OCC_WARMUP and (step - 1) % OCC_EVERY == 0
+
+
+@dataclasses.dataclass
+class ZooRun:
+    """What :func:`train_zoo` did: the trained model, the run directory,
+    the checkpoint, the last step's metrics (floats), each grid update's
+    (step, occupied share), the grid (None without one), the eval PSNR and
+    the eval render's ms (None without eval images)."""
+    model: torch.nn.Module
+    out_dir: Path
+    checkpoint: Path
+    metrics: dict
+    occupancy_updates: list
+    occupancy: Optional[torch.Tensor]
+    psnr: Optional[float]
+    eval_ms: Optional[float]
+
+
+def _zoo_datamanager(name: str, dm_cfg, seed: int):
+    from samnerf_tpu_torch.data.datamanager import DataManager
+    from samnerf_tpu_torch.data.datamanagers_extra import (DepthDataManager,
+                                                           SemanticDataManager)
+    if name == "depth-nerfacto":
+        return DepthDataManager(dm_cfg, seed=seed)
+    if name == "semantic-nerfw":
+        return SemanticDataManager(dm_cfg, seed=seed)
+    return DataManager(dm_cfg, seed=seed)
+
+
+def render_eval_rgb(model, cameras, image_index: int = 0, chunk: int = EVAL_CHUNK,
+                    **kwargs) -> torch.Tensor:
+    """rgb [H, W, 3] of one camera of ``cameras``, rendered ``chunk`` rays
+    at a time in eval mode (``kwargs`` go to the model: the grid)."""
+    from samnerf_tpu_torch.core.cameras import generate_rays
+    from samnerf_tpu_torch.engine.eval_render import _chunked_coords
+
+    h, w = cameras.height, cameras.width
+    device = cameras.camera_to_worlds.device
+    coords = torch.as_tensor(_chunked_coords(h, w, chunk), device=device)
+    ci = torch.full((chunk,), image_index, dtype=torch.long, device=device)
+    rgb = torch.cat([model(generate_rays(cameras, ci, c), train=False, **kwargs)["rgb"]
+                     for c in coords])
+    return rgb[:h * w].reshape(h, w, 3)
+
+
+def train_zoo(name: str, argv: List[str], device="cuda",
+              step_callback: Optional[Callable[[int, dict], None]] = None) -> ZooRun:
+    """Train zoo method ``name`` end to end with the JAX ``train_zoo``'s
+    options (``argv``): one step after another (the JAX loop scans 16 or 2
+    at a time and rounds the count up to that), batches drawn on the
+    device, the occupancy grid on :data:`OCC_RES`'s schedule for the ngp
+    methods, a checkpoint at the end, and the PSNR of eval view 0 rendered
+    in 4096-ray chunks (with the grid).  ``step_callback(step, metrics)``
+    runs after each step, with the grid's occupied share as
+    ``metrics["occupied"]`` on a step the grid was updated before."""
+    import argparse
+
+    from samnerf_tpu_torch.configs.zoo import (init_zoo_params, make_zoo_train_step,
+                                               zoo_methods, zoo_optimizer)
+    from samnerf_tpu_torch.data.datamanager import DataManagerConfig
+    from samnerf_tpu_torch.data.dataparser import DataparserConfig
+    from samnerf_tpu_torch.data.device_data import build_device_dataset, sample_batch
+    from samnerf_tpu_torch.engine.trainer import CKPT_DIR
+    from samnerf_tpu_torch.ops.occupancy import update_occupancy
+    from samnerf_tpu_torch.utils.metrics import psnr
+
+    ap = argparse.ArgumentParser(prog=f"samnerf_tpu_torch.train {name}")
+    ap.add_argument("--data", required=True)
+    ap.add_argument("--max-num-iterations", type=int, default=30000)
+    ap.add_argument("--rays-per-batch", type=int, default=4096)
+    ap.add_argument("--lr", type=float, default=None,
+                    help="override the per-method default lr")
+    ap.add_argument("--output-dir", default="outputs")
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--log-every", type=int, default=100)
+    args = ap.parse_args(argv)
+
+    device = torch.device(device)
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+    method = zoo_methods()[name]
+    model, cfg = method.build(device=device)
+    model.load_state_dict(init_zoo_params(model, torch.Generator().manual_seed(args.seed),
+                                          device))
+    data = Path(args.data)
+    split = (not (data / "transforms.json").exists()
+             and (data / "transforms_train.json").exists())
+    dm = _zoo_datamanager(name, DataManagerConfig(
+        dataparser=DataparserConfig(data=data, train_val_json_split=split),
+        train_num_rays_per_batch=args.rays_per_batch), args.seed)
+    cameras = dm.cameras.to(device)
+    device_data = build_device_dataset(dm, device)
+    hw = (dm.cameras.height, dm.cameras.width)
+    generator = torch.Generator(device=device).manual_seed(args.seed + 1)
+    optimizer = zoo_optimizer(model, args.lr if args.lr is not None else method.lr)
+    step_fn = make_zoo_train_step(method, model, cfg, optimizer)
+
+    occ_kw, updates = {}, []
+    if method.use_occupancy:
+        grid_density = torch.zeros((OCC_RES ** 3,), device=device)
+        occ_kw["occupancy"] = torch.ones((OCC_RES,) * 3, device=device)
+        occ_aabb = (model.aabb if hasattr(model, "aabb") else torch.tensor(
+            [[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]], device=device))
+        occ_generator = torch.Generator(device=device).manual_seed(args.seed + 0x0CC)
+
+    t0 = time.time()
+    metrics = {}
+    for step in range(1, args.max_num_iterations + 1):
+        occupied = None
+        if method.use_occupancy and occupancy_update_due(step):
+            grid_density, occ_kw["occupancy"] = update_occupancy(
+                grid_density, model.density_fn, occ_aabb, occ_generator,
+                num_samples=OCC_RES ** 3 // 4)
+            occupied = float(occ_kw["occupancy"].mean())
+            updates.append((step, occupied))
+        batch = sample_batch(generator, device_data, args.rays_per_batch, 1, hw)
+        metrics = step_fn(cameras, batch, generator, occ_kw.get("occupancy"))
+        if occupied is not None:
+            metrics["occupied"] = occupied
+        if step % max(1, args.log_every) == 0 or step == args.max_num_iterations:
+            print(f"step {step}: loss={float(metrics['total_loss']):.5f} "
+                  f"({time.time() - t0:.0f}s)", flush=True)
+        if step_callback is not None:
+            step_callback(step, metrics)
+
+    out = Path(args.output_dir) / data.name / name / time.strftime("%Y-%m-%d_%H%M%S")
+    ckpt_dir = out / CKPT_DIR
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    checkpoint = ckpt_dir / f"step-{args.max_num_iterations:09d}.pt"
+    torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                "step": args.max_num_iterations, "method": name, **occ_kw}, checkpoint)
+
+    p = eval_ms = None
+    if dm.eval_images is not None:
+        t1 = time.perf_counter()
+        rgb = render_eval_rgb(model, dm.eval_cameras.to(device), 0, **occ_kw)
+        gt = torch.as_tensor(dm.eval_images[0], device=device).float() / 255.0
+        p = float(psnr(rgb, gt))
+        eval_ms = (time.perf_counter() - t1) * 1e3
+        print(f"eval view 0 PSNR: {p:.2f}; saved {out}", flush=True)
+    else:
+        print(f"no eval images, no PSNR; saved {out}", flush=True)
+    return ZooRun(model=model, out_dir=out, checkpoint=checkpoint,
+                  metrics={k: float(v) for k, v in metrics.items()},
+                  occupancy_updates=updates, occupancy=occ_kw.get("occupancy"), psnr=p,
+                  eval_ms=eval_ms)
+
+
+def main(argv=None, device="cuda",
+         step_callback: Optional[Callable[[int, dict], None]] = None,
+         run_callback: Optional[Callable[[ZooRun], None]] = None) -> int:
+    """The command line, on ``device``: a zoo method runs :func:`train_zoo`
+    (``step_callback`` after each step, ``run_callback`` with its
+    :class:`ZooRun`), a preset :func:`train_loop` (``step_callback`` after
+    each step).  Returns 1 when ``device`` is a card and there is none."""
+    from samnerf_tpu_torch.configs.zoo import zoo_methods
+
     argv = list(sys.argv[1:] if argv is None else argv)
-    config = parse(argv)
-    if not torch.cuda.is_available():
+    zoo = bool(argv) and argv[0] in zoo_methods()
+    config = None if zoo else parse(argv)
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         print("samnerf_tpu_torch.train: no CUDA device", file=sys.stderr)
         return 1
+    if zoo:
+        run = train_zoo(argv[0], argv[1:], device=device, step_callback=step_callback)
+        if run_callback is not None:
+            run_callback(run)
+        return 0
     config.trainer.output_dir = (Path(config.trainer.output_dir)
                                  / Path(config.datamanager.dataparser.data).name
                                  / config.method_name / time.strftime("%Y-%m-%d_%H%M%S"))
     save_config(config)
-    train_loop(config)
+    train_loop(config, device=device, step_callback=step_callback)
     return 0
 
 
