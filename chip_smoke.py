@@ -22,7 +22,13 @@ which raises on failure:
    heads' shapes (proposal, nerfacto, SAM at q8 and q4, ClipSeg), at
    uniform and in-frame positions, beside the unfused route (Q-ENC per
    pyramid, then the port's ``MLP``);
-   serve: full-width ``samnerf_distill`` 512x512 frames through
+5. train_kernels: the encode backward F32-ENC-BWD against its plain
+   version, and F32-ENC, at the three encode shapes of a
+   ``samnerf_distill`` training step (16384 rays), at uniform positions
+   and at the positions and cotangents of one full-width ``Trainer`` step
+   (captured by ``profile_train.capture_step_encodes``), and
+   F32-ENC-BWD's layout pass GRAD-DEINTERLEAVE against its plain version;
+6. serve: full-width ``samnerf_distill`` 512x512 frames through
    ``SamNerfRenderer.serve_frame_fn`` (static preset) with f32 tables,
    baked int8 tables, and baked int8 tables served through FUSED-QMLP
    (``serve_fuse_mlp``), launch counts per frame (22 F32-ENC per f32
@@ -57,13 +63,7 @@ which raises on failure:
    ``serve_fuse_mlp`` (Q-ENC and the unfused bf16 MLPs: FUSED-QMLP
    computes in f32 only), ``render_view`` with one click, and a small bf16
    model's grids on the card against the CPU;
-5. train_kernels: the encode backward F32-ENC-BWD against its plain
-   version, and F32-ENC, at the three encode shapes of a
-   ``samnerf_distill`` training step (16384 rays), at uniform positions
-   and at the positions and cotangents of one full-width ``Trainer`` step
-   (captured by ``profile_train.capture_step_encodes``), and
-   F32-ENC-BWD's layout pass GRAD-DEINTERLEAVE against its plain version;
-6. train: full-width ``samnerf_distill`` training steps on a synthetic
+7. train: full-width ``samnerf_distill`` training steps on a synthetic
    512x512 scene through the port's ``Trainer`` (ms per step, rays/s,
    peak memory, launches per step: 6 F32-ENC and 6 F32-ENC-BWD, and the
    layout passes, counted apart; losses); then one train step of a
@@ -81,66 +81,7 @@ which raises on failure:
    card against CPU); the checkpoint reloaded through
    ``TrainerConfig.load_dir`` bit for bit; a small model's eval image on
    the card against the CPU;
-7. attn_kernel: FLASH-RELPOS against its plain version at SAM ViT-H's
-   and ViT-B's global-attention shapes, a small ragged one and ViT-H's
-   with a peaky softmax (q scaled by 8, logits to about +-30): max abs
-   error, time, the 3xTF32 tensor-core bound and the f32 CUDA-core one,
-   and ``scaled_dot_product_attention`` with the materialised bias as a
-   yardstick; attn_bf16_kernel: the bf16 FLASH-RELPOS against its plain
-   version on bf16 operands at ViT-H's, ViT-B's, the ragged shape and
-   ViT-H's peaky case, within one bf16 ulp, with its bf16 bounds, plain
-   and library times, each row naming the kernel ``bf16_route`` chose
-   (the wgmma kernel on the 64-wide grids, the ``mma.sync`` one on the
-   ragged shape); every row keeps a digest of the kernel's output bits;
-8. encode: SAM ViT-H at full width (seeded weights, saved once as a
-   reference-layout checkpoint and loaded through ``build_sam``) through
-   ``SamPredictor.set_image`` on 512x512 frames (ms per image, peak
-   memory, FLASH-RELPOS launches per image, click -> mask ms), and the
-   kernel route's embedding against the plain route's; then a small
-   encoder on the card against the same encoder on the CPU, in f32 and
-   in bf16 (its 16-wide grid takes the ``mma.sync`` bf16 kernel);
-   encode_bf16: ``build_sam_vit_h(checkpoint,
-   compute_dtype=torch.bfloat16)`` through ``set_image`` (ms per image,
-   peak memory, 4 bf16 FLASH-RELPOS launches per image, all by the wgmma
-   kernel, the embedding's error against the f32 encode, the kernel route
-   against the plain version in its place);
-   amg: ``SamAutomaticMaskGenerator`` over the same ViT-H on a 512x512
-   frame with the JAX package's defaults, then with the IoU and stability
-   filters off and one crop layer (5 crops: ms per ``generate``, masks,
-   peak memory, 4 FLASH-RELPOS launches per ``set_image``), and a small
-   SAM's ``generate`` on the card against the CPU;
-9. preprocess: ``python -m samnerf_tpu_torch.preprocessing
-   .get_image_embeddings`` (its ``main``) with that checkpoint on a
-   synthetic 24-image 512x512 scene, the port's feature loader on the
-   files, and 3 ``Trainer`` steps on them;
-10. clipseg_checkpoint: seeded CLIP ViT-B/16 and ``rd64-uni`` weights in
-   the reference layouts and a small merges file, in the same temporary
-   directory; clipseg: ``ClipSegPredictor`` at full width on the card
-   (ms per ``encode_text`` of 3 prompts, ``segment``,
-   ``reduced_activations``, ``decode_rendered``; peak memory) and against
-   the CPU on one frame;
-11. preprocess_clipseg: ``python -m samnerf_tpu_torch.preprocessing
-   .get_clipseg_embeddings`` (its ``main``) on the same scene, the
-   feature loader on its files, and 3 ``samnerf_distill`` steps on the
-   SAM and ClipSeg targets the port wrote;
-12. text_view: the view phase with a ``ClipSegPredictor`` and a text
-   prompt in every view (``clipseg_feature`` in [0, 1], the heatmap's
-   points reach the mask decode after the pins);
-13. no_distill_view: ``render_view`` of the ``samnerf_no_distill``
-   preset's model at full width with a ``LanguageSAM`` (the ViT-H
-   checkpoint and the seeded ClipSeg): a click view, three moved views
-   with the click locked, a text-prompt view; 4 FLASH-RELPOS launches per
-   view, the locked point in every mask decode;
-14. no_distill_train: 10 full-width ``samnerf_no_distill`` steps through
-   ``Trainer`` on the scene; train_bf16: ``samnerf_distill
-   --model.compute-dtype bfloat16`` through the train entry at full width
-   on the train phase's synthetic scene (ms per step, rays/s, peak
-   memory, 6 F32-ENC and 6 F32-ENC-BWD launches per step);
-   viewer_train: the train entry with ``--vis viewer`` on free ports, 35
-   full-width steps on that scene, a client that gets frames while it
-   trains (step ms beside the train phase's; 6 + 6 launches a step and 22
-   F32-ENC a 512x512 viewer frame);
-15. dino: a seeded ``dino_vits8.pth`` (reference layout); ViT-S/8
+8. dino: a seeded ``dino_vits8.pth`` (reference layout); ViT-S/8
    descriptors (stride 4, layer 11 ``key``) of the train phase's
    synthetic 512x512 scene through ``ViTExtractor`` (ms per image and
    peak memory at 1024 to 8192 query rows per attention product and with
@@ -156,7 +97,97 @@ which raises on failure:
    equirectangular camera paths by ``scripts/render.py``); a model with
    appearance embeddings trained and served as baked int8 512x512
    frames, fused (19 FUSED-QMLP) and not (22 Q-ENC);
-16. one ``{"kernels": [...]}`` line (the f32 kernels' layout passes
+   zoo: each of the eight zoo methods through ``train.main`` at its
+   default widths on that scene (4096 rays a step; instant-ngp with its
+   occupancy grid updated twice): ms per step, rays/s, peak memory, the
+   losses and the eval PSNR of view 0, F32-ENC / F32-ENC-BWD launches per
+   step and per eval image for the hash methods, and both f32 kernels held
+   against their plain versions at an instant-ngp step's positions;
+   zoo_reference: one small instant-ngp step on the card against the CPU
+   (the grid bit for bit, the losses, every gradient, the eval outputs);
+9. export: ``scripts/exporter.py``'s ``main`` on the eval phase's run
+   directory in each mode at the exporter's defaults (8 views of
+   256x256, TSDF and Poisson at 128^3): ms, points / vertices / faces,
+   peak memory, F32-ENC launches per view against the renderer's
+   chunking; TSDF integration and the Poisson indicator (200 CG steps) of
+   two rendered views on the card against the CPU;
+   pose: ``generate_rays`` with SO3xR3 and SE3 ``CameraOptimizer`` deltas
+   for a 16384-ray batch, card against CPU; the SE3 gradient at zero
+   finite; a small model's pose gradient (F32-ENC, F32-ENC-BWD) card
+   against CPU;
+   dist: a one-rank NCCL process group at a free local port: full-width
+   data-parallel ``Trainer`` steps (ms beside the train phase's, 6 + 6
+   launches per step, the gradient all-reduce's ms) and
+   ``build_sharded_frame_fn`` at 512x512 with baked int8 fused tables and
+   a click (19 FUSED-QMLP launches per frame, the frame against
+   ``serve_frame_fn``'s); then ``torchrun --standalone --nproc-per-node 1
+   -m samnerf_tpu_torch.train samnerf_distill`` for 3 steps;
+   tools: the SAM decoder through ``torch.export`` (ms per call against
+   ``decode_masks``, the masks held against it), ``scripts/benchmark.py``
+   over two copies of a synthetic scene, one ``DeviceTrace``, the SDS
+   DDIM loop and gradient card against CPU, and the native image decoder
+   (built or PIL) against PIL's bytes;
+10. attn_kernel: FLASH-RELPOS against its plain version at SAM ViT-H's
+   and ViT-B's global-attention shapes, a small ragged one and ViT-H's
+   with a peaky softmax (q scaled by 8, logits to about +-30): max abs
+   error, time, the 3xTF32 tensor-core bound and the f32 CUDA-core one,
+   and ``scaled_dot_product_attention`` with the materialised bias as a
+   yardstick; attn_bf16_kernel: the bf16 FLASH-RELPOS against its plain
+   version on bf16 operands at ViT-H's, ViT-B's, the ragged shape and
+   ViT-H's peaky case, within one bf16 ulp, with its bf16 bounds, plain
+   and library times, each row naming the kernel ``bf16_route`` chose
+   (the wgmma kernel on the 64-wide grids, the ``mma.sync`` one on the
+   ragged shape); every row keeps a digest of the kernel's output bits;
+11. encode: SAM ViT-H at full width (seeded weights, saved once as a
+   reference-layout checkpoint and loaded through ``build_sam``) through
+   ``SamPredictor.set_image`` on 512x512 frames (ms per image, peak
+   memory, FLASH-RELPOS launches per image, click -> mask ms), and the
+   kernel route's embedding against the plain route's;
+   amg: ``SamAutomaticMaskGenerator`` over the same ViT-H on a 512x512
+   frame with the JAX package's defaults, then with the IoU and stability
+   filters off and one crop layer (5 crops: ms per ``generate``, masks,
+   peak memory, 4 FLASH-RELPOS launches per ``set_image``), and a small
+   SAM's ``generate`` on the card against the CPU;
+   encode_reference: a small encoder on the card against the same encoder
+   on the CPU, in f32 and in bf16 (its 16-wide grid takes the
+   ``mma.sync`` bf16 kernel);
+   encode_bf16: ``build_sam_vit_h(checkpoint,
+   compute_dtype=torch.bfloat16)`` through ``set_image`` (ms per image,
+   peak memory, 4 bf16 FLASH-RELPOS launches per image, all by the wgmma
+   kernel, the embedding's error against the f32 encode, the kernel route
+   against the plain version in its place);
+12. preprocess: ``python -m samnerf_tpu_torch.preprocessing
+   .get_image_embeddings`` (its ``main``) with that checkpoint on a
+   synthetic 24-image 512x512 scene, the port's feature loader on the
+   files, and 3 ``Trainer`` steps on them;
+13. clipseg_checkpoint: seeded CLIP ViT-B/16 and ``rd64-uni`` weights in
+   the reference layouts and a small merges file, in the same temporary
+   directory; clipseg: ``ClipSegPredictor`` at full width on the card
+   (ms per ``encode_text`` of 3 prompts, ``segment``,
+   ``reduced_activations``, ``decode_rendered``; peak memory) and against
+   the CPU on one frame;
+14. preprocess_clipseg: ``python -m samnerf_tpu_torch.preprocessing
+   .get_clipseg_embeddings`` (its ``main``) on the same scene, the
+   feature loader on its files, and 3 ``samnerf_distill`` steps on the
+   SAM and ClipSeg targets the port wrote;
+15. text_view: the view phase with a ``ClipSegPredictor`` and a text
+   prompt in every view (``clipseg_feature`` in [0, 1], the heatmap's
+   points reach the mask decode after the pins);
+16. no_distill_view: ``render_view`` of the ``samnerf_no_distill``
+   preset's model at full width with a ``LanguageSAM`` (the ViT-H
+   checkpoint and the seeded ClipSeg): a click view, three moved views
+   with the click locked, a text-prompt view; 4 FLASH-RELPOS launches per
+   view, the locked point in every mask decode;
+17. no_distill_train: 10 full-width ``samnerf_no_distill`` steps through
+   ``Trainer`` on the scene; train_bf16: ``samnerf_distill
+   --model.compute-dtype bfloat16`` through the train entry at full width
+   on the train phase's synthetic scene (ms per step, rays/s, peak
+   memory, 6 F32-ENC and 6 F32-ENC-BWD launches per step);
+   viewer_train: the train entry with ``--vis viewer`` on free ports, 35
+   full-width steps on that scene, a client that gets frames while it
+   trains (step ms beside the train phase's; 6 + 6 launches a step and 22
+   F32-ENC a 512x512 viewer frame);
+18. one ``{"kernels": [...]}`` line (the f32 kernels' layout passes
    listed under ``passes`` beside the kernel that needs them; the bf16
    FLASH-RELPOS routes as ``FLASH-RELPOS-BF16-WGMMA`` and
    ``FLASH-RELPOS-BF16``), then
@@ -174,6 +205,7 @@ import contextlib
 import dataclasses
 import hashlib
 import importlib.util
+import inspect
 import json
 import math
 import statistics
@@ -2043,7 +2075,7 @@ def eval_images_per_call(pipe, h: int, w: int) -> int:
         pipe.model.config.num_proposal_iterations + 1)
 
 
-def eval_phase(dev, size: int = 512):
+def eval_phase(dev, size: int = 512, root: Path = None):
     """The train entry at full ``samnerf_distill`` width on a synthetic
     ``size``^2 scene (24 train and 2 test images) with both eval cadences
     firing and ``vis="json"``: the events in ``metrics.json``, F32-ENC and
@@ -2054,7 +2086,8 @@ def eval_phase(dev, size: int = 512):
     weights found through ``LPIPS_VGG_WEIGHTS`` / ``LPIPS_LIN_WEIGHTS``
     (ms at ``size``^2, card against CPU); the checkpoint reloaded through
     ``TrainerConfig.load_dir``, bit for bit; a small model's eval image
-    metrics on the card against the CPU."""
+    metrics on the card against the CPU.  With ``root``, the scene and the
+    run directory (``run_dir`` in the result) are written there and kept."""
     import os
 
     from samnerf_tpu_torch import train as train_entry
@@ -2066,7 +2099,8 @@ def eval_phase(dev, size: int = 512):
     from samnerf_tpu_torch.utils.eval_utils import find_latest_checkpoint
     from samnerf_tpu_torch.utils.synthetic import write_scene
 
-    with tempfile.TemporaryDirectory() as tmp:
+    with (contextlib.nullcontext(str(root)) if root is not None
+          else tempfile.TemporaryDirectory()) as tmp:
         root = Path(tmp)
         scene = write_scene(root / "scene", num_train=24, num_test=2, h=size, w=size,
                             with_features=True, feature_long_side=64)
@@ -2199,7 +2233,7 @@ def eval_phase(dev, size: int = 512):
                   eval_script_s=script_s, lpips_ms=lpips_ms, lpips_max_memory_allocated=
                   lpips_peak, lpips=lpips_card, lpips_cpu=lpips_cpu, lpips_rel_err=lpips_err,
                   lpips_metric=m_lpips["lpips"], checkpoint=ckpt_path.name,
-                  checkpoint_bits_equal=bits, reference=reference)
+                  checkpoint_bits_equal=bits, reference=reference, run_dir=str(run))
     print(f"eval: {size}x{size} eval image median {result['image_ms']:.2f} ms over "
           f"{EVAL_IMAGES} ({', '.join(f'{t:.1f}' for t in times)}); psnr "
           f"{per[0]['psnr']:.3f} / {per[1]['psnr']:.3f}, ssim {per[0]['ssim']:.4f} / "
@@ -3796,6 +3830,563 @@ def zoo_reference_phase(dev):
     return report
 
 
+EXPORT_MODES = ("pointcloud", "tsdf", "poisson")
+EXPORT_VIEWS, EXPORT_SIZE, EXPORT_RES = 8, 256, 128   # the exporter's defaults
+# TSDF card vs CPU: the world-to-camera matmul sums in another order, so a
+# voxel whose projection lies within float noise of a pixel edge reads the
+# neighbouring pixel; all but this share of voxels agree to 1e-5
+TOL_TSDF_SHARE = 1e-3
+TOL_POISSON = 1e-3              # chi after 200 CG steps, relative to its max norm
+POSE_CAMERAS, POSE_RAYS = 8, 16384
+POSE_GRAD_RAYS = 4096
+TOL_RAY = 1e-5                  # unit directions and origins, card vs CPU
+# the pose gradient sums over every ray with cancellation: rtol 2e-3 and 1 %
+# of the largest component (tests/test_torch_pose.py's tolerance)
+TOL_POSE_GRAD_RTOL, TOL_POSE_GRAD_MAX_SHARE = 2e-3, 1e-2
+DIST_WARMUP, DIST_STEPS, ALLREDUCE_STEPS = 2, 8, 3
+TORCHRUN_SCENE_SIZE = 128
+SHARDED_FRAMES = 3              # timed sharded frames after a warm-up
+DECODER_CALLS = 20              # timed calls of the exported decoder and decode_masks
+TOL_DECODER = 1e-5
+BENCH_SCENE_SIZE, BENCH_STEPS = 128, 3
+SDS_STEPS = 50
+TOL_SDS = 1e-5
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _obj_counts(path: Path):
+    v = f = 0
+    with open(path) as fh:
+        for line in fh:
+            v += line.startswith("v ")
+            f += line.startswith("f ")
+    return v, f
+
+
+def export_phase(dev, run_dir: Path, root: Path):
+    """``scripts/exporter.py``'s ``main`` on the eval phase's full-width run
+    directory in each mode at its defaults (8 views of 256x256, TSDF and
+    Poisson at 128^3, box half-side 1.5): ms, points / vertices / faces,
+    peak memory, F32-ENC launches per view against the renderer's chunking;
+    then TSDF integration and the Poisson indicator of two rendered views
+    on the card against the same inputs on the CPU."""
+    from samnerf_tpu_torch import train as train_entry
+    from samnerf_tpu_torch.core.cameras import Cameras
+    from samnerf_tpu_torch.engine.eval_render import ImageRenderer
+    from samnerf_tpu_torch.exporter import exporter as ex
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    from samnerf_tpu_torch.scripts import exporter as export_script
+    from samnerf_tpu_torch.scripts.render import orbit_c2w
+    from samnerf_tpu_torch.utils.eval_utils import eval_setup
+
+    cfg = train_entry.parse(["samnerf_distill"]).model
+    # the exporter's ImageRenderer chunks at its default
+    chunk = inspect.signature(ImageRenderer).parameters["chunk"].default
+    per_view = math.ceil(EXPORT_SIZE ** 2 / chunk) * (cfg.num_proposal_iterations + 1)
+    modes = {}
+    for mode in EXPORT_MODES:
+        out = root / f"export_{mode}.{'ply' if mode == 'pointcloud' else 'obj'}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_encode_launches(hg)
+        t0 = time.perf_counter()
+        rc = export_script.main([mode, str(run_dir), "--output", str(out)], device=dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = _encode_launches(hg)
+        if rc != 0:
+            raise AssertionError(f"the exporter's {mode} mode returned {rc}")
+        if mode == "pointcloud":
+            header = out.read_bytes().split(b"end_header\n", 1)[0].decode()
+            counts = {"points": int(header.split("element vertex ")[1].split()[0])}
+        else:
+            v, f = _obj_counts(out)
+            counts = {"vertices": v, "faces": f}
+            if not 2 * f <= v <= 3 * f:
+                raise AssertionError(f"the {mode} mesh has {v} vertices for {f} faces")
+        if not any(counts.values()):
+            raise AssertionError(f"the exporter's {mode} output is empty: {counts}")
+        if launches != {"F32-ENC": per_view * EXPORT_VIEWS, "Q-ENC": 0, "FUSED-QMLP": 0}:
+            raise AssertionError(f"the exporter's {mode} mode launched {launches}, not "
+                                 f"{per_view} F32-ENC per view")
+        modes[mode] = dict(ms=ms, **counts, launches=launches,
+                           launches_per_view=launches["F32-ENC"] / EXPORT_VIEWS,
+                           max_memory_allocated=torch.cuda.max_memory_allocated(),
+                           bytes=out.stat().st_size)
+        print(f"export {mode}: {ms:.0f} ms for {EXPORT_VIEWS} views of {EXPORT_SIZE}x"
+              f"{EXPORT_SIZE}{'' if mode == 'pointcloud' else f' at {EXPORT_RES}^3'}; "
+              f"{counts}; F32-ENC launches/view {modes[mode]['launches_per_view']:g} "
+              f"(renderer chunking: {per_view}); max_memory_allocated="
+              f"{modes[mode]['max_memory_allocated'] / 2**30:.2f} GiB", flush=True)
+
+    # TSDF and Poisson on the card against the CPU, on two rendered views
+    trainer, _ = eval_setup(run_dir, device=dev)
+    renderer = ImageRenderer(trainer.model)
+    focal = 0.5 * EXPORT_SIZE / np.tan(np.deg2rad(30.0))
+    intrin = np.array([[focal, 0, EXPORT_SIZE / 2], [0, focal, EXPORT_SIZE / 2], [0, 0, 1]])
+    aabb = np.array([[-1.5] * 3, [1.5] * 3], np.float32)
+    views = []
+    for i in range(2):
+        c2w = orbit_c2w(2 * np.pi * i / EXPORT_VIEWS, 1.5)
+        cams = Cameras(camera_to_worlds=torch.as_tensor(c2w[None], dtype=torch.float32,
+                                                        device=dev),
+                       **{k: torch.tensor([[v]], dtype=torch.float32, device=dev)
+                          for k, v in (("fx", focal), ("fy", focal), ("cx", EXPORT_SIZE / 2),
+                                       ("cy", EXPORT_SIZE / 2))},
+                       width=EXPORT_SIZE, height=EXPORT_SIZE)
+        views.append((renderer.render_image(cams, 0), c2w))
+    del trainer, renderer
+    states = {}
+    tsdf_ms = {}
+    for d in (dev, torch.device("cpu")):
+        state = ex.tsdf_init(EXPORT_RES, device=d)
+        t0 = time.perf_counter()
+        for out, c2w in views:
+            state = ex.tsdf_integrate(
+                state, torch.as_tensor(out["depth"][..., 0], device=d),
+                torch.as_tensor(out["rgb"], device=d),
+                torch.as_tensor(intrin, dtype=torch.float32, device=d),
+                torch.as_tensor(c2w, dtype=torch.float32, device=d),
+                torch.as_tensor(aabb, device=d))
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        tsdf_ms[d.type] = (time.perf_counter() - t0) * 1e3
+        states[d.type] = [t.cpu() for t in state]
+    tsdf_share = max(
+        float(((a - b).abs() > 1e-5).reshape(EXPORT_RES ** 3, -1).any(-1).float().mean())
+        for a, b in zip(states["cuda" if dev.type == "cuda" else "cpu"], states["cpu"]))
+    pts, nrms = zip(*(ex.depth_to_oriented_points(out["depth"], out["accumulation"], intrin,
+                                                  c2w, min_accumulation=0.5)
+                      for out, c2w in views))
+    pts, nrms = np.concatenate(pts), np.concatenate(nrms)
+    chis, poisson_ms = {}, {}
+    for d in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        chis[d.type] = ex.poisson_indicator(pts, nrms, aabb, EXPORT_RES, device=d).cpu()
+        poisson_ms[d.type] = (time.perf_counter() - t0) * 1e3
+    card = chis["cuda" if dev.type == "cuda" else "cpu"]
+    scale = float(chis["cpu"].abs().max())
+    poisson_err = float((card - chis["cpu"]).abs().max()) / max(scale, 1e-30)
+    result = dict(modes=modes, per_view=per_view, views=EXPORT_VIEWS, size=EXPORT_SIZE,
+                  resolution=EXPORT_RES, tsdf_ms=tsdf_ms, tsdf_mismatch_share=tsdf_share,
+                  tsdf_weight_sum=float(states["cpu"][1].sum()), poisson_ms=poisson_ms,
+                  poisson_points=int(len(pts)), poisson_rel_err=poisson_err)
+    print(f"export reference: TSDF {EXPORT_RES}^3 of 2 views card {tsdf_ms.get('cuda', 0):.1f}"
+          f" ms vs CPU {tsdf_ms['cpu']:.1f} ms, voxels beyond 1e-5 {tsdf_share:.2e} (tol "
+          f"{TOL_TSDF_SHARE:g}); Poisson {EXPORT_RES}^3 from {len(pts)} points, 200 CG "
+          f"steps, card {poisson_ms.get('cuda', 0):.0f} ms vs CPU {poisson_ms['cpu']:.0f} ms, "
+          f"chi rel err {poisson_err:.2e} (tol {TOL_POISSON:g})", flush=True)
+    if tsdf_share > TOL_TSDF_SHARE or result["tsdf_weight_sum"] <= 0:
+        raise AssertionError(f"TSDF card vs CPU: {tsdf_share} of voxels differ")
+    if not math.isfinite(poisson_err) or poisson_err > TOL_POISSON or scale == 0:
+        raise AssertionError(f"Poisson chi card vs CPU: rel err {poisson_err}")
+    return result
+
+
+def _pose_cameras(d, n=POSE_CAMERAS, size=512, focal=400.0):
+    from samnerf_tpu_torch.core.cameras import Cameras
+    from samnerf_tpu_torch.utils.synthetic import look_at_c2w
+
+    c2w = np.stack([look_at_c2w(np.array([1.5 * np.cos(a), 1.5 * np.sin(a), 0.4]),
+                                np.zeros(3))[:3]
+                    for a in np.linspace(0, 2 * np.pi, n, endpoint=False)]).astype(np.float32)
+
+    def col(v):
+        return torch.full((n, 1), float(v), device=d)
+
+    return Cameras(camera_to_worlds=torch.as_tensor(c2w, device=d), fx=col(focal),
+                   fy=col(focal), cx=col(size / 2), cy=col(size / 2), width=size, height=size)
+
+
+def pose_phase(dev):
+    """``generate_rays`` with SO3xR3 and SE3 deltas of a ``CameraOptimizer``
+    for a 16384-ray batch, card against CPU; the SE3 gradient at the zero
+    initialisation finite on the card; the gradient of a small model's
+    rgb loss with respect to SO3xR3 ``pose_adjustment`` (F32-ENC forward,
+    F32-ENC-BWD backward on the card), card against CPU."""
+    from samnerf_tpu_torch.core.camera_optimizers import CameraOptimizer
+    from samnerf_tpu_torch.core.cameras import generate_rays
+    from samnerf_tpu_torch.models.sam_model import SAMModel, SAMModelConfig
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    from samnerf_tpu_torch.utils.init import init_state
+
+    rng = np.random.default_rng(12)
+    idx = rng.integers(0, POSE_CAMERAS, POSE_RAYS)
+    coords = rng.integers(0, 512, (POSE_RAYS, 2)).astype(np.float32)
+    adj = (rng.normal(size=(POSE_CAMERAS, 6)) * 0.02).astype(np.float32)
+    rays = {}
+    for mode in ("SO3xR3", "SE3"):
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            opt = CameraOptimizer(POSE_CAMERAS, mode, device=d)
+            with torch.no_grad():
+                opt.pose_adjustment.copy_(torch.from_numpy(adj))
+            ci = torch.as_tensor(idx, device=d)
+            rb = generate_rays(_pose_cameras(d), ci, torch.as_tensor(coords, device=d),
+                               camera_opt_to_camera=opt(ci))
+            out[d.type] = (rb.origins.detach().cpu(), rb.directions.detach().cpu())
+        card = out["cuda" if dev.type == "cuda" else "cpu"]
+        err = max(float((a - b).abs().max()) for a, b in zip(card, out["cpu"]))
+        rays[mode] = err
+        if not err <= TOL_RAY:
+            raise AssertionError(f"{mode} rays card vs CPU differ by {err}")
+    opt = CameraOptimizer(POSE_CAMERAS, "SE3", device=dev)
+    ci = torch.as_tensor(idx, device=dev)
+    generate_rays(_pose_cameras(dev), ci, torch.as_tensor(coords, device=dev),
+                  camera_opt_to_camera=opt(ci)).directions.sum().backward()
+    se3_zero_finite = bool(torch.isfinite(opt.pose_adjustment.grad).all())
+    if not se3_zero_finite:
+        raise AssertionError("the SE3 pose gradient at zero is not finite")
+
+    cfg = dataclasses.replace(SAMModelConfig(**SMALL_MODEL), distill_sam=False)
+    gi = rng.integers(0, POSE_CAMERAS, POSE_GRAD_RAYS)
+    gc = rng.integers(0, 512, (POSE_GRAD_RAYS, 2)).astype(np.float32)
+    target = rng.uniform(size=(POSE_GRAD_RAYS, 3)).astype(np.float32)
+    grads, launches = {}, None
+    for d in (dev, torch.device("cpu")):
+        model = SAMModel(cfg, device=d)
+        model.load_state_dict(init_state(SAMModel(cfg, device="meta"),
+                                         torch.Generator().manual_seed(1), device=d,
+                                         table_scale=0.5))
+        opt = CameraOptimizer(POSE_CAMERAS, "SO3xR3", device=d)
+        with torch.no_grad():
+            opt.pose_adjustment.copy_(torch.from_numpy(adj))
+        ci = torch.as_tensor(gi, device=d)
+        _reset_encode_launches(hg)
+        rb = generate_rays(_pose_cameras(d), ci, torch.as_tensor(gc, device=d),
+                           camera_opt_to_camera=opt(ci))
+        loss = torch.mean((model(rb, train=True)["rgb"] - torch.as_tensor(target, device=d))
+                          ** 2)
+        loss.backward()
+        grads[d.type] = opt.pose_adjustment.grad.cpu()
+        if d.type == dev.type:
+            launches = {"F32-ENC": hg.parity_hash_encode.launches,
+                        "F32-ENC-BWD": hg.parity_hash_encode_bwd.launches}
+    card, cpu = grads["cuda" if dev.type == "cuda" else "cpu"], grads["cpu"]
+    atol = TOL_POSE_GRAD_MAX_SHARE * float(cpu.abs().max())
+    excess = float(((card - cpu).abs() - TOL_POSE_GRAD_RTOL * cpu.abs()).max())
+    result = dict(rays=POSE_RAYS, ray_max_abs_err=rays, se3_zero_grad_finite=se3_zero_finite,
+                  grad_rays=POSE_GRAD_RAYS, grad_max_abs=float(cpu.abs().max()),
+                  grad_max_abs_err=float((card - cpu).abs().max()), grad_atol=atol,
+                  launches=launches)
+    print(f"pose: {POSE_RAYS} rays with SO3xR3 / SE3 deltas card vs CPU max abs err "
+          f"{rays['SO3xR3']:.2e} / {rays['SE3']:.2e} (tol {TOL_RAY:g}); SE3 gradient at "
+          f"zero finite; pose gradient of a small model's rgb loss ({POSE_GRAD_RAYS} rays) "
+          f"card vs CPU max abs err {result['grad_max_abs_err']:.2e} (largest "
+          f"{result['grad_max_abs']:.2e}, atol {atol:.2e}, rtol {TOL_POSE_GRAD_RTOL:g}); "
+          f"launches {launches}", flush=True)
+    if not math.isfinite(excess) or excess > atol or not float(cpu.abs().max()) > 0:
+        raise AssertionError(f"pose gradients card vs CPU: {result}")
+    if dev.type == "cuda" and not (launches["F32-ENC"] and launches["F32-ENC-BWD"]):
+        raise AssertionError(f"the pose gradient ran {launches}")
+    return result
+
+
+def sharded_frame_check(dev, size=VIEW_SIZE, cfg=None):
+    """``build_sharded_frame_fn`` with baked int8 fused tables and a click
+    on the process group that is up, against ``serve_frame_fn``'s frame:
+    ms per frame, FUSED-QMLP launches per frame, the overlay's difference
+    (bit for bit at one rank: the same chunking)."""
+    from samnerf_tpu_torch.engine.eval_render import build_sharded_frame_fn
+    from samnerf_tpu_torch.engine.render_pipeline import SamNerfRenderer
+    from samnerf_tpu_torch.models.sam_model import SAMModel, SAMModelConfig, init_params
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    from samnerf_tpu_torch.parallel import mesh
+    from samnerf_tpu_torch.perception.sam.sam import Sam, init_decoder_params
+
+    H = W = size
+    cfg = dataclasses.replace(cfg or SAMModelConfig(hash_fn="morton"), hash_q8_serve=True,
+                              serve_fuse_mlp=True)
+    gen = torch.Generator().manual_seed(0)
+    model = SAMModel(cfg, device=dev)
+    model.load_state_dict(init_params(cfg, gen, device=dev))
+    sam = Sam(device=dev)
+    sam.load_state_dict(init_decoder_params(gen, device=dev))
+    snr = SamNerfRenderer(model, serve_preset="static")
+    snr.bake_serve_tables()
+    serve = snr.serve_frame_fn(sam, H, W)
+    frame = build_sharded_frame_fn(snr.renderer, H, W, ("sam", "clipseg"), sam=sam)
+    click = (100.0, 300.0)
+    coords = torch.zeros((1, 4, 2), device=dev)
+    coords[0, 0] = torch.tensor([c * 1024.0 / max(H, W) for c in click])
+    labels = torch.full((1, 4), -1, dtype=torch.int32, device=dev)
+    labels[0, 0] = 1
+    cams = _cameras(dev, 1, H, W, 400.0)
+    frame(cams, 0, coords, labels)                               # warm-up
+    torch.cuda.synchronize()
+    _reset_encode_launches(hg)
+    times = []
+    for _ in range(SHARDED_FRAMES):
+        t0 = time.perf_counter()
+        out = frame(cams, 0, coords, labels)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = _encode_launches(hg)
+    mine = (torch.clamp(out["masked_rgb"], 0.0, 1.0) * 255.0).to(torch.uint8)
+    ref = serve(cams, 0, click)
+    diff = int((mine.int() - ref.int()).abs().max())
+    grid_ref = snr.renderer.render_image_device(cams, 0, W, H, ("sam", "clipseg"),
+                                                minimal=True)
+    grid_err = max(float((out[k] - grid_ref[k]).abs().max()) for k in ("rgb", "sam", "clipseg"))
+    result = dict(frame_ms=statistics.median(times), frame_ms_all=times,
+                  frames=SHARDED_FRAMES, launches=launches,
+                  launches_per_frame=launches["FUSED-QMLP"] / SHARDED_FRAMES,
+                  overlay_max_diff=diff, bits_equal=diff == 0 and grid_err == 0.0,
+                  grid_max_abs_err=grid_err)
+    print(f"sharded frame {H}x{W} int8 fused, {mesh.world_size()} rank(s): median "
+          f"{result['frame_ms']:.2f} ms over {SHARDED_FRAMES}; launches/frame "
+          + " ".join(f"{k}={v / SHARDED_FRAMES:g}" for k, v in launches.items())
+          + f"; overlay vs serve_frame_fn max diff {diff}, grids max abs err {grid_err:.2e}",
+          flush=True)
+    if launches != {"F32-ENC": 0, "Q-ENC": 0, "FUSED-QMLP": FUSED_PER_FRAME * SHARDED_FRAMES}:
+        raise AssertionError(f"the sharded frame launched {launches}, not "
+                             f"{FUSED_PER_FRAME} FUSED-QMLP per frame")
+    if diff > 255 * TOL_FRAME or grid_err > TOL_FRAME:
+        raise AssertionError(f"the sharded frame differs from serve_frame_fn's: {result}")
+    return result
+
+
+def dist_phase(dev, scene: Path, root: Path, train_step_ms: float):
+    """A process group of one rank (NCCL on the card, at a free local TCP
+    port, destroyed afterwards): full-width data-parallel ``Trainer`` steps
+    on ``scene`` (ms per step beside the train phase's, 6 + 6 launches per
+    step, the gradient all-reduce's ms); the sharded 512x512 frame;
+    then ``torchrun --standalone --nproc-per-node 1 -m
+    samnerf_tpu_torch.train samnerf_distill`` for 3 steps on a small
+    scene."""
+    import os
+
+    import torch.distributed as dist
+
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    from samnerf_tpu_torch.parallel import mesh
+    from samnerf_tpu_torch.scripts.profile_train import build_trainer
+    from samnerf_tpu_torch.utils.synthetic import write_scene
+
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        trainer = build_trainer(scene, root / "dist_out", dev)
+        if not trainer.distributed:
+            raise AssertionError("the Trainer did not take the data-parallel path")
+        times, losses, t_prev = [], [], [0.0]
+
+        def on_step(step, metrics):
+            losses.append({k: float(v) for k, v in metrics.items()})
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            if step == DIST_WARMUP:
+                _reset_encode_launches(hg)
+            elif step > DIST_WARMUP:
+                times.append((now - t_prev[0]) * 1e3)
+            t_prev[0] = now
+
+        trainer.cfg.max_num_iterations = DIST_WARMUP + DIST_STEPS
+        trainer.train(step_callback=on_step)
+        launches = {"F32-ENC": hg.parity_hash_encode.launches,
+                    "F32-ENC-BWD": hg.parity_hash_encode_bwd.launches,
+                    "Q-ENC": hg.parity_hash_encode_q8.launches}
+        all_reduce = mesh.all_reduce_grads
+        ar_ms = []
+
+        def timed_all_reduce(params):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_reduce(params)
+            torch.cuda.synchronize()
+            ar_ms.append((time.perf_counter() - t0) * 1e3)
+
+        mesh.all_reduce_grads = timed_all_reduce
+        try:
+            for i in range(ALLREDUCE_STEPS):
+                trainer.train_iteration(DIST_WARMUP + DIST_STEPS + i)
+        finally:
+            mesh.all_reduce_grads = all_reduce
+        grad_bytes = sum(p.numel() * p.element_size() for p in trainer.model.parameters())
+        del trainer
+        step_ms = statistics.median(times)
+        print(f"dist {backend} world size 1: data-parallel samnerf_distill step median "
+              f"{step_ms:.2f} ms over {DIST_STEPS} (the train phase's {train_step_ms:.2f} ms); "
+              f"gradient all-reduce median {statistics.median(ar_ms):.2f} ms for "
+              f"{grad_bytes / 2**20:.0f} MiB; launches/step "
+              + ", ".join(f"{k}={v / DIST_STEPS:g}" for k, v in launches.items()), flush=True)
+        if not all(math.isfinite(v) for m in losses for v in m.values()):
+            raise AssertionError(f"data-parallel losses {losses}")
+        if launches != {"F32-ENC": F32_PER_STEP * DIST_STEPS,
+                        "F32-ENC-BWD": F32_PER_STEP * DIST_STEPS, "Q-ENC": 0}:
+            raise AssertionError(f"the data-parallel step launched {launches} in "
+                                 f"{DIST_STEPS} steps")
+        frame = sharded_frame_check(dev)
+    finally:
+        dist.destroy_process_group()
+
+    # the entry point under torchrun (one process: the group stays down), on
+    # a small scene: the call's time is the process's start
+    small_scene = write_scene(root / "torchrun_scene", num_train=4, num_test=1,
+                              h=TORCHRUN_SCENE_SIZE, w=TORCHRUN_SCENE_SIZE,
+                              with_features=True, feature_long_side=64)
+    out = root / "torchrun_out"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "samnerf_tpu_torch.train", "samnerf_distill",
+           "--data", str(small_scene), "--vis", "json", "--trainer.max-num-iterations", "3",
+           "--trainer.output-dir", str(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True,
+                          text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)})
+    torchrun_s = time.perf_counter() - t0
+    ckpts = sorted(out.glob("*/samnerf_distill/*/samnerf_tpu_torch_ckpts/step-000000003.pt"))
+    print(f"dist torchrun --nproc-per-node 1 train 3 steps: rc {proc.returncode} in "
+          f"{torchrun_s:.1f} s; checkpoint {[c.name for c in ckpts]}", flush=True)
+    if proc.returncode != 0 or len(ckpts) != 1:
+        raise AssertionError(f"torchrun train failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return dict(backend=backend, world_size=1, step_ms=step_ms, step_ms_all=times,
+                train_phase_step_ms=train_step_ms, steps=DIST_STEPS, launches=launches,
+                launches_per_step={k: v / DIST_STEPS for k, v in launches.items()},
+                all_reduce_ms=statistics.median(ar_ms), all_reduce_ms_all=ar_ms,
+                grad_bytes=grad_bytes, last_losses=losses[-1], sharded_frame=frame,
+                torchrun_s=torchrun_s, torchrun_tail=proc.stdout[-1000:])
+
+
+def tools_phase(dev, root: Path):
+    """The SAM decoder export at full width (``torch.export`` save, load,
+    run: ms per call against ``decode_masks``, the masks held against it),
+    ``scripts/benchmark.py``'s ``main`` over two copies of a synthetic
+    scene, a ``DeviceTrace``, the SDS DDIM loop and gradient on the card
+    against the CPU, and the native image decoder (built or PIL) against
+    PIL's bytes."""
+    import shutil
+
+    from PIL import Image
+
+    from samnerf_tpu_torch import native
+    from samnerf_tpu_torch.generative import stable_diffusion as sd
+    from samnerf_tpu_torch.perception.sam import export as sam_export
+    from samnerf_tpu_torch.perception.sam.sam import Sam, init_decoder_params
+    from samnerf_tpu_torch.scripts import benchmark
+    from samnerf_tpu_torch.utils.profiler import DeviceTrace
+    from samnerf_tpu_torch.utils.synthetic import write_scene
+
+    # the decoder export
+    sam = Sam(device=dev)
+    sam.load_state_dict(init_decoder_params(torch.Generator().manual_seed(3), device=dev))
+    gen = torch.Generator().manual_seed(4)
+    emb = torch.randn((1, 64, 64, 256), generator=gen).to(dev)
+    coords = torch.zeros((1, 4, 2), device=dev)
+    coords[0, :2] = torch.tensor([[300.0, 520.0], [610.0, 200.0]])
+    labels = torch.tensor([[1, 0, -1, -1]], dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    exp = sam_export.export_decoder(sam, num_points=4)
+    path = root / "sam_decoder.pt2"
+    sam_export.save_decoder(path, exp)
+    decoder = sam_export.load_decoder(path)
+    export_s = time.perf_counter() - t0
+    with torch.no_grad():
+        got = decoder(emb, coords, labels)
+        ref = sam.decode_masks(emb, (coords, labels), multimask_output=False)
+        export_ms = _time_ms(lambda: decoder(emb, coords, labels), DECODER_CALLS)
+        decode_ms = _time_ms(lambda: sam.decode_masks(emb, (coords, labels),
+                                                      multimask_output=False), DECODER_CALLS)
+    dec_err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    print(f"tools decoder export: {len(exp.artifact) / 2**20:.1f} MiB, exported and loaded "
+          f"in {export_s:.1f} s; {export_ms:.3f} ms per call vs decode_masks {decode_ms:.3f} "
+          f"ms; max abs err {dec_err:.2e} (tol {TOL_DECODER:g})", flush=True)
+    if not dec_err <= TOL_DECODER:
+        raise AssertionError(f"the exported decoder differs from decode_masks by {dec_err}")
+
+    # the multi-scene benchmark driver
+    scene_a = write_scene(root / "bench" / "scene_a", num_train=6, num_test=2,
+                          h=BENCH_SCENE_SIZE, w=BENCH_SCENE_SIZE, with_features=True,
+                          feature_long_side=64)
+    scene_b = root / "bench" / "scene_b"
+    shutil.copytree(scene_a, scene_b)
+    bench_out = root / "bench" / "benchmark.json"
+    t0 = time.perf_counter()
+    rc = benchmark.main(["samnerf_distill", "--scenes", f"{scene_a},{scene_b}", "--output",
+                         str(bench_out), "--trainer.max-num-iterations", str(BENCH_STEPS),
+                         "--trainer.output-dir", str(root / "bench" / "runs")], device=dev)
+    bench_s = time.perf_counter() - t0
+    summary = json.loads(bench_out.read_text()) if rc == 0 else {}
+    print(f"tools benchmark: rc {rc}, {BENCH_STEPS} steps on two {BENCH_SCENE_SIZE}^2 "
+          f"scenes in {bench_s:.1f} s; {summary}", flush=True)
+    if rc != 0 or set(summary.get("scenes", {})) != {"scene_a", "scene_b"} or not all(
+            math.isfinite(m["psnr"]) for m in summary["scenes"].values()):
+        raise AssertionError(f"scripts/benchmark.py: rc {rc}, {summary}")
+
+    # a device trace
+    a = torch.randn((2048, 2048), device=dev)
+    with DeviceTrace(root / "trace") as trace:
+        (a @ a).sum().item()
+    events = json.loads(trace.path.read_text()).get("traceEvents", [])
+    averages = trace.profile.key_averages()
+    device_us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+                    for e in averages)
+    print(f"tools DeviceTrace: {len(events)} events in {trace.path.name}, device time "
+          f"{device_us:.0f} us", flush=True)
+    if not events:
+        raise AssertionError("the DeviceTrace wrote no events")
+
+    # SDS on the card against the CPU (the analytic backbone)
+    x0 = 0.7
+    lat, sds_grad = {}, {}
+    start = torch.randn((1, 8, 8, 4), generator=torch.Generator().manual_seed(5))
+    noise = torch.randn((1, 8, 8, 4), generator=torch.Generator().manual_seed(6))
+    for d in (dev, torch.device("cpu")):
+        guide = sd.StableDiffusionGuidance(
+            unet_fn=lambda z, t, e: (z - torch.sqrt(guide.alphas_cumprod[t]) * x0)
+            / torch.sqrt(1.0 - guide.alphas_cumprod[t]),
+            vae_encode_fn=lambda img: img[..., :4] * 2.0, vae_decode_fn=lambda z: z / 2.0,
+            text_embed_fn=lambda p: torch.zeros((len(p), 2, 8), device=d),
+            guidance_scale=7.5, device=str(d))
+        emb_d = guide.get_text_embeds("a photo of a chair")
+        lat[d.type] = guide.produce_latents(emb_d, 64, 64, SDS_STEPS,
+                                            latents=start.to(d)).cpu()
+        img = torch.full((1, 8, 8, 4), 0.2, device=d, requires_grad=True)
+        guide.sds(emb_d, img, t=torch.tensor(500, device=d), noise=noise.to(d)).backward()
+        sds_grad[d.type] = img.grad.cpu()
+    key = "cuda" if dev.type == "cuda" else "cpu"
+    sds_err = max(float((lat[key] - lat["cpu"]).abs().max()),
+                  float((sds_grad[key] - sds_grad["cpu"]).abs().max()))
+    recovered = float((lat[key] - x0).abs().max())
+    print(f"tools SDS: {SDS_STEPS}-step guided DDIM and the SDS gradient card vs CPU max abs "
+          f"err {sds_err:.2e} (tol {TOL_SDS:g}); latents within {recovered:.2e} of x0",
+          flush=True)
+    if not sds_err <= TOL_SDS or not recovered < 1e-3:
+        raise AssertionError(f"SDS card vs CPU {sds_err}, x0 recovered to {recovered}")
+
+    # the native decoder against PIL
+    files = sorted((scene_a / "images").glob("*.png"))
+    t0 = time.perf_counter()
+    decoded = native.decode_images(files, BENCH_SCENE_SIZE, BENCH_SCENE_SIZE)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    pil = np.stack([np.asarray(Image.open(f).convert("RGB")) for f in files])
+    pil_ms = (time.perf_counter() - t0) * 1e3
+    route = "native" if decoded is not None else "PIL"
+    same = decoded is None or bool(np.array_equal(decoded, pil))
+    print(f"tools image decode: {route} ({native.get_loader()}); {len(files)} images "
+          f"{native_ms:.1f} ms vs PIL {pil_ms:.1f} ms; bytes equal to PIL's: {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("the native decoder's bytes differ from PIL's")
+    return dict(decoder_export=dict(artifact_bytes=len(exp.artifact), export_s=export_s,
+                                    ms=export_ms, decode_masks_ms=decode_ms,
+                                    max_abs_err=dec_err),
+                benchmark=dict(rc=rc, seconds=bench_s, summary=summary),
+                device_trace=dict(events=len(events), device_us=device_us),
+                sds=dict(max_abs_err=sds_err, x0_err=recovered),
+                image_decode=dict(route=route, native_ms=native_ms, pil_ms=pil_ms,
+                                  images=len(files), bytes_equal=same))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3836,12 +4427,16 @@ def main() -> int:
     serve_bf16 = serve_bf16_phase(dev)
     train = train_phase(dev)
     train_reference = train_reference_phase(dev)
-    evaluation = eval_phase(dev)
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as keep, tempfile.TemporaryDirectory() as tmp:
+        evaluation = eval_phase(dev, root=Path(keep))
         dino, dino_scene = dino_phase(dev, Path(tmp), train["step_ms"])
         data = data_phase(dev, dino_scene, Path(tmp), train["step_ms"])
         zoo = zoo_phase(dev, dino_scene, Path(tmp))
-    zoo_reference = zoo_reference_phase(dev)
+        zoo_reference = zoo_reference_phase(dev)
+        export = export_phase(dev, Path(evaluation["run_dir"]), Path(tmp))
+        pose = pose_phase(dev)
+        dist = dist_phase(dev, dino_scene, Path(tmp), train["step_ms"])
+        tools = tools_phase(dev, Path(tmp))
     attn_rows = attn_kernel_phase(dev)
     attn_bf16_rows = attn_bf16_kernel_phase(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3906,6 +4501,9 @@ def main() -> int:
     kernels[0]["launches_by_path"].update(train_dino=dino["launches"]["F32-ENC"],
                                           data_train=data_train["F32-ENC"],
                                           zoo_train=zoo["launches"]["F32-ENC"])
+    kernels[0]["launches_by_path"].update(
+        **{f"export_{m}": r["launches"]["F32-ENC"] for m, r in export["modes"].items()},
+        pose_grad=pose["launches"]["F32-ENC"], dist_train=dist["launches"]["F32-ENC"])
     f32_enc = kernels[0]
     f32_enc["max_abs_err"] = max(f32_enc["max_abs_err"],
                                  max(r["fwd_max_abs_err"] for r in train_rows
@@ -3938,7 +4536,8 @@ def main() -> int:
                         "cull": sum(r["launches"]["FUSED-QMLP"] for r in cull["runs"].values()),
                         "viewer": viewer["launches"]["FUSED-QMLP"],
                         "serve_appearance_int8_fused":
-                            data["serve_appearance"]["int8_fused"]["launches"]["FUSED-QMLP"]},
+                            data["serve_appearance"]["int8_fused"]["launches"]["FUSED-QMLP"],
+                        "sharded_frame": dist["sharded_frame"]["launches"]["FUSED-QMLP"]},
                     "max_abs_err": max(r["max_abs_err"] for r in qmlp_rows),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
@@ -3959,7 +4558,9 @@ def main() -> int:
                         "viewer_train": viewer_train["launches"]["F32-ENC-BWD"],
                         "train_dino": dino["launches"]["F32-ENC-BWD"],
                         "data_train": data_train["F32-ENC-BWD"],
-                        "zoo_train": zoo["launches"]["F32-ENC-BWD"]},
+                        "zoo_train": zoo["launches"]["F32-ENC-BWD"],
+                        "pose_grad": pose["launches"]["F32-ENC-BWD"],
+                        "dist_train": dist["launches"]["F32-ENC-BWD"]},
                     "max_abs_err": max(max(r["max_abs_err"] for r in bwd_rows),
                                        zoo["kernel_hold"]["f32_enc_bwd_max_abs_err"]),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
@@ -4014,8 +4615,8 @@ def main() -> int:
          "encode_bf16": encode_bf16, "train_bf16": train_bf16,
          "eval": evaluation, "amg": amg, "cull": cull, "viewer": viewer,
          "viewer_train": viewer_train, "dino": dino, "data": data, "zoo": zoo,
-         "zoo_reference": zoo_reference,
-         "kernels": kernels}, indent=1, default=str))
+         "zoo_reference": zoo_reference, "export": export, "pose": pose, "dist": dist,
+         "tools": tools, "kernels": kernels}, indent=1, default=str))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

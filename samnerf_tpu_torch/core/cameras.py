@@ -16,11 +16,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
+from samnerf_tpu_torch.core.lie_groups import multiply_poses
 from samnerf_tpu_torch.core.rays import RayBundle
+from samnerf_tpu_torch.utils.misc import intersect_aabb
 
 PERSPECTIVE = 1
 FISHEYE = 2
@@ -84,28 +86,18 @@ def undistort_coords(coords: torch.Tensor, distortion: torch.Tensor,
     return torch.stack([x, y], dim=-1)
 
 
-def intersect_aabb(origins: torch.Tensor, directions: torch.Tensor,
-                   aabb: torch.Tensor, max_bound: float = 1e10
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Slab-method ray/box intersection (``samnerf_tpu/utils/misc.py:22``):
-    origins, directions [..., 3], aabb [6] (min xyz, max xyz) -> t_min,
-    t_max [..., 1], each clamped to [0, max_bound]; a miss gives t_min >
-    t_max."""
-    inv = 1.0 / torch.where(directions.abs() < 1e-10, 1e-10, directions)
-    t0 = (aabb[:3] - origins) * inv
-    t1 = (aabb[3:] - origins) * inv
-    tmin = torch.amax(torch.minimum(t0, t1), dim=-1, keepdim=True)
-    tmax = torch.amin(torch.maximum(t0, t1), dim=-1, keepdim=True)
-    return tmin.clamp(0.0, max_bound), tmax.clamp(0.0, max_bound)
-
-
 def generate_rays(cameras: Cameras, camera_indices: torch.Tensor,
                   coords: torch.Tensor, pixel_offset: float = 0.5,
-                  aabb_box: Optional[torch.Tensor] = None) -> RayBundle:
+                  aabb_box: Optional[torch.Tensor] = None,
+                  camera_opt_to_camera: Optional[torch.Tensor] = None) -> RayBundle:
     """camera_indices [R] int, coords [R, 2] (row, col) -> RayBundle [R].
     ``aabb_box`` [2, 3] (min corner, max corner): the viewer's crop box;
     near and far then bound each ray to it, as the reference's crop does
-    (``samnerf_tpu/core/cameras.py:161-166``)."""
+    (``samnerf_tpu/core/cameras.py:161-166``).  ``camera_opt_to_camera``
+    [R, 3, 4]: learned pose deltas
+    (:class:`samnerf_tpu_torch.core.camera_optimizers.CameraOptimizer`),
+    composed with each ray's camera-to-world before its rotation, origin
+    and crop are taken."""
     ci = camera_indices.long()
     y = coords[..., 0].float() + pixel_offset
     x = coords[..., 1].float() + pixel_offset
@@ -130,6 +122,8 @@ def generate_rays(cameras: Cameras, camera_indices: torch.Tensor,
         dirs_cam = torch.where(ctype == FISHEYE, dirs_fish,
                                torch.where(ctype == EQUIRECTANGULAR, dirs_eq, dirs_cam))
     c2w = cameras.camera_to_worlds[ci]  # [R, 3, 4]
+    if camera_opt_to_camera is not None:
+        c2w = multiply_poses(c2w, camera_opt_to_camera)
     rotation = c2w[..., :3, :3]
     dirs_world = torch.sum(dirs_cam[..., None, :] * rotation[None], dim=-1)
     norms = torch.linalg.norm(dirs_world, dim=-1, keepdim=True)

@@ -6,7 +6,9 @@ scene (``transforms_train.json`` with ``camera_angle_x`` and no
 ``fl_x``) and an instant-ngp one (``transforms.json`` with ``aabb_scale``
 and no ``fl_x``) go to :mod:`samnerf_tpu_torch.data.dataparsers_extra`,
 the rest to the nerfstudio parser.  All images are decoded once into one
-uint8 numpy array and each feature set (SAM, DINO, ClipSeg) into one
+uint8 numpy array (each split at once by the native threaded decoder of
+:mod:`samnerf_tpu_torch.native` where it builds, else image by image
+through PIL) and each feature set (SAM, DINO, ClipSeg) into one
 float32 array; they stay in host memory until
 :func:`samnerf_tpu_torch.data.device_data.build_device_dataset` moves the
 whole set to the card, where the trainer samples every batch.  The JAX
@@ -61,6 +63,33 @@ def _load_image(path: Path, downscale: int) -> np.ndarray:
         img = img.resize((img.width // downscale, img.height // downscale),
                          Image.BILINEAR)
     return np.asarray(img, dtype=np.uint8)
+
+
+def _load_images_batch(paths, downscale: int):
+    """A whole split through the native threaded decoder
+    (:mod:`samnerf_tpu_torch.native`), or None (no decoder, mixed sizes, a
+    file it cannot read): the caller then decodes each image with PIL.
+    Resolves ``images_<d>/`` as :func:`_load_image` does; the native path
+    box-downscales where PIL resizes bilinearly, as in the JAX package."""
+    from samnerf_tpu_torch.native import decode_images
+
+    resolved = []
+    for path in paths:
+        path = Path(path)
+        if downscale > 1:
+            cand = path.parent.parent / f"{path.parent.name}_{downscale}" / path.name
+            if cand.exists():
+                path = cand
+        resolved.append(path)
+    if not resolved:
+        return None
+    with Image.open(resolved[0]) as im:
+        w, h = im.size
+    d = 1
+    if downscale > 1 and "images_" not in resolved[0].parent.name:
+        d = downscale
+        h, w = h // d, w // d
+    return decode_images(resolved, h, w, downscale=d)
 
 
 def sample_uniform(rng: np.random.Generator, batch_size: int, num_images: int,
@@ -122,8 +151,11 @@ class DataManager:
         self.eval_cameras = self.eval_outputs.cameras
 
         def load_split(outputs):
-            return np.stack([_load_image(p, outputs.downscale_factor)
-                             for p in outputs.image_filenames])
+            df = outputs.downscale_factor
+            batch = _load_images_batch(outputs.image_filenames, df)
+            if batch is not None:
+                return batch
+            return np.stack([_load_image(p, df) for p in outputs.image_filenames])
 
         self.images = self.eval_images = None
         if load_images:

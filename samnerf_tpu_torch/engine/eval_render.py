@@ -266,3 +266,110 @@ def bake_occupancy(model: SAMModel, res: int = 0, threshold: float = 0.01,
     cell_d = bake_density_grid(model, res=res, sub=sub, chunk=chunk)
     return occupancy_from_cells(cell_d, threshold,
                                 device=model.fields.encoding.table.device)
+
+
+def build_sharded_frame_fn(renderer: ImageRenderer, h: int, w: int,
+                           features: Tuple[str, ...] = (), sam=None, max_points: int = 4):
+    """An interactive frame rendered in shares over the process group of
+    :mod:`samnerf_tpu_torch.parallel.mesh` (one rank without a group).
+
+    Counterpart of the JAX ``build_sharded_frame_fn`` (``shard_map`` over a
+    device mesh), on the port's fused feature path: each rank renders its
+    contiguous share of the rgb chunks (padded to a multiple of the world
+    size by repeating the last chunk), ``all_gather`` assembles the rgb
+    stream and its top-k samples on every rank, then each rank renders its
+    share of the SAM grid (whole patches) and of the ClipSeg grid, padded
+    as the JAX ``_fused_grid`` pads, and ``all_gather`` assembles those.
+    Calls are chunked as :meth:`ImageRenderer.render_image_device` chunks
+    them, so one rank gives that frame bit for bit.
+
+    Returns ``frame(cameras, cam_idx)`` -> {"rgb", "sam", "clipseg"} on
+    every rank or, with ``sam`` (a
+    :class:`~samnerf_tpu_torch.perception.sam.sam.Sam`), ``frame(cameras,
+    cam_idx, coords, labels)`` that also decodes a mask on the rendered
+    embedding (padded to 64 x 64) from coords [1, max_points, 2] in the
+    1024 frame, padded with label -1 in labels [1, max_points], and adds
+    the red overlay ``masked_rgb`` [h, w, 3] in [0, 1]."""
+    from samnerf_tpu_torch.parallel import mesh
+
+    cfg, chunk, model = renderer.cfg, renderer.chunk, renderer.model
+    world, rank = mesh.world_size(), mesh.rank()
+
+    def gather(x):
+        return mesh.all_gather_rows(x) if world > 1 else x
+
+    def pad_rows(x, group):
+        pad = (-x.shape[0]) % (world * group)
+        return torch.cat([x, x[-group:].repeat(pad // group, *([1] * (x.dim() - 1)))]) \
+            if pad else x
+
+    rgb_np, rgb_unflatten = _blocked_coords(h, w, chunk)
+    rgb_coords = pad_rows(torch.as_tensor(rgb_np), 1)
+    want_sam = "sam" in features and cfg.distill_sam
+    want_clipseg = "clipseg" in features and cfg.distill_sam and cfg.use_clipseg_feature
+    fuse = want_sam or want_clipseg
+    k_top, ps = cfg.num_sam_samples, cfg.patch_size
+    idx_of = _stream_index(h, w, chunk)
+
+    def fused_grid(grid_np, group):
+        px = np.rint(grid_np).astype(np.int64)
+        idx = idx_of(px[:, 0], px[:, 1])
+        return (pad_rows(torch.as_tensor(px.astype(np.float32)), group),
+                pad_rows(torch.as_tensor(np.asarray(idx, np.int64)), group))
+
+    grids = {}
+    if want_sam:
+        fh, fw = get_feature_size(h, w)
+        grid, sam_unflatten = _feature_grid_rays(h, w, fh, fw, ps)
+        grids["sam"] = (*fused_grid(grid, ps * ps), ps * ps)
+    if want_clipseg:
+        hh, ww = np.meshgrid(np.linspace(0, h - 1, 32), np.linspace(0, w - 1, 32),
+                             indexing="ij")
+        grids["clipseg"] = (*fused_grid(np.stack([hh, ww], -1).reshape(-1, 2), 1), 1)
+
+    @torch.no_grad()
+    def render_all(cameras: Cameras, cam_idx: int) -> Dict[str, torch.Tensor]:
+        device = cameras.camera_to_worlds.device
+        outs = []
+        for c in mesh.shard(rgb_coords, rank, world).to(device):
+            rb = generate_rays(cameras, torch.full((c.shape[0],), cam_idx, device=device), c)
+            outs.append(model(rb, return_topk=fuse))
+        keys = ("rgb", "depth", "accumulation") + (("topk_w", "topk_mid") if fuse else ())
+        out = {k: gather(torch.cat([o[k] for o in outs])) for k in keys}
+        res = {k: rgb_unflatten(out[k]) for k in ("rgb", "depth", "accumulation")}
+        for name, (px, idx, group) in grids.items():
+            px_loc = mesh.shard(px, rank, world).to(device)
+            idx_loc = mesh.shard(idx, rank, world).to(device)
+            m_loc = px_loc.shape[0]
+            rpc = (min(max(chunk // group, 1) * group, m_loc) if name == "sam"
+                   else min(1024, m_loc))
+            feats = _fused_feature_eval(model, cameras, cam_idx, out["topk_w"],
+                                        out["topk_mid"], px_loc, idx_loc, (name,), rpc,
+                                        k_top, group=group)[name]
+            feats = gather(feats[:m_loc // group])
+            res[name] = (sam_unflatten(feats) if name == "sam"
+                         else feats[:1024].reshape(32, 32, -1))
+        return res
+
+    if sam is None:
+        return render_all
+
+    from samnerf_tpu_torch.perception.sam.sam import postprocess_masks
+
+    @torch.no_grad()
+    def frame(cameras: Cameras, cam_idx: int, coords: torch.Tensor,
+              labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out = render_all(cameras, cam_idx)
+        feat = out["sam"]
+        feat = torch.nn.functional.pad(feat, (0, 0, 0, 64 - feat.shape[1],
+                                              0, 64 - feat.shape[0]))
+        low_res, _ = sam.decode_masks(feat[None], (coords, labels), multimask_output=False)
+        masks = postprocess_masks(low_res, (1024, 1024), (h, w), sam.img_size)
+        mask = masks[0, 0] > 0.0
+        rgb = out["rgb"]
+        red = torch.tensor([1.0, 0.0, 0.0], device=rgb.device)
+        out["masked_rgb"] = torch.clamp(
+            torch.where(mask[..., None], 0.5 * rgb + 0.5 * red, rgb), 0.0, 1.0)
+        return out
+
+    return frame

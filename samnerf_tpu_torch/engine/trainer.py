@@ -1,11 +1,10 @@
 """Trainer: the train step, the training loop and checkpoints.
 
-Counterpart of ``samnerf_tpu/engine/trainer.py`` on one card.  What the
-JAX trainer does only to schedule the TPU is left out: there is no mesh
-(one card needs none), and a Python loop over steps takes the place of
-the ``lax.scan`` that fuses ``steps_per_dispatch`` steps into one
-dispatch (CUDA graphs would be its counterpart, in a later change).  The
-whole training set lives on the card and each batch is sampled there
+Counterpart of ``samnerf_tpu/engine/trainer.py``.  What the JAX trainer
+does only to schedule the TPU is left out: a Python loop over steps takes
+the place of the ``lax.scan`` that fuses ``steps_per_dispatch`` steps into
+one dispatch (CUDA graphs would be its counterpart, in a later change).
+The whole training set lives on the card and each batch is sampled there
 (:mod:`samnerf_tpu_torch.data.device_data`).  The in-training eval
 cadence runs through :class:`samnerf_tpu_torch.engine.pipeline.VanillaPipeline`
 (an eval-batch loss every ``steps_per_eval_batch`` steps, an eval image
@@ -15,6 +14,17 @@ and, at the ``log_every`` cadence, its losses go to the event writers of
 only when a cadence fires.  Each step runs under ``train_lock``, which a
 viewer attached to the run takes for each frame, so a frame never reads
 the parameters in the middle of an optimizer update.
+
+Data parallelism (the JAX trainer's mesh) runs over the process group of
+:mod:`samnerf_tpu_torch.parallel.mesh`, one process per card: every rank
+draws the same global batch and stratification jitter from identically
+seeded generators and keeps its contiguous share (whole patches), takes
+the mean loss of its share (a masked feature loss divided by the group's
+count of valid targets over the world size), and averages the gradients
+over the group before the optimizer step, so the step is the unsharded
+step.  Only the main process evaluates
+(from a generator of its own, so the ranks' batch draws stay in step) and
+writes checkpoints.
 """
 from __future__ import annotations
 
@@ -35,6 +45,7 @@ from samnerf_tpu_torch.models.sam_model import (SAMModel, SAMModelConfig,
                                                 get_loss_dict, init_params,
                                                 proposal_anneal_value,
                                                 proposal_grad_gate)
+from samnerf_tpu_torch.parallel import mesh as mesh_lib
 from samnerf_tpu_torch.utils import writer
 
 
@@ -67,9 +78,12 @@ def loss_and_grads(model: SAMModel, cfg: SAMModelConfig, state: TrainState,
                    cameras: Cameras, batch: Dict[str, torch.Tensor],
                    get_features: Tuple[str, ...],
                    generator: Optional[torch.Generator] = None,
-                   jitter: Optional[Sequence[torch.Tensor]] = None):
+                   jitter: Optional[Sequence[torch.Tensor]] = None,
+                   distributed: bool = False):
     """Forward and backward of one step: leaves the gradients in ``.grad``
-    and returns (loss dict, total loss, proposal gate)."""
+    and returns (loss dict, total loss, proposal gate).  ``distributed``:
+    ``batch`` is this rank's share, and each masked feature loss divides
+    by the group's count of valid targets over the world size."""
     anneal = proposal_anneal_value(cfg, state.step)
     gate = proposal_grad_gate(cfg, state.step, state.steps_since_update)
     indices = batch["indices"]
@@ -77,17 +91,33 @@ def loss_and_grads(model: SAMModel, cfg: SAMModelConfig, state: TrainState,
     outputs = model(ray_bundle, get_features=get_features, train=True,
                     jitter=jitter, generator=generator, anneal=anneal,
                     proposal_grad=gate)
-    loss_dict = get_loss_dict(cfg, outputs, batch)
+    denoms = feature_denominators(batch) if distributed else None
+    loss_dict = get_loss_dict(cfg, outputs, batch, denoms)
     total = sum(loss_dict.values())
     total.backward()
     return loss_dict, total, gate
 
 
+def feature_denominators(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """For each feature target of this rank's batch share: the group's
+    count of finite (valid) targets, floored at 1, over the world size, so
+    that the ranks' mean of a masked loss is the global batch's."""
+    names = [k for k in ("sam", "dino", "clipseg") if k in batch]
+    if not names:
+        return {}
+    counts = torch.stack([torch.isfinite(batch[k]).all(dim=-1).sum().float()
+                          for k in names])
+    total = mesh_lib.all_reduce_sum(counts)
+    return dict(zip(names, torch.clamp_min(total, 1.0) / mesh_lib.world_size()))
+
+
 def make_train_step(model: SAMModel, cfg: SAMModelConfig, optimizer: GroupedAdam,
-                    get_features: Tuple[str, ...]) -> Callable:
+                    get_features: Tuple[str, ...], distributed: bool = False) -> Callable:
     """(state, cameras, batch, generator) -> metrics; updates the model's
     parameters, the optimizer and ``state`` in place.  Metrics stay on
-    the device until the caller reads them."""
+    the device until the caller reads them.  ``distributed``: the batch is
+    this rank's share; gradients and metrics are averaged over the process
+    group before the update."""
 
     def train_step(state: TrainState, cameras: Cameras,
                    batch: Dict[str, torch.Tensor],
@@ -95,21 +125,40 @@ def make_train_step(model: SAMModel, cfg: SAMModelConfig, optimizer: GroupedAdam
                    jitter: Optional[Sequence[torch.Tensor]] = None):
         optimizer.zero_grad()
         loss_dict, total, gate = loss_and_grads(model, cfg, state, cameras, batch,
-                                                get_features, generator, jitter)
+                                                get_features, generator, jitter,
+                                                distributed)
+        if distributed:
+            mesh_lib.all_reduce_grads(model.parameters())
         optimizer.step()
         state.step += 1
         state.steps_since_update = 0 if gate > 0 else state.steps_since_update + 1
         metrics = {k: v.detach() for k, v in loss_dict.items()}
         metrics["total_loss"] = total.detach()
+        if distributed:
+            names = sorted(metrics)
+            mean = (mesh_lib.all_reduce_sum(torch.stack([metrics[k] for k in names]))
+                    / mesh_lib.world_size())
+            metrics = dict(zip(names, mean))
         metrics["psnr"] = -10.0 * torch.log10(torch.clamp_min(metrics["rgb_loss"], 1e-10))
         return metrics
 
     return train_step
 
 
+def shard_step_inputs(model: SAMModel, batch: Dict[str, torch.Tensor],
+                      generator: torch.Generator, rank: int, world: int):
+    """This rank's share of a global batch and of the stratification
+    jitter drawn for it at the global shape, as (batch, jitter).  Raises
+    ValueError when ``world`` does not divide the rays or the patches."""
+    num_rays = batch["indices"].shape[0]
+    jitter = model.draw_jitter(num_rays, generator, batch["indices"].device)
+    return ({k: mesh_lib.shard(v, rank, world) for k, v in batch.items()},
+            tuple(mesh_lib.shard(j, rank, world) for j in jitter))
+
+
 class Trainer:
     """The training loop on one device (``cuda`` unless ``device`` says
-    otherwise)."""
+    otherwise); with a process group up, data-parallel over its ranks."""
 
     def __init__(self, model_cfg: SAMModelConfig, trainer_cfg: TrainerConfig,
                  optimizer_groups: Dict[str, OptimizerGroupConfig], datamanager,
@@ -125,14 +174,28 @@ class Trainer:
             f for f, on in (("sam", True), ("dino", model_cfg.use_dino_feature),
                             ("clipseg", model_cfg.use_clipseg_feature))
             if on and model_cfg.distill_sam)
+        self.distributed = mesh_lib.is_initialized()
+        self.rank, self.world = mesh_lib.rank(), mesh_lib.world_size()
+        if self.distributed:
+            dm_cfg = datamanager.config
+            patches = dm_cfg.train_num_rays_per_batch // max(dm_cfg.patch_size, 1) ** 2
+            if dm_cfg.train_num_rays_per_batch % self.world or patches % self.world:
+                raise ValueError(f"{dm_cfg.train_num_rays_per_batch} rays per batch "
+                                 f"({patches} patches) do not split over {self.world} ranks")
+            for t in self.model.state_dict().values():
+                torch.distributed.broadcast(t, 0)
         self.optimizer = build_optimizer(optimizer_groups, self.model)
         self.state = TrainState()
         self.cameras = datamanager.cameras.to(self.device)
         self.device_data = build_device_dataset(datamanager, self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(
             trainer_cfg.seed + 1)
+        # only the main process evaluates; under data parallelism from a
+        # generator of its own, so the ranks' batch draws stay in step
+        self.eval_generator = (torch.Generator(device=self.device).manual_seed(
+            trainer_cfg.seed + 2) if self.distributed else self.generator)
         self._train_step = make_train_step(self.model, model_cfg, self.optimizer,
-                                           self.get_features)
+                                           self.get_features, self.distributed)
         self.metrics_history = []
         self._pipeline_obj = None
         self.train_lock = threading.Lock()
@@ -150,6 +213,10 @@ class Trainer:
         batch = sample_batch(self.generator, self.device_data,
                              dm.config.train_num_rays_per_batch, dm.config.patch_size,
                              (dm.cameras.height, dm.cameras.width))
+        if self.distributed:
+            batch, jitter = shard_step_inputs(self.model, batch, self.generator,
+                                              self.rank, self.world)
+            return self._train_step(self.state, self.cameras, batch, jitter=jitter)
         return self._train_step(self.state, self.cameras, batch, self.generator)
 
     @staticmethod
@@ -173,7 +240,7 @@ class Trainer:
         if self.datamanager.eval_images is None:
             return
         if self._crossed(step, n, self.cfg.steps_per_eval_batch):
-            losses = self._pipeline().get_eval_loss_dict(step, self.generator)
+            losses = self._pipeline().get_eval_loss_dict(step, self.eval_generator)
             losses = {k: float(v) for k, v in losses.items()}
             writer.put_scalar("Eval Loss", sum(losses.values()), step)
             writer.put_dict("Eval Loss Dict", losses, step)
@@ -223,7 +290,8 @@ class Trainer:
                       f"psnr={m['psnr']:.2f} {rate}", flush=True)
                 writer.put_dict("Train Loss Dict", m, step)
                 self.metrics_history.append((step, m))
-            self.eval_iteration(step)
+            if mesh_lib.is_main_process():
+                self.eval_iteration(step)
             writer.write_out_storage()
             if step_callback is not None:
                 step_callback(step, metrics)
@@ -242,7 +310,10 @@ class Trainer:
         d.mkdir(parents=True, exist_ok=True)
         return d
 
-    def save_checkpoint(self, step: int) -> Path:
+    def save_checkpoint(self, step: int) -> Optional[Path]:
+        """Written by the main process only (None elsewhere)."""
+        if not mesh_lib.is_main_process():
+            return None
         path = self._ckpt_dir() / f"step-{step:09d}.pt"
         torch.save({"model": self.model.state_dict(),
                     "optimizer": self.optimizer.state_dict(),

@@ -304,10 +304,15 @@ def init_params(config: SAMModelConfig, generator: torch.Generator,
 
 
 def get_loss_dict(config: SAMModelConfig, outputs: Dict[str, Any],
-                  batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+                  batch: Dict[str, torch.Tensor],
+                  feature_denoms: Optional[Dict[str, torch.Tensor]] = None
+                  ) -> Dict[str, torch.Tensor]:
     """Training losses.  ``batch['image']`` is [R, 3]; with patch_size > 1
     the SAM target ``batch['sam']`` is per patch [R / ps^2, 256]; the DINO
-    and ClipSeg targets are per ray."""
+    and ClipSeg targets are per ray.  ``feature_denoms`` ("sam", "dino",
+    "clipseg"): the denominators of the masked feature losses
+    (``ops.losses.masked_feature_mse``), as data parallelism sets them."""
+    denoms = feature_denoms or {}
     loss_dict = {"rgb_loss": torch.mean((batch["image"] - outputs["rgb"]) ** 2)}
     if "weights_list" in outputs:
         loss_dict["interlevel_loss"] = config.interlevel_loss_mult * loss_ops.interlevel_loss(
@@ -316,13 +321,14 @@ def get_loss_dict(config: SAMModelConfig, outputs: Dict[str, Any],
             outputs["weights_list"], outputs["ray_samples_list"])
     if config.distill_sam and "sam" in outputs:
         loss_dict["sam_loss"] = config.sam_loss_weight * loss_ops.masked_feature_mse(
-            outputs["sam"], batch["sam"])
+            outputs["sam"], batch["sam"], denoms.get("sam"))
         if config.use_dino_feature and "dino" in outputs:
             loss_dict["dino_loss"] = config.dino_loss_weight * loss_ops.masked_feature_mse(
-                outputs["dino"], batch["dino"])
+                outputs["dino"], batch["dino"], denoms.get("dino"))
         if config.use_clipseg_feature and "clipseg" in outputs:
             loss_dict["clipseg_loss"] = config.clipseg_loss_weight * \
-                loss_ops.masked_feature_mse(outputs["clipseg"], batch["clipseg"])
+                loss_ops.masked_feature_mse(outputs["clipseg"], batch["clipseg"],
+                                            denoms.get("clipseg"))
     return loss_dict
 
 

@@ -6,7 +6,7 @@ becomes ``torch.gather``.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -69,13 +69,18 @@ def distortion_loss(weights_list: Sequence[torch.Tensor],
     return torch.mean(lossfun_distortion(c, w))
 
 
-def masked_feature_mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def masked_feature_mse(pred: torch.Tensor, target: torch.Tensor,
+                       denom: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-pixel channel-mean MSE, averaged over the pixels whose target
-    is finite (NaN marks a pixel without features)."""
+    is finite (NaN marks a pixel without features).  ``denom`` replaces
+    the count of those pixels (floored at 1): a data-parallel rank passes
+    the group's count over the world size, so that the ranks' mean of
+    this loss is the global batch's."""
     valid = torch.isfinite(target).all(dim=-1)
     target = torch.nan_to_num(target)
     per_pix = torch.mean((pred - target) ** 2, dim=-1)
-    denom = torch.clamp_min(torch.sum(valid), 1)
+    if denom is None:
+        denom = torch.clamp_min(torch.sum(valid), 1)
     return torch.sum(torch.where(valid, per_pix, 0.0)) / denom
 
 

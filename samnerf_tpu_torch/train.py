@@ -14,6 +14,14 @@ Counterpart of ``samnerf_tpu/train.py`` on one NVIDIA GPU: the
 ``--data`` takes a nerfstudio, Blender or instant-ngp directory (routed
 by ``data.datamanager._detect_parser``).
 
+Data-parallel over several cards, one process each::
+
+    torchrun --nproc-per-node N -m samnerf_tpu_torch.train samnerf_distill --data DIR
+
+Every rank trains on its share of the same global batch
+(:mod:`samnerf_tpu_torch.parallel.mesh`); the main process alone writes
+the config, checkpoints and events and serves the viewer.
+
 Writes ``config.json`` and ``samnerf_tpu_torch_ckpts/step-*.pt`` under
 ``<output_dir>/<scene>/<method>/<timestamp>/``, and the event writers that
 ``--vis`` names there (``json``: ``metrics.json``; ``tensorboard``;
@@ -88,12 +96,21 @@ def save_config(config: MethodConfig) -> None:
     (out / "config.json").write_text(json.dumps(enc(config), indent=2))
 
 
-def train_loop(config: MethodConfig, device="cuda", step_callback=None):
+def train_loop(config: MethodConfig, device="cuda", step_callback=None,
+               num_devices: Optional[int] = None):
     """Seed, build the data and the trainer, set up ``config.vis``, train
     (``step_callback(step, metrics)`` after each step, after the viewer's
-    own), and stop the viewer when training ends."""
+    own), and stop the viewer when training ends.  ``num_devices``: the
+    ranks the run expects (None: the process group's, 1 without one); a
+    run on another number raises ValueError.  Writers and the viewer run
+    on the main process only."""
     from samnerf_tpu_torch.data.datamanager import DataManager
     from samnerf_tpu_torch.engine.trainer import Trainer
+    from samnerf_tpu_torch.parallel import mesh
+
+    if num_devices is not None and num_devices != mesh.world_size():
+        raise ValueError(f"num_devices={num_devices}, but the process group has "
+                         f"{mesh.world_size()} ranks")
 
     seed = config.trainer.seed
     random.seed(seed)
@@ -102,7 +119,11 @@ def train_loop(config: MethodConfig, device="cuda", step_callback=None):
     config.model = dataclasses.replace(config.model, num_images=dm.num_train_images)
     trainer = Trainer(config.model, config.trainer, config.optimizers, dm,
                       device=device)
-    viewer = _setup_vis(config, trainer)
+    if mesh.is_main_process():
+        viewer = _setup_vis(config, trainer)
+    else:
+        writer.reset()
+        viewer = None
     callbacks = [cb for cb in (viewer and viewer.step_callback, step_callback) if cb]
 
     def on_step(step, metrics):
@@ -366,6 +387,8 @@ def main(argv=None, device="cuda",
     each step).  Returns 1 when ``device`` is a card and there is none."""
     from samnerf_tpu_torch.configs.zoo import zoo_methods
 
+    from samnerf_tpu_torch.parallel import mesh
+
     argv = list(sys.argv[1:] if argv is None else argv)
     zoo = bool(argv) and argv[0] in zoo_methods()
     config = None if zoo else parse(argv)
@@ -377,11 +400,20 @@ def main(argv=None, device="cuda",
         if run_callback is not None:
             run_callback(run)
         return 0
-    config.trainer.output_dir = (Path(config.trainer.output_dir)
-                                 / Path(config.datamanager.dataparser.data).name
-                                 / config.method_name / time.strftime("%Y-%m-%d_%H%M%S"))
-    save_config(config)
-    train_loop(config, device=device, step_callback=step_callback)
+    started = not mesh.is_initialized() and mesh.initialize_distributed(device=device)
+    try:
+        if mesh.is_initialized() and str(device) == "cuda":
+            device = torch.device("cuda", mesh.local_rank())
+        config.trainer.output_dir = (Path(config.trainer.output_dir)
+                                     / Path(config.datamanager.dataparser.data).name
+                                     / config.method_name
+                                     / time.strftime("%Y-%m-%d_%H%M%S"))
+        if mesh.is_main_process():
+            save_config(config)
+        train_loop(config, device=device, step_callback=step_callback)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
     return 0
 
 
