@@ -105,6 +105,16 @@ which raises on failure:
    against their plain versions at an instant-ngp step's positions;
    zoo_reference: one small instant-ngp step on the card against the CPU
    (the grid bit for bit, the losses, every gradient, the eval outputs);
+   quality: the textured scene of the mIoU study (24 + 4 views of
+   256x256, detail 4; its digests against the JAX package's), ViT-B
+   targets through ``quality_distill_miou.make_vit_features`` (ms per
+   image, 4 FLASH-RELPOS launches per image, the first embedding against
+   the plain-attention route), ``quality_capacity.train_and_eval`` at
+   2^19 / 2^17 with the morton hash and 16384 rays for 300 of the study's
+   3000 steps (step ms, rays/s, 6 + 6 launches a step, test PSNR, SSIM,
+   SAM-feature MSE and cosine), ``view_miou`` on one held-out view at a
+   16x16 prompt grid, and instant-ngp through ``validate_zoo.run_method``
+   for 200 steps at 128x128 with its margin over ``trivial_psnr``;
 9. export: ``scripts/exporter.py``'s ``main`` on the eval phase's run
    directory in each mode at the exporter's defaults (8 views of
    256x256, TSDF and Poisson at 128^3): ms, points / vertices / faces,
@@ -126,7 +136,8 @@ which raises on failure:
    ``decode_masks``, the masks held against it), ``scripts/benchmark.py``
    over two copies of a synthetic scene, one ``DeviceTrace``, the SDS
    DDIM loop and gradient card against CPU, and the native image decoder
-   (built or PIL) against PIL's bytes;
+   (built or PIL) against PIL's bytes, with the native build's error when
+   it did not build;
 10. attn_kernel: FLASH-RELPOS against its plain version at SAM ViT-H's
    and ViT-B's global-attention shapes, a small ragged one and ViT-H's
    with a peaky softmax (q scaled by 8, logits to about +-30): max abs
@@ -3830,6 +3841,174 @@ def zoo_reference_phase(dev):
     return report
 
 
+QUALITY_STEPS = 300             # of the mIoU study's 3000: the cut that fits the phase
+QUALITY_RAYS = 16384
+QUALITY_TABLES = (19, 17)       # log2 rows of the field and proposal tables: the reference's
+QUALITY_GRID = 16               # point prompts a side on the held-out view (the study's 64)
+QUALITY_ZOO_STEPS = 200         # instant-ngp through validate_zoo's runner
+QUALITY_ZOO_SIZE = 128
+SCENE_DIGESTS = {
+    "png_sha256": "c123bc465c02eaf0def982326192299ee4241e87e0f70018ecaf20bb832fa4f9",
+    "pixels_sha256": "cff0727106456ef640074aaf0f23e72b59e0e25c65f8ca57cc0b38596dd7dfc3",
+    "npy_sha256": "ec460e90be00d3fc10d1ef7a2f6338a0e0fd6ca9d3244e39334836995f12aad0",
+}
+"""The mIoU study's scene (24 + 4 views, 256x256, detail 4, with
+features): the first image's PNG bytes, its pixels and its SAM ``.npy``,
+as the JAX package writes them (``tests/test_torch_synthetic_textured.py``
+computes them from it)."""
+
+
+def scene_digests(scene: Path) -> dict:
+    """SHA-256 of the first image's PNG bytes, of its decoded pixels and of
+    its ``sam_features`` ``.npy``."""
+    from PIL import Image
+
+    png = scene / "images" / "frame_00000.png"
+    return {"png_sha256": hashlib.sha256(png.read_bytes()).hexdigest(),
+            "pixels_sha256": hashlib.sha256(np.asarray(Image.open(png)).tobytes()).hexdigest(),
+            "npy_sha256": hashlib.sha256(
+                (scene / "sam_features" / "frame_00000.npy").read_bytes()).hexdigest()}
+
+
+def quality_phase(dev, root: Path):
+    """The quality path, cut to size: the textured scene at the mIoU
+    study's defaults (digests against the JAX package's); ViT-B targets
+    on the card through ``quality_distill_miou.make_vit_features`` (ms per
+    image, 4 FLASH-RELPOS launches per image, the first embedding against
+    the plain-attention route); ``quality_capacity.train_and_eval`` at
+    2^19 / 2^17, morton, 16384 rays for ``QUALITY_STEPS`` steps (step ms,
+    rays/s, 6 F32-ENC and 6 F32-ENC-BWD launches a step, test PSNR, SSIM,
+    SAM-feature MSE and cosine); ``view_miou`` on one held-out view at a
+    ``QUALITY_GRID`` prompt grid; and instant-ngp through
+    ``validate_zoo.run_method`` (its own process) for ``QUALITY_ZOO_STEPS``
+    steps at 128x128, with its margin over ``trivial_psnr``."""
+    from PIL import Image
+
+    from samnerf_tpu_torch.engine.eval_render import ImageRenderer
+    from samnerf_tpu_torch.ops import attention as ta
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    from samnerf_tpu_torch.perception.sam.build_sam import build_sam_vit_b
+    from samnerf_tpu_torch.perception.sam.predictor import SamPredictor
+    from samnerf_tpu_torch.scripts import quality_distill_miou as qm
+    from samnerf_tpu_torch.scripts import validate_zoo
+    from samnerf_tpu_torch.scripts.quality_capacity import train_and_eval
+    from samnerf_tpu_torch.utils.synthetic import write_textured_scene
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    scene = write_textured_scene(root / "miou_scene", num_train=24, num_test=4, h=256, w=256,
+                                 with_features=True, detail=4.0)
+    scene_s = time.perf_counter() - t0
+    digests = scene_digests(scene)
+    same = {k: digests[k] == SCENE_DIGESTS[k] for k in digests}
+    print(f"quality scene: 24 + 4 views of 256x256 in {scene_s:.1f} s; first image PNG "
+          f"sha256 {digests['png_sha256']}, pixels {digests['pixels_sha256']}, .npy "
+          f"{digests['npy_sha256']}; equal to the JAX package's: {same}", flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"the textured scene differs from the JAX package's: {digests}")
+
+    # the ViT-B targets
+    ta.flash_attention_relpos.launches = 0
+    sam, target_ms = qm.make_vit_features(scene, seed=0, device=dev)
+    target_launches = ta.flash_attention_relpos.launches
+    images = len(target_ms)
+    if target_launches != 4 * images:
+        raise AssertionError(f"FLASH-RELPOS launched {target_launches} times for {images} "
+                             f"ViT-B images, not 4 per image")
+    img0 = np.asarray(Image.open(scene / "images" / "frame_00000.png"))
+    plain = build_sam_vit_b(device="meta")
+    plain.load_state_dict(sam.state_dict(), assign=True)
+    for block in plain.image_encoder.blocks:
+        block.attn.use_flash = False
+    plain_predictor = SamPredictor(plain)
+    plain_predictor.set_image(img0)
+    if ta.flash_attention_relpos.launches != target_launches:
+        raise AssertionError("the plain route launched FLASH-RELPOS")
+    kernel_emb = np.moveaxis(np.load(scene / "sam_features" / "frame_00000.npy"), 0, -1)
+    plain_emb = plain_predictor.get_image_embedding()[0].cpu().numpy()
+    route_err = float(np.abs(kernel_emb - plain_emb).max())
+    del plain, plain_predictor
+    target_image_ms = statistics.median(target_ms[1:])     # the first is the warm-up
+    print(f"quality targets: ViT-B on {images} images, median {target_image_ms:.2f} ms per "
+          f"image after the first ({target_ms[0]:.1f}); FLASH-RELPOS launches "
+          f"{target_launches} ({target_launches / images:g} per image); kernel vs plain "
+          f"route embedding max abs err {route_err:.3e} (tol {TOL_ENCODE:g}, |emb| max "
+          f"{np.abs(kernel_emb).max():.2f})", flush=True)
+    if not route_err <= TOL_ENCODE:
+        raise AssertionError(f"the ViT-B targets' kernel and plain routes disagree: {route_err}")
+
+    # the training at reference capacity
+    counts = {}
+
+    def on_step(step, metrics):
+        if step == QUALITY_STEPS:
+            counts.update(_encode_launches(hg), **{
+                "F32-ENC-BWD": hg.parity_hash_encode_bwd.launches})
+
+    print(f"quality train: {QUALITY_STEPS} of the study's 3000 steps (cut to fit the phase)",
+          flush=True)
+    _reset_encode_launches(hg)
+    m, trainer = train_and_eval(scene, *QUALITY_TABLES, QUALITY_STEPS, QUALITY_RAYS,
+                                args_views=24, hash_fn="morton", return_trainer=True,
+                                persist_run=False, device=dev, step_callback=on_step)
+    eval_f32 = hg.parity_hash_encode.launches - counts["F32-ENC"]
+    per_step = {k: counts[k] / QUALITY_STEPS for k in ("F32-ENC", "F32-ENC-BWD")}
+    print(f"quality train 2^{QUALITY_TABLES[0]} / 2^{QUALITY_TABLES[1]} morton, "
+          f"{QUALITY_RAYS} rays: {m['step_ms']:.2f} ms a "
+          f"step after the first, {QUALITY_RAYS / m['step_ms'] * 1e3:,.0f} rays/s "
+          f"({m['train_s']} s with set-up); launches a step F32-ENC {per_step['F32-ENC']:g}, "
+          f"F32-ENC-BWD {per_step['F32-ENC-BWD']:g}; test PSNR {m['psnr']:.2f}, SSIM "
+          f"{m['ssim']:.4f}, train PSNR {m['train_psnr']:.2f}, SAM-feature MSE "
+          f"{m['sam_feature_mse']:.4f}, cosine {m['sam_feature_cos']:.4f}; F32-ENC "
+          f"{eval_f32} in the metrics' renders", flush=True)
+    if per_step != {"F32-ENC": F32_PER_STEP, "F32-ENC-BWD": F32_PER_STEP} or counts["Q-ENC"]:
+        raise AssertionError(f"the quality run launched {counts} in {QUALITY_STEPS} steps")
+    for k in ("psnr", "ssim", "train_psnr", "sam_feature_mse", "sam_feature_cos", "step_ms"):
+        if not math.isfinite(m[k]):
+            raise AssertionError(f"quality metric {k} is {m[k]}")
+
+    # the closed loop on one held-out view
+    test_paths = qm.gt_paths(scene, "transforms_test.json")
+    cams = trainer.datamanager.eval_cameras.to(dev)
+    ta.flash_attention_relpos.launches = 0
+    t0 = time.perf_counter()
+    v, v_gt = qm.view_miou(ImageRenderer(trainer.model), cams, 0, sam, QUALITY_GRID,
+                           gt_path=test_paths[0])
+    miou_s = time.perf_counter() - t0
+    miou_launches = ta.flash_attention_relpos.launches
+    print(f"quality mIoU held-out view 0, {QUALITY_GRID}x{QUALITY_GRID} prompts: vs "
+          f"set_image(rendered rgb) {v:.4f}, vs set_image(GT) {v_gt:.4f} ({miou_s:.1f} s, "
+          f"{miou_launches} FLASH-RELPOS)", flush=True)
+    if not (0.0 <= v <= 1.0 and 0.0 <= v_gt <= 1.0) or miou_launches != 8:
+        raise AssertionError(f"mIoU {v}, {v_gt}; FLASH-RELPOS {miou_launches}, not 2 x 4")
+    del trainer, sam
+    torch.cuda.empty_cache()
+
+    # one zoo method through validate_zoo's runner
+    zoo_scene = write_textured_scene(root / "zoo_scene", num_train=24, num_test=2,
+                                     h=QUALITY_ZOO_SIZE, w=QUALITY_ZOO_SIZE, detail=2.0)
+    base = validate_zoo.trivial_psnr(zoo_scene)
+    p, zoo_s, tail = validate_zoo.run_method("instant-ngp", zoo_scene, QUALITY_ZOO_STEPS,
+                                             ZOO_RAYS, root / "zoo_runs")
+    if p is None or not math.isfinite(p):
+        raise AssertionError("validate_zoo instant-ngp failed:\n" + "\n".join(tail))
+    print(f"quality zoo: instant-ngp {QUALITY_ZOO_STEPS} steps x {ZOO_RAYS} rays at "
+          f"{QUALITY_ZOO_SIZE}x{QUALITY_ZOO_SIZE}, eval PSNR {p:.2f} against the trivial "
+          f"{base:.2f} ({p - base:+.2f} dB), {zoo_s:.1f} s in its own process", flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"quality phase: {phase_s:.1f} s", flush=True)
+    return dict(scene_s=scene_s, digests=digests, digests_equal=same,
+                target_ms=target_ms, target_image_ms=target_image_ms,
+                target_launches=target_launches, route_max_abs_err=route_err,
+                steps=QUALITY_STEPS, rays=QUALITY_RAYS, metrics=m,
+                launches={"F32-ENC": counts["F32-ENC"], "F32-ENC-BWD": counts["F32-ENC-BWD"]},
+                launches_per_step=per_step, eval_f32_enc=eval_f32,
+                miou=dict(grid=QUALITY_GRID, vs_render=v, vs_gt=v_gt, seconds=miou_s,
+                          flash_launches=miou_launches),
+                zoo=dict(method="instant-ngp", steps=QUALITY_ZOO_STEPS, psnr=p,
+                         trivial_psnr=base, margin=p - base, seconds=zoo_s),
+                seconds=phase_s)
+
 EXPORT_MODES = ("pointcloud", "tsdf", "poisson")
 EXPORT_VIEWS, EXPORT_SIZE, EXPORT_RES = 8, 256, 128   # the exporter's defaults
 # TSDF card vs CPU: the world-to-camera matmul sums in another order, so a
@@ -4371,10 +4550,11 @@ def tools_phase(dev, root: Path):
     pil = np.stack([np.asarray(Image.open(f).convert("RGB")) for f in files])
     pil_ms = (time.perf_counter() - t0) * 1e3
     route = "native" if decoded is not None else "PIL"
+    build_error = native.build_error()
     same = decoded is None or bool(np.array_equal(decoded, pil))
     print(f"tools image decode: {route} ({native.get_loader()}); {len(files)} images "
-          f"{native_ms:.1f} ms vs PIL {pil_ms:.1f} ms; bytes equal to PIL's: {same}",
-          flush=True)
+          f"{native_ms:.1f} ms vs PIL {pil_ms:.1f} ms; bytes equal to PIL's: {same}"
+          + (f"; native build: {build_error}" if build_error else ""), flush=True)
     if not same:
         raise AssertionError("the native decoder's bytes differ from PIL's")
     return dict(decoder_export=dict(artifact_bytes=len(exp.artifact), export_s=export_s,
@@ -4383,8 +4563,8 @@ def tools_phase(dev, root: Path):
                 benchmark=dict(rc=rc, seconds=bench_s, summary=summary),
                 device_trace=dict(events=len(events), device_us=device_us),
                 sds=dict(max_abs_err=sds_err, x0_err=recovered),
-                image_decode=dict(route=route, native_ms=native_ms, pil_ms=pil_ms,
-                                  images=len(files), bytes_equal=same))
+                image_decode=dict(route=route, build_error=build_error, native_ms=native_ms,
+                                  pil_ms=pil_ms, images=len(files), bytes_equal=same))
 
 
 def main() -> int:
@@ -4433,6 +4613,7 @@ def main() -> int:
         data = data_phase(dev, dino_scene, Path(tmp), train["step_ms"])
         zoo = zoo_phase(dev, dino_scene, Path(tmp))
         zoo_reference = zoo_reference_phase(dev)
+        quality = quality_phase(dev, Path(tmp))
         export = export_phase(dev, Path(evaluation["run_dir"]), Path(tmp))
         pose = pose_phase(dev)
         dist = dist_phase(dev, dino_scene, Path(tmp), train["step_ms"])
@@ -4500,7 +4681,8 @@ def main() -> int:
                   for k in ("F32-ENC", "F32-ENC-BWD")}
     kernels[0]["launches_by_path"].update(train_dino=dino["launches"]["F32-ENC"],
                                           data_train=data_train["F32-ENC"],
-                                          zoo_train=zoo["launches"]["F32-ENC"])
+                                          zoo_train=zoo["launches"]["F32-ENC"],
+                                          quality_train=quality["launches"]["F32-ENC"])
     kernels[0]["launches_by_path"].update(
         **{f"export_{m}": r["launches"]["F32-ENC"] for m, r in export["modes"].items()},
         pose_grad=pose["launches"]["F32-ENC"], dist_train=dist["launches"]["F32-ENC"])
@@ -4559,6 +4741,7 @@ def main() -> int:
                         "train_dino": dino["launches"]["F32-ENC-BWD"],
                         "data_train": data_train["F32-ENC-BWD"],
                         "zoo_train": zoo["launches"]["F32-ENC-BWD"],
+                        "quality_train": quality["launches"]["F32-ENC-BWD"],
                         "pose_grad": pose["launches"]["F32-ENC-BWD"],
                         "dist_train": dist["launches"]["F32-ENC-BWD"]},
                     "max_abs_err": max(max(r["max_abs_err"] for r in bwd_rows),
@@ -4574,7 +4757,9 @@ def main() -> int:
                     "launches": encode["launches"],
                     "launches_by_path": {"encode": encode["launches"], "amg": amg["launches"],
                                          "preprocess": preprocess["launches"],
-                                         "view_no_distill": no_distill_view["launches"]},
+                                         "view_no_distill": no_distill_view["launches"],
+                                         "quality_targets": quality["target_launches"],
+                                         "quality_miou": quality["miou"]["flash_launches"]},
                     "max_abs_err": max(r["max_abs_err"] for r in attn_rows),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
@@ -4615,7 +4800,8 @@ def main() -> int:
          "encode_bf16": encode_bf16, "train_bf16": train_bf16,
          "eval": evaluation, "amg": amg, "cull": cull, "viewer": viewer,
          "viewer_train": viewer_train, "dino": dino, "data": data, "zoo": zoo,
-         "zoo_reference": zoo_reference, "export": export, "pose": pose, "dist": dist,
+         "zoo_reference": zoo_reference, "quality": quality, "export": export,
+         "pose": pose, "dist": dist,
          "tools": tools, "kernels": kernels}, indent=1, default=str))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -140,8 +140,10 @@ def zoo_loss_and_grads(method: ZooMethod, model: nn.Module, config, cameras: Cam
                        occupancy: Optional[torch.Tensor] = None,
                        draws: Optional[Dict[str, Any]] = None):
     """Forward and backward of one step on the rays of ``batch["indices"]``
-    (image, row, col): leaves the gradients in ``.grad`` (every zoo model's
-    graph reaches all its parameters) and returns (loss dict, total).
+    (image, row, col): leaves the gradients in ``.grad``, zeros for a
+    parameter the losses do not reach (as ``jax.grad`` gives them: the
+    semantic head of a scene without semantics), and returns (loss dict,
+    total).
     ``draws`` are the model's random inputs, else drawn from
     ``generator``.  The total sums the losses in key order, as
     ``jax.tree.leaves`` does."""
@@ -154,6 +156,9 @@ def zoo_loss_and_grads(method: ZooMethod, model: nn.Module, config, cameras: Cam
     losses = zoo_losses(method, model, config, outputs, batch)
     total = sum(losses[k] for k in sorted(losses))
     total.backward()
+    for p in model.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
     return losses, total
 
 

@@ -2,10 +2,10 @@
 
 Counterpart of ``samnerf_tpu/core/cameras.py`` (``Cameras``,
 ``undistort_coords`` :63, ``generate_rays`` :87, with the viewer's crop
-box).  Conventions: coords are (row, col) with pixel centers at +0.5;
-camera-plane coords [(x-cx)/fx, -(y-cy)/fy], undistorted when the cameras
-carry ``distortion_params`` (OpenCV k1 k2 k3 k4 p1 p2, JAX's fixed
-three-step solve); the camera-space direction is [x, y, -1] for
+box; ``full_image_coords`` :178).  Conventions: coords are (row, col)
+with pixel centers at +0.5; camera-plane coords [(x-cx)/fx, -(y-cy)/fy],
+undistorted when the cameras carry ``distortion_params`` (OpenCV k1 k2
+k3 k4 p1 p2, JAX's fixed three-step solve); the camera-space direction is [x, y, -1] for
 perspective cameras (OpenGL), the equidistant model for fisheye and the
 longitude / latitude map for equirectangular ones (``camera_type``: all
 three computed and selected per ray, as the JAX package does); then
@@ -18,6 +18,7 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from samnerf_tpu_torch.core.lie_groups import multiply_poses
@@ -139,3 +140,9 @@ def generate_rays(cameras: Cameras, camera_indices: torch.Tensor,
     return RayBundle(origins=c2w[..., :3, 3], directions=directions,
                      pixel_area=(dx * dy)[..., None],
                      camera_indices=ci[..., None], nears=nears, fars=fars)
+
+
+def full_image_coords(height: int, width: int) -> np.ndarray:
+    """[H*W, 2] float32 (row, col) integer coords, row-major."""
+    yy, xx = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
+    return np.stack([yy, xx], axis=-1).reshape(-1, 2).astype(np.float32)

@@ -28,6 +28,7 @@ from typing import Dict
 import numpy as np
 from PIL import Image
 
+from samnerf_tpu_torch.core.cameras import full_image_coords
 from samnerf_tpu_torch.data.dataparser import DataparserConfig, parse_nerfstudio_data
 from samnerf_tpu_torch.data.feature_loader import clipseg_pt_to_grid, load_features
 
@@ -200,8 +201,7 @@ class DataManager:
         """Every pixel of one eval image: indices [H*W, 3] row-major and the
         image [H, W, 3] in [0, 1]."""
         h, w = self.eval_cameras.height, self.eval_cameras.width
-        yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
-        coords = np.stack([yy, xx], -1).reshape(-1, 2).astype(np.int32)
+        coords = full_image_coords(h, w).astype(np.int32)
         indices = np.concatenate(
             [np.full((coords.shape[0], 1), image_index, np.int32), coords], -1)
         return {"indices": indices,

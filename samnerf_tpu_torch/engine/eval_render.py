@@ -16,7 +16,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from samnerf_tpu_torch.core.cameras import Cameras, generate_rays
+from samnerf_tpu_torch.core.cameras import Cameras, full_image_coords, generate_rays
 from samnerf_tpu_torch.models.sam_model import SAMModel
 from samnerf_tpu_torch.ops.occupancy import (ServeOccupancy, cells_from_density,
                                              grid_cell_positions, pack_serve_occupancy)
@@ -36,8 +36,7 @@ def get_feature_size(h: int, w: int, largesize: int = 64) -> Tuple[int, int]:
 
 def _chunked_coords(h: int, w: int, chunk: int) -> np.ndarray:
     """Row-major (row, col) coords padded to whole chunks: [n, chunk, 2]."""
-    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
-    coords = np.stack([yy, xx], -1).reshape(-1, 2).astype(np.float32)
+    coords = full_image_coords(h, w)
     pad = (-coords.shape[0]) % chunk
     if pad:
         coords = np.concatenate([coords, np.tile(coords[-1:], (pad, 1))])
