@@ -11,7 +11,7 @@ reconstructs the scene clears it by several dB.
 Counterpart of ``scripts/validate_zoo.py``::
 
     python -m samnerf_tpu_torch.scripts.validate_zoo [--steps 2000]
-        [--rays 4096] [--res 128] [--views 24]
+        [--rays 4096] [--res 128] [--views 24] [--seed 42]
         [--methods name[:steps],...] [--out docs/ZOO_torch.md]
 
 ``--methods`` defaults to the whole zoo; ``name:steps`` gives a method its
@@ -55,13 +55,13 @@ def trivial_psnr(scene: Path) -> float:
     return -10.0 * np.log10(max(mse, 1e-12))
 
 
-def run_method(name: str, scene: Path, steps: int, rays: int, work: Path):
+def run_method(name: str, scene: Path, steps: int, rays: int, work: Path, seed: int = 42):
     """Train ``name`` through the train entry in a process of its own,
     its output in ``work/<name>.log``: (eval PSNR or None, seconds, the
     log's last lines)."""
     cmd = [sys.executable, "-m", "samnerf_tpu_torch.train", name, "--data", str(scene),
            "--max-num-iterations", str(steps), "--rays-per-batch", str(rays),
-           "--output-dir", str(work / "runs")]
+           "--output-dir", str(work / "runs"), "--seed", str(seed)]
     print(f"--- {name}: {' '.join(cmd[2:])}", flush=True)
     existing = os.environ.get("PYTHONPATH", "")
     env = dict(os.environ, PYTHONPATH=str(REPO_ROOT) + (os.pathsep + existing
@@ -88,7 +88,7 @@ def write_doc(out: Path, rows, args, base: float, card: str) -> None:
         "Every zoo method trained end to end through the train entry",
         f"(`python -m samnerf_tpu_torch.train <method>`) x {args.rays} rays a step",
         f"on the textured synthetic scene ({args.views} train views, {args.res}x{args.res}, "
-        "detail x2),",
+        f"detail x2), seed {args.seed},",
         f"on {card}.",
         f"Trivial baseline = best constant-colour image on the eval view: **{base:.2f} dB**.",
         "",
@@ -112,6 +112,7 @@ def parse_args(argv: Optional[List[str]] = None):
     ap.add_argument("--rays", type=int, default=4096)
     ap.add_argument("--res", type=int, default=128)
     ap.add_argument("--views", type=int, default=24)
+    ap.add_argument("--seed", type=int, default=42, help="the train entry's --seed")
     ap.add_argument("--methods", default="",
                     help="comma list (default: the whole zoo); a name:steps entry "
                          "overrides --steps for that method")
@@ -143,7 +144,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     rows = []
     for name in methods:
         n_steps = steps_of.get(name, args.steps)
-        p, dt, tail = run_method(name, scene, n_steps, args.rays, work)
+        p, dt, tail = run_method(name, scene, n_steps, args.rays, work, args.seed)
         if p is None:
             print(f"  FAILED ({dt:.0f}s):\n   " + "\n   ".join(tail), flush=True)
         else:

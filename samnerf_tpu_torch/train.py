@@ -281,8 +281,9 @@ def train_zoo(name: str, argv: List[str], device="cuda",
     options (``argv``): one step after another (the JAX loop scans 16 or 2
     at a time and rounds the count up to that), batches drawn on the
     device, the occupancy grid on :data:`OCC_RES`'s schedule for the ngp
-    methods, a checkpoint at the end, and the PSNR of eval view 0 rendered
-    in 4096-ray chunks (with the grid).  ``step_callback(step, metrics)``
+    methods, a checkpoint at the end, the PSNR of eval view 0 rendered in
+    4096-ray chunks (with the grid), then the process's F32-ENC and
+    F32-ENC-BWD launches.  ``step_callback(step, metrics)``
     runs after each step, with the grid's occupied share as
     ``metrics["occupied"]`` on a step the grid was updated before."""
     import argparse
@@ -293,6 +294,7 @@ def train_zoo(name: str, argv: List[str], device="cuda",
     from samnerf_tpu_torch.data.dataparser import DataparserConfig
     from samnerf_tpu_torch.data.device_data import build_device_dataset, sample_batch
     from samnerf_tpu_torch.engine.trainer import CKPT_DIR
+    from samnerf_tpu_torch.ops import hash_grid as hg
     from samnerf_tpu_torch.ops.occupancy import update_occupancy
     from samnerf_tpu_torch.utils.metrics import psnr
 
@@ -372,6 +374,8 @@ def train_zoo(name: str, argv: List[str], device="cuda",
         print(f"eval view 0 PSNR: {p:.2f}; saved {out}", flush=True)
     else:
         print(f"no eval images, no PSNR; saved {out}", flush=True)
+    print(f"hash kernel launches: F32-ENC {hg.parity_hash_encode.launches}, "
+          f"F32-ENC-BWD {hg.parity_hash_encode_bwd.launches}", flush=True)
     return ZooRun(model=model, out_dir=out, checkpoint=checkpoint,
                   metrics={k: float(v) for k, v in metrics.items()},
                   occupancy_updates=updates, occupancy=occ_kw.get("occupancy"), psnr=p,

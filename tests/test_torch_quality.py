@@ -139,6 +139,26 @@ def test_zoo_log_parsing_and_doc(tmp_path, monkeypatch):
     assert "| tensorf | 10 | FAILED |" in text and "700.00 W" in text
 
 
+@pytest.mark.parametrize("argv,seed", [([], 42), (["--seed", "3"], 3)])
+def test_zoo_runner_passes_the_seed(tmp_path, monkeypatch, argv, seed):
+    """``--seed`` reaches the train entry of every method and the doc
+    names it (42, the entry's default, unless given)."""
+    cmds = []
+
+    def fake_run(cmd, stdout, **kw):
+        cmds.append(cmd)
+        stdout.write("eval view 0 PSNR: 19.25; saved x\n")
+        return type("R", (), {"returncode": 0})()
+
+    monkeypatch.setattr(tvz.subprocess, "run", fake_run)
+    args = tvz.parse_args(argv + ["--out", str(tmp_path / "ZOO_torch.md")])
+    tvz.run_method("depth-nerfacto", tmp_path, 10, 4096, tmp_path / "work", args.seed)
+    assert cmds[0][cmds[0].index("--seed") + 1] == str(seed)
+    tvz.write_doc(tmp_path / "ZOO_torch.md", [("depth-nerfacto", 10, 19.25, 1.0)], args,
+                  12.5, "NVIDIA H100 80GB HBM3, 700.00 W")
+    assert f"seed {seed}," in (tmp_path / "ZOO_torch.md").read_text()
+
+
 def test_grid_miou_matches_jax(jax_miou):
     dec = decoder_state(3, for_masks=True)
     sam = Sam(device="cpu")
