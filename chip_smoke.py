@@ -31,8 +31,15 @@ which raises on failure:
 6. serve: full-width ``samnerf_distill`` 512x512 frames through
    ``SamNerfRenderer.serve_frame_fn`` (static preset) with f32 tables,
    baked int8 tables, and baked int8 tables served through FUSED-QMLP
-   (``serve_fuse_mlp``), launch counts per frame (22 F32-ENC per f32
-   frame, 19 FUSED-QMLP per fused frame); then a 64x64 frame of a
+   (``serve_fuse_mlp``), each frame one CUDA graph replay: the first
+   frame's eager run and capture launch twice a frame's kernels, and a
+   replay runs on the card, counted by name in a profiler trace, 22 F32-ENC
+   per f32 frame and 19 FUSED-QMLP per fused frame; dispatch_serve: those
+   frames and the fused int8 one culled by a ball grid, replayed against
+   ``serve.eager`` (the same frame one launch per op) on six cameras and
+   clicks, bit for bit, no launch from Python in a replay and on the card
+   the eager frame's kernels, wall, device span, busy and idle of both;
+   then a 64x64 frame of a
    small model on the card against the same frame on the CPU, where every
    kernel runs its plain version, for each of the three;
    view: ``SamNerfRenderer.render_view`` at 512x512, full width, int8
@@ -64,9 +71,15 @@ which raises on failure:
    computes in f32 only), ``render_view`` with one click, and a small bf16
    model's grids on the card against the CPU;
 7. train: full-width ``samnerf_distill`` training steps on a synthetic
-   512x512 scene through the port's ``Trainer`` (ms per step, rays/s,
+   512x512 scene through the port's ``Trainer`` with ``steps_per_dispatch``
+   1, the eager step (ms per step, rays/s,
    peak memory, launches per step: 6 F32-ENC and 6 F32-ENC-BWD, and the
-   layout passes, counted apart; losses); then one train step of a
+   layout passes, counted apart; losses); dispatch_train: the preset's
+   blocks of 20 steps, one CUDA graph replay each, against 40 eager steps
+   from one state (step counts, parameters, Adam moments and losses within
+   the eager path's own run-to-run spread), the eager step's launches
+   against the replay's kernels on the card per step, wall, device span,
+   busy and idle per step of both; then one train step of a
    small model on the card against the same step on the CPU (losses and
    gradients);
    eval: the train entry (``train.train_loop``) at full width on a
@@ -86,10 +99,11 @@ which raises on failure:
    synthetic 512x512 scene through ``ViTExtractor`` (ms per image and
    peak memory at 1024 to 8192 query rows per attention product and with
    the whole attention) and
-   ``get_dino_embeddings.main``; a small image card vs CPU; 30 full-width
+   ``get_dino_embeddings.main``; a small image card vs CPU; 100 full-width
    ``samnerf_distill`` steps with ``--model.use-dino-feature True
-   --datamanager.use-dino-feature True`` (step ms, the DINO loss falling,
-   6 + 6 launches a step);
+   --datamanager.use-dino-feature True`` in the preset's blocks, the first
+   captured (step ms of the replays, the DINO loss falling, 6 + 6 a step
+   on the card);
    data: every dataparser family's scene, its rays card vs CPU; the
    scene as a Blender and an instant-ngp directory routed by
    ``_detect_parser`` and trained at full width; the scene with an OpenCV
@@ -195,12 +209,15 @@ which raises on failure:
 17. no_distill_train: 10 full-width ``samnerf_no_distill`` steps through
    ``Trainer`` on the scene; train_bf16: ``samnerf_distill
    --model.compute-dtype bfloat16`` through the train entry at full width
-   on the train phase's synthetic scene (ms per step, rays/s, peak
-   memory, 6 F32-ENC and 6 F32-ENC-BWD launches per step);
-   viewer_train: the train entry with ``--vis viewer`` on free ports, 35
-   full-width steps on that scene, a client that gets frames while it
-   trains (step ms beside the train phase's; 6 + 6 launches a step and 22
-   F32-ENC a 512x512 viewer frame);
+   on the train phase's synthetic scene in the preset's blocks, the first
+   captured, then two replays (ms per step, rays/s, peak memory, 6 F32-ENC
+   and 6 F32-ENC-BWD per step on the card);
+   viewer_train: the train entry with ``--vis viewer`` on free ports, 60
+   full-width steps on that scene in three blocks (one captured, two
+   replayed with the viewer live), a client that gets frames while it
+   trains (step ms beside the train phase's; 6 + 6 launches a step Python
+   ran and 22 F32-ENC a 512x512 viewer frame, 6 + 6 a replayed step on
+   the card);
 18. one ``{"kernels": [...]}`` line (the f32 kernels' layout passes
    listed under ``passes`` beside the kernel that needs them; the bf16
    FLASH-RELPOS routes as ``FLASH-RELPOS-BF16-WGMMA`` and
@@ -216,6 +233,7 @@ when no CUDA device is present.  Details go to
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import hashlib
 import importlib.util
@@ -307,7 +325,7 @@ BF16_OPS_PER_S = 989e12         # H100 SXM dense bf16 on the tensor cores
 # to ~2e-6 max |ref| (the f32 kernel's own level) before they are rounded
 BF16_ULP = 2.0 ** -7
 BF16_ULP_ABS = 1e-5
-BF16_TRAIN_WARMUP, BF16_TRAIN_STEPS = 3, 10
+BF16_TRAIN_STEPS = 40           # timed, in blocks of 20, after one block
 BF16_FRAMES = 3                 # timed frames per bf16 serve run, after a warm-up
 
 
@@ -586,25 +604,79 @@ def _cameras(dev, i, h, w, focal):
 SERVE_RUNS = (("f32", False, False), ("int8", True, False), ("int8_fused", True, True))
 
 
-def _reset_encode_launches(hg):
-    hg.parity_hash_encode.launches = 0
-    hg.parity_hash_encode_q8.launches = 0
-    hg.parity_hash_encode_qmlp.launches = 0
-    hg.parity_hash_encode_bwd.launches = 0
-    hg.pack_bf16_table.launches = 0
-    hg.deinterleave_table_grad.launches = 0
+HASH_KERNELS = ("F32-ENC", "Q-ENC", "FUSED-QMLP", "F32-ENC-BWD", "BF16-PACK",
+                "GRAD-DEINTERLEAVE")
 
 
-def _encode_launches(hg):
-    return {"F32-ENC": hg.parity_hash_encode.launches,
-            "Q-ENC": hg.parity_hash_encode_q8.launches,
-            "FUSED-QMLP": hg.parity_hash_encode_qmlp.launches}
+def _reset_encode_launches():
+    from samnerf_tpu_torch.ops import kernel_launches
+    kernel_launches.reset(HASH_KERNELS)
 
 
-def _pass_launches(hg):
+def _encode_launches():
+    from samnerf_tpu_torch.ops import kernel_launches
+    return kernel_launches.counts(("F32-ENC", "Q-ENC", "FUSED-QMLP"))
+
+
+def _pass_launches():
     """Launches of the f32 kernels' layout passes, counted apart."""
-    return {"BF16-PACK": hg.pack_bf16_table.launches,
-            "GRAD-DEINTERLEAVE": hg.deinterleave_table_grad.launches}
+    from samnerf_tpu_torch.ops import kernel_launches
+    return kernel_launches.counts(("BF16-PACK", "GRAD-DEINTERLEAVE"))
+
+
+def _trace_launches(names):
+    """The hash kernels and layout passes among a trace's device kernel names."""
+    from samnerf_tpu_torch.ops import kernel_launches
+    return kernel_launches.trace_counts(names, HASH_KERNELS)
+
+
+class _CardTrace:
+    """The hash kernels and layout passes that ran on the card between
+    ``start()`` and ``stop()``, by name, from a profiler trace: CUDA graph
+    replays included, which the wrappers' counters do not see (they count
+    what Python launches, a capture once).  Also a context manager.
+    The profiler has lost device records once (a trace of 80 replayed
+    DINO steps, about 70,000 records, came back 4 F32-ENC-BWD short; the
+    cause is not known), so a trace spans at most one block of replayed
+    steps or a few frames, and ends with a few no-op kernels after the
+    work it counts; ``records`` is the number of device records it
+    kept."""
+
+    def __init__(self):
+        self._prof = None
+        self.counts = None
+        self.records = None
+
+    def start(self):
+        from torch.profiler import ProfilerActivity, profile
+        self._prof = profile(activities=[ProfilerActivity.CUDA])
+        self._prof.start()
+        return self
+
+    def stop(self) -> dict:
+        from torch.autograd import DeviceType
+        torch.cuda.synchronize()
+        pad = torch.zeros(1, device=torch.cuda.current_device())
+        for _ in range(4):
+            pad.add_(1)
+        torch.cuda.synchronize()
+        self._prof.stop()
+        names = [e.name() for e in self._prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA]
+        self.counts = _trace_launches(names)
+        self.records = len(names)
+        self._prof = None
+        return self.counts
+
+    @property
+    def running(self) -> bool:
+        return self._prof is not None
+
+    def __enter__(self):
+        return self.start()
+
+    def __exit__(self, *exc):
+        self.stop()
 
 
 def serve_phase(dev):
@@ -641,10 +713,10 @@ def serve_phase(dev):
             if tuple(v.shape) != shape or not bool(torch.isfinite(v).all()):
                 raise AssertionError(f"serve grid {k}: {tuple(v.shape)} or not finite")
         del frame
-        serve(_cameras(dev, 0, H, W, 400.0), 0, clicks[0])        # warm-up
+        _reset_encode_launches()
+        serve(_cameras(dev, 0, H, W, 400.0), 0, clicks[0])        # eager frame, capture
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _reset_encode_launches(hg)
         times = []
         for i, click in enumerate(clicks[1:], start=1):
             t0 = time.perf_counter()
@@ -654,29 +726,40 @@ def serve_phase(dev):
             if img.dtype != torch.uint8 or tuple(img.shape) != (H, W, 3):
                 raise AssertionError(f"frame {img.dtype} {tuple(img.shape)}")
         frames = len(times)
-        launches = _encode_launches(hg)
-        passes = _pass_launches(hg)
+        launches = _encode_launches()       # the first frame's eager run and capture
+        passes = _pass_launches()
+        with _CardTrace() as trace:         # one more replay
+            serve(_cameras(dev, 1, H, W, 400.0), 0, clicks[1])
         results[tag] = dict(frame_ms=statistics.median(times), frame_ms_all=times,
                             frames=frames, launches=launches, pass_launches=passes,
+                            replay_on_card=trace.counts,
                             max_memory_allocated=torch.cuda.max_memory_allocated())
         print(f"serve {tag:10s} 512x512 static: median frame "
-              f"{results[tag]['frame_ms']:.2f} ms over {frames} frames "
-              f"({', '.join(f'{t:.1f}' for t in times)}); launches/frame "
-              + " ".join(f"{k}={v / frames:g}" for k, v in {**launches, **passes}.items())
+              f"{results[tag]['frame_ms']:.2f} ms over {frames} replayed frames "
+              f"({', '.join(f'{t:.1f}' for t in times)}); launches of the eager first "
+              f"frame and its capture "
+              + " ".join(f"{k}={v:g}" for k, v in {**launches, **passes}.items())
+              + "; on the card in a replay "
+              + " ".join(f"{k}={v:g}" for k, v in trace.counts.items() if v)
               + f"; max_memory_allocated="
               f"{results[tag]['max_memory_allocated'] / 2**30:.2f} GiB", flush=True)
         del model, snr, serve
-    expect = {"f32": {"F32-ENC"}, "int8": {"Q-ENC"}, "int8_fused": {"FUSED-QMLP"}}
+    expect = {"f32": {"F32-ENC", "BF16-PACK"}, "int8": {"Q-ENC"},
+              "int8_fused": {"FUSED-QMLP"}}
     for tag, kernels in expect.items():
-        ran = {k for k, v in results[tag]["launches"].items() if v}
-        if ran != kernels:
-            raise AssertionError(f"the {tag} serve path launched {ran}, not {kernels}")
+        r = results[tag]
+        ran = {k for k, v in {**r["launches"], **r["pass_launches"]}.items() if v}
+        on_card = {k for k, v in r["replay_on_card"].items() if v}
+        if ran != kernels or on_card != kernels:
+            raise AssertionError(f"the {tag} serve path launched {ran}, and its replay "
+                                 f"ran {on_card} on the card, not {kernels}")
     for tag, kernel, per_frame in (("int8_fused", "FUSED-QMLP", FUSED_PER_FRAME),
                                    ("f32", "F32-ENC", F32_PER_FRAME)):
         r = results[tag]
-        if r["launches"][kernel] != per_frame * r["frames"]:
-            raise AssertionError(f"{kernel} launched {r['launches'][kernel]} times in "
-                                 f"{r['frames']} frames, not {per_frame} per frame")
+        if r["launches"][kernel] != 2 * per_frame or r["replay_on_card"][kernel] != per_frame:
+            raise AssertionError(f"{kernel}: {r['launches'][kernel]} launches in the eager "
+                                 f"frame and the capture, {r['replay_on_card'][kernel]} on "
+                                 f"the card in a replay, not {per_frame} a frame")
     return results
 
 
@@ -695,7 +778,7 @@ def reference_phase(dev):
     for tag, q8, fuse in SERVE_RUNS:
         c = dataclasses.replace(cfg, hash_q8_serve=q8, serve_fuse_mlp=fuse)
         outs = {}
-        _reset_encode_launches(hg)
+        _reset_encode_launches()
         for d in (dev, "cpu"):
             params = init_state(SAMModel(c, device="meta"),
                                 torch.Generator().manual_seed(1), device=d,
@@ -712,7 +795,7 @@ def reference_phase(dev):
                                                         return_mask=True)
             outs[str(d)] = {k: v.cpu() for k, v in grids.items()}
             outs[str(d)].update(img=img.cpu(), mask=mask.cpu())
-        launches = _encode_launches(hg)
+        launches = _encode_launches()
         ran = {k for k, v in launches.items() if v}
         if ran != {"f32": {"F32-ENC"}, "int8": {"Q-ENC"}, "int8_fused": {"FUSED-QMLP"}}[tag]:
             raise AssertionError(f"the small {tag} frame on the card launched {launches}")
@@ -776,12 +859,12 @@ def view_phase(dev, cfg=None, size=VIEW_SIZE, chunk=1 << 15, clipseg=None):
     def view(i, points, **crop):
         c2w = views[i]
         cams = cameras_from_intrin_c2w(intrin, c2w, size, size, device=dev)
-        _reset_encode_launches(hg)
+        _reset_encode_launches()
         decoded.clear()
         t0 = time.perf_counter()
         out = snr.render_view(cams, 0, intrin, c2w, points=points, text_prompt=text, **crop)
         ms = (time.perf_counter() - t0) * 1e3
-        launches = _encode_launches(hg)
+        launches = _encode_launches()
         for k in ("rgb", "depth", "masked_rgb"):
             if out[k].shape[:2] != (size, size) or not np.isfinite(out[k]).all():
                 raise AssertionError(f"view {i} {k}: {out[k].shape} or not finite")
@@ -966,7 +1049,9 @@ def train_phase(dev):
     from samnerf_tpu_torch.scripts.profile_train import build_synthetic_trainer
 
     with tempfile.TemporaryDirectory() as tmp:
-        trainer = build_synthetic_trainer(Path(tmp), dev)
+        # the eager step, one launch per op, as before blocks of steps
+        # (the dispatch_train phase runs those)
+        trainer = build_synthetic_trainer(Path(tmp), dev, steps_per_dispatch=1)
         losses, times, t_prev = [], [], [0.0]
 
         def on_step(step, metrics):
@@ -976,7 +1061,7 @@ def train_phase(dev):
             now = time.perf_counter()
             if step == TRAIN_WARMUP:
                 torch.cuda.reset_peak_memory_stats()
-                _reset_encode_launches(hg)
+                _reset_encode_launches()
             elif step > TRAIN_WARMUP:
                 times.append((now - t_prev[0]) * 1e3)
             t_prev[0] = now
@@ -986,7 +1071,7 @@ def train_phase(dev):
         launches = {"F32-ENC": hg.parity_hash_encode.launches,
                     "F32-ENC-BWD": hg.parity_hash_encode_bwd.launches,
                     "Q-ENC": hg.parity_hash_encode_q8.launches}
-        passes = _pass_launches(hg)
+        passes = _pass_launches()
         peak = torch.cuda.max_memory_allocated()
         rays = trainer.datamanager.config.train_num_rays_per_batch
         del trainer
@@ -1078,15 +1163,286 @@ def train_reference_phase(dev):
     return report
 
 
+DISPATCH_BLOCK = 20             # the presets' steps_per_dispatch
+DISPATCH_REPS = 3               # timed blocks or frames of each path, after a warm-up
+# a block's replay against the eager steps: F32-ENC-BWD sums table
+# gradients with f32 atomics in a run-to-run order, so two eager runs from
+# one state already differ; the graph must stay within DISPATCH_SPREAD times
+# that spread of the eager run (relative L2 of each parameter and moment,
+# the worst), or within DISPATCH_FLOOR (the capturable update's f32
+# rounding, engine/optimizers.py), and its losses within TOL_LOSS
+DISPATCH_SPREAD = 4.0
+DISPATCH_FLOOR = 1e-6
+
+
+def _wall_busy(fn, per: int, reps: int = DISPATCH_REPS) -> dict:
+    """``fn()`` runs ``per`` steps or frames.  After a warm-up call: the
+    median host wall of ``reps`` synchronised calls, the device span of
+    one (CUDA events on the current stream), and one under the profiler:
+    device busy (the sum of its kernels: one stream, so they do not
+    overlap), kernels, the hash kernels and layout passes among them by
+    name, and idle share (1 - busy / wall), each per step or frame.  A
+    profile that shows no kernel leaves busy unmeasured (None)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / per)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / per if kernels else None
+    wall = statistics.median(times)
+    on_card = _trace_launches(e.name for e in kernels)
+    return dict(wall_ms=wall, wall_ms_all=times, device_span_ms=a.elapsed_time(b) / per,
+                busy_ms=busy, kernels=len(kernels) / per,
+                on_card={k: v / per for k, v in on_card.items()},
+                idle_share=None if busy is None else 1.0 - busy / wall)
+
+
+def _fmt_timing(t: dict) -> str:
+    busy = "not measured" if t["busy_ms"] is None else (
+        f"{t['busy_ms']:.2f} ms busy ({t['kernels']:g} kernels), idle {t['idle_share']:.3f}")
+    return (f"wall {t['wall_ms']:.2f} ms ({', '.join(f'{v:.2f}' for v in t['wall_ms_all'])}), "
+            f"device span {t['device_span_ms']:.2f} ms, {busy}")
+
+
+def _train_snapshot(trainer):
+    return (copy.deepcopy(trainer.model.state_dict()),
+            copy.deepcopy(trainer.optimizer.state_dict()),
+            dataclasses.replace(trainer.state), trainer.generator.get_state())
+
+
+def _train_restore(trainer, snap):
+    model, opt, state, gen = snap
+    trainer.model.load_state_dict(model)
+    trainer.optimizer.load_state_dict(copy.deepcopy(opt))
+    trainer.state = dataclasses.replace(state)
+    trainer.generator.set_state(gen)
+
+
+def _rel_l2(a, b) -> float:
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def _train_distance(a, b) -> dict:
+    """Worst relative L2 distance of the parameters and of the Adam moments
+    of two trainers; raises unless their step counts agree."""
+    sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+    if sa["count"] != sb["count"] or a.state != b.state:
+        raise AssertionError(f"step counts differ: {sa['count']} {a.state} against "
+                             f"{sb['count']} {b.state}")
+    moments = 0.0
+    for name, s in sa["optimizer"]["state"].items():
+        t = sb["optimizer"]["state"][name]
+        if float(s["step"]) != float(t["step"]):
+            raise AssertionError(f"Adam steps of {name} differ: {s['step']} {t['step']}")
+        moments = max(moments, _rel_l2(s["exp_avg"], t["exp_avg"]),
+                      _rel_l2(s["exp_avg_sq"], t["exp_avg_sq"]))
+    params = max(_rel_l2(p, q) for p, q in zip(a.model.parameters(), b.model.parameters()))
+    return dict(params=params, moments=moments)
+
+
+def dispatch_train_phase(dev):
+    """``steps_per_dispatch`` at full width: the ``samnerf_distill``
+    trainer (its preset's 20 steps a dispatch) on the train phase's
+    synthetic scene runs one block eagerly and captures it; from that
+    state and generator, two eager runs of 40 steps (``steps_per_dispatch``
+    1, ``torch.optim.Adam``) and two replays of the block give the same
+    step counts, and parameters, Adam moments and losses within
+    ``DISPATCH_SPREAD`` times the two eager runs' spread (or
+    ``DISPATCH_FLOOR``) and ``TOL_LOSS``; the replays launch nothing from
+    Python, and on the card (a profiler trace of the second, by kernel
+    name) a replay runs per step the kernels and layout passes the eager
+    step launches; wall,
+    device span, busy and idle per step of both paths, and their peak
+    memory."""
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    from samnerf_tpu_torch.scripts.profile_train import build_trainer
+    from samnerf_tpu_torch.utils.synthetic import write_scene
+
+    n = DISPATCH_BLOCK
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        scene = write_scene(root / "scene", num_train=24, num_test=2, h=512, w=512,
+                            with_features=True, feature_long_side=64)
+        graphed = build_trainer(scene, root / "g", dev)
+        if graphed.block != n:
+            raise AssertionError(f"the preset dispatches {graphed.block} steps, not {n}")
+        graphed.run_block(n)                                # eager, then captured
+        if graphed._graph is None:
+            raise AssertionError("the first block was not captured")
+        snap = _train_snapshot(graphed)
+        eager = []
+        for k in range(2):
+            tr = build_trainer(scene, root / f"e{k}", dev, steps_per_dispatch=1)
+            _train_restore(tr, snap)
+            _reset_encode_launches()
+            losses = [float(tr.train_iteration(n + i)["total_loss"]) for i in range(2 * n)]
+            eager.append((tr, losses, {**_encode_launches(), **_pass_launches(),
+                                       "F32-ENC-BWD": hg.parity_hash_encode_bwd.launches}))
+        graph = graphed._graph
+        _reset_encode_launches()
+        graph_losses = [float(graphed.run_block(n)["total_loss"])]
+        with _CardTrace() as trace:                 # the second (see _CardTrace)
+            graph_losses.append(float(graphed.run_block(n)["total_loss"]))
+        python = {**_encode_launches(), **_pass_launches(),
+                  "F32-ENC-BWD": hg.parity_hash_encode_bwd.launches}
+        if graphed._graph is not graph \
+                or graphed.steps_by_dispatch != {"eager": n, "captured": n, "replayed": 2 * n}:
+            raise AssertionError(f"a block was captured again, not replayed: "
+                                 f"{graphed.steps_by_dispatch}")
+        (e0, l0, eager_launches), (e1, _, _) = eager
+        spread = _train_distance(e1, e0)
+        gap = _train_distance(graphed, e0)
+        loss_err = max(abs(g - e) / abs(e) for g, e in zip(graph_losses, (l0[n - 1], l0[-1])))
+        report = dict(block=n, spread=spread, gap=gap, graph_losses=graph_losses,
+                      eager_losses=[l0[n - 1], l0[-1]], loss_max_rel_err=loss_err,
+                      replay_on_card=trace.counts, trace_records=trace.records,
+                      replays_python_launches=python, eager_launches=eager_launches,
+                      on_card_per_step={k: v / n for k, v in trace.counts.items()})
+        print(f"dispatch_train: blocks of {n} steps, 2 replays against {2 * n} eager steps "
+              f"from one state: params rel L2 {gap['params']:.3e}, moments "
+              f"{gap['moments']:.3e} (two eager runs: {spread['params']:.3e}, "
+              f"{spread['moments']:.3e}); losses {graph_losses} against "
+              f"{report['eager_losses']} (max rel err {loss_err:.2e}); on the card a step "
+              + " ".join(f"{k}={v:g}" for k, v in report["on_card_per_step"].items())
+              + "; launched from Python by the replays "
+              + " ".join(f"{k}={v}" for k, v in python.items()), flush=True)
+        worst = max(spread.values())
+        if max(gap.values()) > max(DISPATCH_SPREAD * worst, DISPATCH_FLOOR) \
+                or loss_err > TOL_LOSS:
+            raise AssertionError(f"a block replay is not its eager steps: {report}")
+        if any(python.values()) or {k: 2 * trace.counts[k] for k in eager_launches} \
+                != eager_launches or eager_launches["F32-ENC"] != F32_PER_STEP * 2 * n \
+                or eager_launches["F32-ENC-BWD"] != F32_PER_STEP * 2 * n:
+            raise AssertionError(f"the second replay ran {trace.counts} on the card "
+                                 f"({trace.records} device records), the replays launched "
+                                 f"{python}, the {2 * n} eager steps {eager_launches}")
+        del e1, eager
+        torch.cuda.synchronize()
+        for name, fn, tr in (("eager", lambda: [e0.train_iteration(0) for _ in range(n)], e0),
+                             ("graph", lambda: graphed.run_block(n), graphed)):
+            torch.cuda.reset_peak_memory_stats()
+            t = _wall_busy(fn, n)
+            t.update(max_memory_allocated=torch.cuda.max_memory_allocated(),
+                     memory_reserved=torch.cuda.memory_reserved())
+            report[name] = t
+            print(f"dispatch_train {name}: per step " + _fmt_timing(t)
+                  + f"; max_memory_allocated {t['max_memory_allocated'] / 2**30:.2f} GiB, "
+                  f"reserved {t['memory_reserved'] / 2**30:.2f} GiB", flush=True)
+        if report["eager"]["on_card"] != report["graph"]["on_card"]:
+            raise AssertionError(f"by kernel name an eager step ran "
+                                 f"{report['eager']['on_card']}, a replayed one "
+                                 f"{report['graph']['on_card']}")
+        del e0, graphed
+    return report
+
+
+def dispatch_serve_phase(dev):
+    """``serve_frame_fn`` as one graph replay a frame at full width (the
+    serve phase's seeded ``samnerf_distill`` model, 512x512, static preset)
+    with f32, baked int8 and fused int8 tables, and fused int8 culled by
+    the ball grid: on the six cameras and clicks each replayed frame's
+    uint8 image and mask equal the eager frame's (``serve.eager``) bit for
+    bit, and the replays launch nothing from Python; one graph per route;
+    wall, device span, busy and idle per frame of both, the hash kernels
+    each runs on the card by name (a profiler trace: the replay's must be
+    the eager frame's launches), and peak memory."""
+    from samnerf_tpu_torch.engine.eval_render import occupancy_from_cells
+    from samnerf_tpu_torch.engine.render_pipeline import SamNerfRenderer
+    from samnerf_tpu_torch.models.sam_model import SAMModel, SAMModelConfig, init_params
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    from samnerf_tpu_torch.perception.sam.sam import Sam, init_decoder_params
+
+    H = W = 512
+    cfg = SAMModelConfig(hash_fn="morton")
+    gen = torch.Generator().manual_seed(0)
+    params = init_params(cfg, gen, device=dev)
+    sam = Sam(device=dev)
+    sam.load_state_dict(init_decoder_params(gen, device=dev))
+    clicks = [(256.0, 256.0), (100.0, 300.0), (400.0, 120.0), (320.0, 420.0),
+              (60.0, 60.0), (480.0, 300.0)]
+    ball = occupancy_from_cells(_ball_cells(), 0.5, device=dev)[0]
+    results = {}
+    for tag, q8, fuse, occ in (*((t, q, f, None) for t, q, f in SERVE_RUNS),
+                               ("culled", True, True, ball)):
+        model = SAMModel(dataclasses.replace(cfg, hash_q8_serve=q8, serve_fuse_mlp=fuse),
+                         device=dev)
+        model.load_state_dict(params)
+        snr = SamNerfRenderer(model, serve_preset="static")
+        if q8:
+            snr.bake_serve_tables()
+        snr.occ = occ
+        serve = snr.serve_frame_fn(sam, H, W)
+        serve(_cameras(dev, 0, H, W, 400.0), 0, clicks[0])     # eager frame, capture
+        launches = {}
+        for i, click in enumerate(clicks):
+            cams = _cameras(dev, i, H, W, 400.0)
+            outs = {}
+            for path, fn in (("eager", serve.eager), ("graph", serve)):
+                _reset_encode_launches()
+                outs[path] = fn(cams, 0, click, return_mask=True)
+                launches[path] = {**_encode_launches(), **_pass_launches()}
+            same = all(torch.equal(a, b) for a, b in zip(outs["eager"], outs["graph"]))
+            if not same or any(launches["graph"].values()):
+                raise AssertionError(f"{tag} frame {i}: the replay differs from the eager "
+                                     f"frame (same bits: {same}; launches {launches})")
+        if len(serve.graphs) != 1:
+            raise AssertionError(f"{tag}: {len(serve.graphs)} graphs for one key")
+        report = dict(frames_bit_for_bit=len(clicks), eager_launches=launches["eager"])
+        cams = _cameras(dev, 1, H, W, 400.0)
+        for path, fn in (("eager", serve.eager), ("graph", serve)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = _wall_busy(lambda: fn(cams, 0, clicks[1]), 1)
+            t.update(max_memory_allocated=torch.cuda.max_memory_allocated(),
+                     memory_reserved=torch.cuda.memory_reserved())
+            report[path] = t
+            print(f"dispatch_serve {tag:10s} {path}: per frame " + _fmt_timing(t)
+                  + f"; max_memory_allocated {t['max_memory_allocated'] / 2**30:.2f} GiB, "
+                  f"reserved {t['memory_reserved'] / 2**30:.2f} GiB", flush=True)
+        on_card = {k: report["graph"]["on_card"][k] for k in launches["eager"]}
+        report["launches_per_frame"] = on_card
+        print(f"dispatch_serve {tag}: {len(clicks)} replayed frames equal the eager frames "
+              f"bit for bit (image and mask); on the card a replay runs "
+              + " ".join(f"{k}={v:g}" for k, v in on_card.items())
+              + ", the eager frame launches "
+              + " ".join(f"{k}={v}" for k, v in launches["eager"].items()), flush=True)
+        if on_card != launches["eager"] \
+                or report["eager"]["on_card"] != report["graph"]["on_card"]:
+            raise AssertionError(f"{tag}: a replay ran {report['graph']['on_card']} on the "
+                                 f"card, the eager frame {report['eager']['on_card']} and "
+                                 f"launched {launches['eager']}")
+        results[tag] = report
+        del model, snr, serve
+    return results
+
+
 def train_bf16_phase(dev, root: Path):
     """``samnerf_distill`` with ``--model.compute-dtype bfloat16`` through
     the port's train entry (``train.parse``, ``train.train_loop``) at full
-    width on the train phase's synthetic scene: ms per step over
-    ``BF16_TRAIN_STEPS`` after ``BF16_TRAIN_WARMUP``, rays/s, peak memory,
-    finite losses, and 6 F32-ENC and 6 F32-ENC-BWD launches per step (the
-    hash encodes stay f32; their cotangents arrive in f32)."""
+    width on the train phase's synthetic scene, in the preset's blocks of
+    20 steps (the first captured, then ``BF16_TRAIN_STEPS`` in replays and
+    one more replayed block under a trace):
+    ms per step of the replays, rays/s, peak memory, finite losses, and 6
+    F32-ENC and 6 F32-ENC-BWD per step on the card (the hash encodes stay
+    f32; their cotangents arrive in f32)."""
     from samnerf_tpu_torch import train as train_entry
-    from samnerf_tpu_torch.ops import hash_grid as hg
     from samnerf_tpu_torch.utils.synthetic import write_scene
 
     scene = write_scene(root / "scene_bf16", num_train=24, num_test=2, h=512, w=512,
@@ -1094,50 +1450,27 @@ def train_bf16_phase(dev, root: Path):
     config = train_entry.parse([
         "samnerf_distill", "--data", str(scene), "--model.compute-dtype", "bfloat16",
         "--vis", "none",
-        "--trainer.max-num-iterations", str(BF16_TRAIN_WARMUP + BF16_TRAIN_STEPS),
         "--trainer.save-final", "false", "--trainer.output-dir", str(root / "out_bf16")])
     if config.model.compute_dtype != torch.bfloat16:
         raise AssertionError(f"the CLI gave compute_dtype {config.model.compute_dtype}")
-    losses, times, t_prev = [], [], [0.0]
-
-    def on_step(step, metrics):
-        losses.append({k: float(v) for k, v in metrics.items()})
-        torch.cuda.synchronize()
-        now = time.perf_counter()
-        if step == BF16_TRAIN_WARMUP:
-            torch.cuda.reset_peak_memory_stats()
-            _reset_encode_launches(hg)
-        elif step > BF16_TRAIN_WARMUP:
-            times.append((now - t_prev[0]) * 1e3)
-        t_prev[0] = now
-
-    trainer = train_entry.train_loop(config, device=dev, step_callback=on_step)
+    trainer, losses, times, launches, counted, peak = _timed_train(
+        config, dev, "the bf16 train path", steps=BF16_TRAIN_STEPS)
     if trainer.model.fields.mlp_base.compute_dtype != torch.bfloat16:
         raise AssertionError("the trained model is not bf16")
-    launches = {"F32-ENC": hg.parity_hash_encode.launches,
-                "F32-ENC-BWD": hg.parity_hash_encode_bwd.launches,
-                "Q-ENC": hg.parity_hash_encode_q8.launches}
-    peak = torch.cuda.max_memory_allocated()
     rays = trainer.datamanager.config.train_num_rays_per_batch
     del trainer
     step_ms = statistics.median(times)
     result = dict(step_ms=step_ms, step_ms_all=times, rays_per_s=rays / step_ms * 1e3,
-                  steps=len(times), launches=launches,
-                  launches_per_step={k: v / len(times) for k, v in launches.items()},
+                  steps=BF16_TRAIN_STEPS, launches=launches, traced_steps=counted,
+                  launches_per_step={k: v / counted for k, v in launches.items()},
                   max_memory_allocated=peak, first_losses=losses[0], last_losses=losses[-1])
     print(f"train_bf16 samnerf_distill --model.compute-dtype bfloat16, {rays} rays/step: "
-          f"median step {step_ms:.2f} ms over {len(times)} steps ({min(times):.1f}-"
-          f"{max(times):.1f}), {result['rays_per_s']:,.0f} rays/s; launches/step "
+          f"median step {step_ms:.2f} ms over {len(times)} replays of "
+          f"{DISPATCH_BLOCK} steps ({', '.join(f'{t:.2f}' for t in times)}), "
+          f"{result['rays_per_s']:,.0f} rays/s; on the card a step "
           + ", ".join(f"{k}={v:g}" for k, v in result["launches_per_step"].items())
-          + f"; max_memory_allocated={peak / 2**30:.2f} GiB; losses first {losses[0]} "
-          f"last {losses[-1]}", flush=True)
-    if len(losses) != BF16_TRAIN_WARMUP + BF16_TRAIN_STEPS or not all(
-            math.isfinite(v) for m in losses for v in m.values()):
-        raise AssertionError(f"bf16 train losses: {losses}")
-    if launches["F32-ENC"] != F32_PER_STEP * len(times) \
-            or launches["F32-ENC-BWD"] != F32_PER_STEP * len(times) or launches["Q-ENC"]:
-        raise AssertionError(f"the bf16 train path launched {launches} in {len(times)} "
-                             f"steps, not {F32_PER_STEP} + {F32_PER_STEP} per step")
+          + f"; max_memory_allocated={peak / 2**30:.2f} GiB; losses after the first block "
+          f"{losses[0]}, the last {losses[-1]}", flush=True)
     return result
 
 
@@ -1188,10 +1521,11 @@ def serve_bf16_phase(dev, cfg=None, size=VIEW_SIZE):
         if q8:
             snr.bake_serve_tables()
         serve = snr.serve_frame_fn(sam, H, W)
-        serve(_cameras(dev, 0, H, W, focal), 0, clicks[0])        # warm-up
+        _reset_encode_launches()
+        serve(_cameras(dev, 0, H, W, focal), 0, clicks[0])        # eager frame, capture
+        python = _encode_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _reset_encode_launches(hg)
         times = []
         for i, click in enumerate(clicks[1:BF16_FRAMES + 1], start=1):
             t0 = time.perf_counter()
@@ -1200,19 +1534,23 @@ def serve_bf16_phase(dev, cfg=None, size=VIEW_SIZE):
             times.append((time.perf_counter() - t0) * 1e3)
             if img.dtype != torch.uint8 or tuple(img.shape) != (H, W, 3):
                 raise AssertionError(f"bf16 frame {img.dtype} {tuple(img.shape)}")
-        launches = _encode_launches(hg)
+        with _CardTrace() as trace:                 # one more replay
+            serve(_cameras(dev, 1, H, W, focal), 0, clicks[1])
+        launches = {k: trace.counts[k] for k in python}
         results[tag] = dict(frame_ms=statistics.median(times), frame_ms_all=times,
-                            launches=launches,
+                            launches=launches, python_launches=python,
                             max_memory_allocated=torch.cuda.max_memory_allocated())
         print(f"serve_bf16 {tag:13s} 512x512 static: median frame "
-              f"{results[tag]['frame_ms']:.2f} ms over {len(times)} frames "
-              f"({', '.join(f'{t:.1f}' for t in times)}); launches/frame "
-              + " ".join(f"{k}={v / len(times):g}" for k, v in launches.items())
+              f"{results[tag]['frame_ms']:.2f} ms over {len(times)} replayed frames "
+              f"({', '.join(f'{t:.1f}' for t in times)}); on the card a replay "
+              + " ".join(f"{k}={v:g}" for k, v in launches.items())
+              + f"; launched by the eager first frame and its capture {python}"
               + f"; max_memory_allocated="
               f"{results[tag]['max_memory_allocated'] / 2**30:.2f} GiB", flush=True)
         ran = {k for k, v in launches.items() if v}
-        if ran != kernels:
-            raise AssertionError(f"the bf16 {tag} serve path launched {launches}")
+        if ran != kernels or python != {k: 2 * v for k, v in launches.items()}:
+            raise AssertionError(f"the bf16 {tag} serve path ran {launches} on the card "
+                                 f"in a replay and launched {python}")
         del serve
         if fuse:
             intrin = VIEW_INTRIN * (size / VIEW_SIZE)
@@ -1220,7 +1558,7 @@ def serve_bf16_phase(dev, cfg=None, size=VIEW_SIZE):
             c2w = look_at_c2w(np.array([1.2 * np.cos(0.3), 1.2 * np.sin(0.3), 0.45]),
                               np.zeros(3))
             cams = cameras_from_intrin_c2w(intrin, c2w, H, W, device=dev)
-            _reset_encode_launches(hg)
+            _reset_encode_launches()
             t0 = time.perf_counter()
             out = snr.render_view(cams, 0, intrin, c2w,
                                   points=np.array([[0.45 * size, 0.55 * size]]))
@@ -1228,7 +1566,7 @@ def serve_bf16_phase(dev, cfg=None, size=VIEW_SIZE):
             for k in ("rgb", "depth", "masked_rgb"):
                 if out[k].shape[:2] != (H, W) or not np.isfinite(out[k]).all():
                     raise AssertionError(f"bf16 view {k}: {out[k].shape} or not finite")
-            results["view"] = dict(ms=view_ms, launches=_encode_launches(hg),
+            results["view"] = dict(ms=view_ms, launches=_encode_launches(),
                                    locked=len(snr.prompts))
             print(f"serve_bf16 render_view {H}x{W} one click: {view_ms:.1f} ms, "
                   f"{len(snr.prompts)} locked; launches {results['view']['launches']}",
@@ -1943,12 +2281,12 @@ def no_distill_view_phase(dev, checkpoint: Path, paths, size=VIEW_SIZE, chunk=1 
     def view(i, c2w, text=None):
         cams = cameras_from_intrin_c2w(intrin, c2w, size, size, device=dev)
         ta.flash_attention_relpos.launches = 0
-        _reset_encode_launches(hg)
+        _reset_encode_launches()
         decoded.clear()
         t0 = time.perf_counter()
         out = snr.render_view(cams, 0, intrin, c2w, points=click, text_prompt=text)
         ms = (time.perf_counter() - t0) * 1e3
-        launches = dict(_encode_launches(hg), **{"FLASH-RELPOS": ta.flash_attention_relpos.launches})
+        launches = dict(_encode_launches(), **{"FLASH-RELPOS": ta.flash_attention_relpos.launches})
         for k in ("rgb", "depth", "masked_rgb"):
             if out[k].shape[:2] != (size, size) or not np.isfinite(out[k]).all():
                 raise AssertionError(f"no-distill view {i} {k}: {out[k].shape} or not finite")
@@ -2013,7 +2351,7 @@ def no_distill_train_phase(dev, scene: Path, root: Path):
         now = time.perf_counter()
         if step == 1:
             torch.cuda.reset_peak_memory_stats()
-            _reset_encode_launches(hg)
+            _reset_encode_launches()
         else:
             times.append((now - t_prev[0]) * 1e3)
         t_prev[0] = now
@@ -2127,7 +2465,7 @@ def eval_phase(dev, size: int = 512, root: Path = None):
             "--trainer.steps-per-eval-image", str(EVAL_IMAGE_EVERY),
             "--trainer.steps-per-save", "100000", "--trainer.output-dir", str(run)])
         train_entry.save_config(config)
-        _reset_encode_launches(hg)
+        _reset_encode_launches()
         t0 = time.perf_counter()
         trainer = train_entry.train_loop(config, device=dev)
         torch.cuda.synchronize()
@@ -2163,14 +2501,14 @@ def eval_phase(dev, size: int = 512, root: Path = None):
         pipe.get_eval_image_metrics_and_images(0)                # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _reset_encode_launches(hg)
+        _reset_encode_launches()
         times, per = [], []
         for i in range(EVAL_IMAGES):
             t0 = time.perf_counter()
             m, images = pipe.get_eval_image_metrics_and_images(i % 2)
             times.append((time.perf_counter() - t0) * 1e3)
             per.append(m)
-        image_launches = _encode_launches(hg)
+        image_launches = _encode_launches()
         image_peak = torch.cuda.max_memory_allocated()
         if image_launches != {"F32-ENC": per_image * EVAL_IMAGES, "Q-ENC": 0,
                               "FUSED-QMLP": 0}:
@@ -2294,7 +2632,7 @@ def eval_reference_phase(dev):
                                              torch.Generator().manual_seed(1), device=d,
                                              table_scale=0.5))
             pipe = VanillaPipeline(model, dm)
-            _reset_encode_launches(hg)
+            _reset_encode_launches()
             m, images = pipe.get_eval_image_metrics_and_images(1)
             outs[str(d)] = (m, images, hg.parity_hash_encode.launches,
                             eval_images_per_call(pipe, 64, 64))
@@ -2540,12 +2878,12 @@ def cull_phase(dev, cfg=None, size=VIEW_SIZE):
         del outs
         if tag in ("f32", "int8_fused"):
             torch.cuda.synchronize()
-            _reset_encode_launches(hg)
+            _reset_encode_launches()
             t0 = time.perf_counter()
             frac = snr.bake_occupancy(res=CULL_RES, sub=2)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
-            launches = _encode_launches(hg)
+            launches = _encode_launches()
             report["bake"][tag] = dict(ms=ms, occupied=frac, launches=launches,
                                        points=CULL_RES ** 3 * 8)
             print(f"cull bake {tag}: {CULL_RES}^3 cells x 8 = {CULL_RES ** 3 * 8:,} points in "
@@ -2570,29 +2908,34 @@ def cull_phase(dev, cfg=None, size=VIEW_SIZE):
                                                         serve_transmittance_eps=eps)
         serve = snr.serve_frame_fn(sam, H, W)
         with _culled_share() as counts:
-            img = serve(cams, 0, click)
+            # the counts are read back in the frame, which a graph cannot hold
+            img = serve.eager(cams, 0, click)
         if img.dtype != torch.uint8 or tuple(img.shape) != (H, W, 3):
             raise AssertionError(f"culled frame {img.dtype} {tuple(img.shape)}")
+        _reset_encode_launches()
+        serve(cams, 0, click)                       # an eager frame, then its capture
+        launches = _encode_launches()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _reset_encode_launches(hg)
         ms, times = _serve_ms(serve, cams, click)
-        launches = _encode_launches(hg)
+        with _CardTrace() as trace:                 # one more replay
+            serve(cams, 0, click)
+        on_card = {k: trace.counts[k] for k in launches}
         runs[name] = dict(frame_ms=ms, frame_ms_all=times, culled=_share(counts),
-                          launches=launches,
-                          launches_per_frame={k: v / (CULL_FRAMES + 1)
-                                              for k, v in launches.items()},
+                          launches=launches, launches_per_frame=on_card,
                           max_memory_allocated=torch.cuda.max_memory_allocated())
         print(f"cull {name:8s} {H}x{W} int8 fused: median frame {ms:.2f} ms "
               f"({', '.join(f'{t:.1f}' for t in times)}); culled "
               + ", ".join(f"{k} {100 * v:.1f} %" for k, v in runs[name]["culled"].items())
-              + "; launches/frame " + " ".join(f"{k}={v:g}" for k, v in
-                                              runs[name]["launches_per_frame"].items())
+              + "; on the card a replay " + " ".join(f"{k}={v:g}" for k, v in on_card.items())
+              + ", launched by the eager frame and the capture "
+              + " ".join(f"{k}={v:g}" for k, v in launches.items())
               + f"; max_memory_allocated={runs[name]['max_memory_allocated'] / 2**30:.2f} GiB",
               flush=True)
-        if launches["FUSED-QMLP"] != FUSED_PER_FRAME * (CULL_FRAMES + 1) or launches["Q-ENC"] \
-                or launches["F32-ENC"]:
-            raise AssertionError(f"culled frames ({name}) launched {launches}")
+        if on_card != {"F32-ENC": 0, "Q-ENC": 0, "FUSED-QMLP": FUSED_PER_FRAME} \
+                or launches != {k: 2 * v for k, v in on_card.items()}:
+            raise AssertionError(f"culled frames ({name}) launched {launches} and ran "
+                                 f"{on_card} on the card in a replay")
     snr.occ = None
     snr.renderer.model.config = dataclasses.replace(snr.renderer.model.config,
                                                     serve_transmittance_eps=0.0)
@@ -2650,7 +2993,7 @@ def cull_reference_phase(dev, cells):
     t_est = torch.cat(t_est)
     eps = next(e for e in ETA_CANDIDATES if (t_est - e).abs().min() > ETA_MARGIN)
     outs = {}
-    _reset_encode_launches(hg)
+    _reset_encode_launches()
     for d, model in models.items():
         model.config = dataclasses.replace(model.config, serve_transmittance_eps=eps)
         renderer = SamNerfRenderer(model, chunk=2048, serve_preset="static").renderer
@@ -2659,7 +3002,7 @@ def cull_reference_phase(dev, cells):
                                                  64, 64, ("sam", "clipseg"),
                                                  occ=pack_serve_occupancy(cells, device=d))
         outs[d] = ({k: v.cpu() for k, v in grids.items()}, _share(counts))
-    launches = _encode_launches(hg)
+    launches = _encode_launches()
     (a, share_a), (b, share_b) = outs[str(dev)], outs["cpu"]
     errs = {k: (a[k] - b[k]).abs().max().item() for k in ("rgb", "depth", "sam", "clipseg")}
     report = dict(eps=eps, grid_max_abs_err={k: v for k, v in errs.items() if k != "depth"},
@@ -2760,7 +3103,7 @@ def viewer_phase(dev, model, root: Path, size=VIEW_SIZE):
     render_view = state.render_view
 
     def recorded(intrin, c2w, h, w, **kw):
-        before = _encode_launches(hg)
+        before = _encode_launches()
         rm = state.render_machine
         row = dict(state=rm.state, preset=kw.get("preset"), h=h, w=w,
                    expected=rm._calculate_image_res(1.0), output=state.output_render)
@@ -2768,7 +3111,7 @@ def viewer_phase(dev, model, root: Path, size=VIEW_SIZE):
         out = render_view(intrin, c2w, h, w, **kw)
         row["render_ms"] = (time.perf_counter() - t0) * 1e3
         row["points"] = 0 if kw.get("points") is None else len(kw["points"])
-        row["launches"] = {k: v - before[k] for k, v in _encode_launches(hg).items()}
+        row["launches"] = {k: v - before[k] for k, v in _encode_launches().items()}
         key = state.output_render if state.output_render in out else "rgb"
         row["image"] = np.clip(out[key], 0, 1)
         row["mask_fraction"] = float((np.abs(out["masked_rgb"] - out["rgb"]).max(-1)
@@ -2813,7 +3156,7 @@ def viewer_phase(dev, model, root: Path, size=VIEW_SIZE):
         ws.send(msg.serialize())
         return [expect_frame(ws, t0, what) for _ in range(n_frames)]
 
-    _reset_encode_launches(hg)
+    _reset_encode_launches()
     torch.cuda.reset_peak_memory_stats()
     eye = np.array([1.2 * np.cos(0.3), 1.2 * np.sin(0.3), 0.45])
     result = {}
@@ -2866,7 +3209,7 @@ def viewer_phase(dev, model, root: Path, size=VIEW_SIZE):
         state.stop()
     if state.render_machine.is_alive() or state.server._thread is not None:
         raise AssertionError("viewer: stop() left a thread running")
-    launches = _encode_launches(hg)
+    launches = _encode_launches()
     peak = torch.cuda.max_memory_allocated()
 
     errs = [float(np.abs(f["image"] - renders[f["render"]]["image"]).mean()) for f in frames]
@@ -2964,18 +3307,22 @@ def render_path_phase(dev, model, root: Path, path_file: Path):
     return dict(ms=ms, frames=len(frames), max_diff=diff)
 
 
-VIEWER_TRAIN_STEPS = 35         # the viewer re-renders every 30 steps
+VIEWER_TRAIN_STEPS = 60         # 3 blocks; the viewer re-renders at multiples of 30
 
 
 def viewer_train_phase(dev, scene: Path, root: Path, train_step_ms: float):
     """``train.train_loop`` with ``--vis viewer`` at full width on the
-    train phase's synthetic scene, free ports, 35 steps (so the viewer's
-    every-30-steps re-render fires).  The attach is watched: a failure
-    raises after the run (no "viewer unavailable").  A client connects as
-    the viewer starts, sends a camera and must get a frame before the last
-    step ends.  Step ms with the viewer attached beside the train phase's,
-    F32-ENC / F32-ENC-BWD launches against the steps and frames, finite
-    losses, and the viewer stopped with the run."""
+    train phase's synthetic scene, free ports, 60 steps in the preset's
+    blocks of 20: the first runs eagerly and is captured, the other two
+    are replays, all with the viewer live (its every-30-steps re-render
+    fires at 60).  The attach is watched: a failure raises after the run
+    (no "viewer unavailable").  A client connects as the viewer starts,
+    sends a camera and must get a frame before the last step ends.  Step
+    ms of the replays with the viewer attached beside the train phase's;
+    F32-ENC / F32-ENC-BWD launched against the steps Python ran and the
+    frames, and on the card (a trace of the last block) against
+    the replayed steps; finite losses, and the viewer stopped with the
+    run."""
     _require_viewer_packages()
     import threading
 
@@ -3030,21 +3377,28 @@ def viewer_train_phase(dev, scene: Path, root: Path, train_step_ms: float):
         attached.append(thread)
         return state
 
-    losses, times, t_prev, last_step = [], [], [0.0], [0.0]
+    losses, times, last, last_step = [], [], [0.0, 0], [0.0]
+    trace = _CardTrace()
 
     def on_step(step, metrics):
         losses.append({k: float(v) for k, v in metrics.items()})
         torch.cuda.synchronize()
         now = time.perf_counter()
-        if step > TRAIN_WARMUP:
-            times.append((now - t_prev[0]) * 1e3)
-        t_prev[0] = last_step[0] = now
+        if step > DISPATCH_BLOCK:
+            times.append((now - last[0]) * 1e3 / (step - last[1]))
+        if step == VIEWER_TRAIN_STEPS - DISPATCH_BLOCK:
+            trace.start()                       # the last block (see _CardTrace)
+            now = time.perf_counter()           # the trace's start is not timed
+        last[:] = now, step
+        last_step[0] = now
 
-    _reset_encode_launches(hg)
+    _reset_encode_launches()
     train_entry._launch_viewer = watched
     try:
         trainer = train_entry.train_loop(config, device=dev, step_callback=on_step)
     finally:
+        if trace.running:
+            trace.stop()
         train_entry._launch_viewer = launch
         done.set()
     if failures or len(attached) != 2:
@@ -3057,28 +3411,44 @@ def viewer_train_phase(dev, scene: Path, root: Path, train_step_ms: float):
     launches = {"F32-ENC": hg.parity_hash_encode.launches,
                 "F32-ENC-BWD": hg.parity_hash_encode_bwd.launches,
                 "Q-ENC": hg.parity_hash_encode_q8.launches}
+    on_card = {k: trace.counts[k] for k in launches}
+    dispatched = dict(trainer.steps_by_dispatch)
     del trainer
     before_end = [f for f in frames if f[0] <= last_step[0]]
     step_ms = statistics.median(times)
     result = dict(step_ms=step_ms, step_ms_all=times, train_phase_step_ms=train_step_ms,
-                  steps=VIEWER_TRAIN_STEPS, frames=len(renders), frame_sizes=renders,
-                  frames_received=len(frames), frames_before_end=len(before_end),
-                  launches=launches, first_losses=losses[0], last_losses=losses[-1])
-    print(f"viewer_train: {VIEWER_TRAIN_STEPS} steps with the viewer attached, median step "
-          f"{step_ms:.2f} ms ({min(times):.1f}-{max(times):.1f}; train phase "
-          f"{train_step_ms:.2f}); {len(renders)} viewer frames {sorted(set(renders))}, "
-          f"{len(frames)} received, {len(before_end)} before the last step; launches "
-          f"{launches}; losses first {losses[0]} last {losses[-1]}", flush=True)
+                  steps=VIEWER_TRAIN_STEPS, steps_by_dispatch=dispatched, frames=len(renders),
+                  frame_sizes=renders, frames_received=len(frames),
+                  frames_before_end=len(before_end), launches=launches,
+                  replays_on_card=on_card, first_losses=losses[0], last_losses=losses[-1])
+    print(f"viewer_train: {VIEWER_TRAIN_STEPS} steps with the viewer attached "
+          f"({dispatched}), median step of the replays {step_ms:.2f} ms "
+          f"({', '.join(f'{t:.2f}' for t in times)}; train phase {train_step_ms:.2f}); "
+          f"{len(renders)} viewer frames {sorted(set(renders))}, {len(frames)} received, "
+          f"{len(before_end)} before the last step; launched {launches}, on the card in "
+          f"the last block {on_card}; losses after the first block {losses[0]}, "
+          f"the last {losses[-1]}", flush=True)
     if not before_end:
         raise AssertionError("viewer_train: no frame reached the client during training")
     if not all(math.isfinite(v) for r in losses for v in r.values()):
         raise AssertionError(f"viewer_train losses: {losses}")
     if any(hw != (VIEW_SIZE, VIEW_SIZE) for hw in renders):
         raise AssertionError(f"viewer_train: frames at {renders}")
-    want = {"F32-ENC": F32_PER_STEP * VIEWER_TRAIN_STEPS + F32_PER_FRAME * len(renders),
-            "F32-ENC-BWD": F32_PER_STEP * VIEWER_TRAIN_STEPS, "Q-ENC": 0}
-    if launches != want:
-        raise AssertionError(f"viewer_train launched {launches}, not {want}")
+    # Python ran the first block eagerly and into the graph; the frames
+    # render eagerly; a frame may be in flight as the trace starts
+    ran = dispatched["eager"] + dispatched["captured"]
+    replayed = VIEWER_TRAIN_STEPS - DISPATCH_BLOCK
+    want = {"F32-ENC": F32_PER_STEP * ran + F32_PER_FRAME * len(renders),
+            "F32-ENC-BWD": F32_PER_STEP * ran, "Q-ENC": 0}
+    if dispatched != {"eager": DISPATCH_BLOCK, "captured": DISPATCH_BLOCK,
+                      "replayed": replayed} or launches != want \
+            or on_card["F32-ENC-BWD"] != F32_PER_STEP * DISPATCH_BLOCK or on_card["Q-ENC"] \
+            or not 0 <= on_card["F32-ENC"] - F32_PER_STEP * DISPATCH_BLOCK \
+            <= F32_PER_FRAME * len(renders):
+        raise AssertionError(f"viewer_train ran {dispatched}, launched {launches} (not "
+                             f"{want}) and ran {on_card} on the card in {DISPATCH_BLOCK} "
+                             f"traced replayed steps ({trace.records} device records) and "
+                             f"{len(renders)} frames")
     return result
 
 
@@ -3089,18 +3459,36 @@ DINO_TIMED_IMAGES = 5           # timed extractions after a warm-up
 DINO_CHUNKS = (1024, 2048, 4096, 8192, None)    # query rows per attention product
 DINO_REF_SIZE = 64              # the card-vs-CPU image (a 15 x 15 patch grid)
 TOL_DINO = 1e-4                 # max abs error / max |CPU descriptor|, f32, 12 layers
-DINO_TRAIN_WARMUP, DINO_TRAIN_STEPS = 3, 30
+DINO_TRAIN_STEPS = 80           # timed, in blocks of 20, after one block
 
 
-def _timed_train(config, dev, warmup: int, steps: int, what: str):
-    """``train.train_loop`` over ``warmup + steps`` steps: (trainer, losses,
-    ms per step after the warm-up, encode launches and peak memory over
-    those steps).  Raises unless every loss is finite and each step
-    launched ``F32_PER_STEP`` F32-ENC and F32-ENC-BWD and no Q-ENC."""
+def _timed_train(config, dev, what: str, warmup: int = DISPATCH_BLOCK,
+                 steps: int = 2 * DISPATCH_BLOCK):
+    """``train.train_loop`` over ``warmup + steps`` steps in the preset's
+    blocks of ``steps_per_dispatch`` (by default one block that runs
+    eagerly and is captured, then two replays; runs shorter than a block
+    take single steps): (trainer, the losses of each dispatch, ms per step
+    of each dispatch after the warm-up, the encodes that ran on the card
+    per step, peak memory over the timed steps).  Where the timed steps
+    are replays, one more block is replayed after them under a profiler
+    trace (untimed; see ``_CardTrace``) and its kernels are counted by
+    name; single steps are counted by the wrappers (untraced).  Raises
+    unless every loss is finite, each counted step ran ``F32_PER_STEP``
+    F32-ENC and F32-ENC-BWD and no Q-ENC, and the wrappers launched as
+    many for every step Python ran (eagerly or into the graph)."""
     from samnerf_tpu_torch import train as train_entry
     from samnerf_tpu_torch.ops import hash_grid as hg
 
-    losses, times, t_prev = [], [], [0.0]
+    names = ("F32-ENC", "F32-ENC-BWD", "Q-ENC")
+    block = config.trainer.steps_per_dispatch
+    replays = warmup >= block > 1               # the timed steps are graph replays
+    losses, times, last, before = [], [], [0.0, 0], {}
+    trace = _CardTrace()
+
+    def wrappers():
+        return {"F32-ENC": hg.parity_hash_encode.launches,
+                "F32-ENC-BWD": hg.parity_hash_encode_bwd.launches,
+                "Q-ENC": hg.parity_hash_encode_q8.launches}
 
     def on_step(step, metrics):
         losses.append({k: float(v) for k, v in metrics.items()})
@@ -3108,25 +3496,42 @@ def _timed_train(config, dev, warmup: int, steps: int, what: str):
         now = time.perf_counter()
         if step == warmup:
             torch.cuda.reset_peak_memory_stats()
-            _reset_encode_launches(hg)
-        elif step > warmup:
-            times.append((now - t_prev[0]) * 1e3)
-        t_prev[0] = now
+            before.update(wrappers())
+        elif warmup < step <= warmup + steps:
+            times.append((now - last[0]) * 1e3 / (step - last[1]))
+        if step == warmup + steps:
+            peak[0] = torch.cuda.max_memory_allocated()
+            if replays:
+                trace.start()
+        last[:] = now, step
 
-    config.trainer.max_num_iterations = warmup + steps
-    trainer = train_entry.train_loop(config, device=dev, step_callback=on_step)
-    launches = {"F32-ENC": hg.parity_hash_encode.launches,
-                "F32-ENC-BWD": hg.parity_hash_encode_bwd.launches,
-                "Q-ENC": hg.parity_hash_encode_q8.launches}
-    peak = torch.cuda.max_memory_allocated()
-    if len(losses) != warmup + steps or not all(
+    traced = block if replays else 0
+    peak = [0]
+    config.trainer.max_num_iterations = warmup + steps + traced
+    _reset_encode_launches()
+    try:
+        trainer = train_entry.train_loop(config, device=dev, step_callback=on_step)
+    finally:
+        if trace.running:
+            trace.stop()
+    python = wrappers()
+    counted = traced or steps
+    launches = ({k: trace.counts[k] for k in names} if replays
+                else {k: python[k] - before[k] for k in names})
+    ran = trainer.steps_by_dispatch["eager"] + trainer.steps_by_dispatch["captured"]
+    if trainer.state.step != warmup + steps + traced or not all(
             math.isfinite(v) for m in losses for v in m.values()):
-        raise AssertionError(f"{what} losses: {losses}")
-    if launches["F32-ENC"] != F32_PER_STEP * len(times) \
-            or launches["F32-ENC-BWD"] != F32_PER_STEP * len(times) or launches["Q-ENC"]:
-        raise AssertionError(f"{what} launched {launches} in {len(times)} steps, not "
-                             f"{F32_PER_STEP} + {F32_PER_STEP} per step")
-    return trainer, losses, times, launches, peak
+        raise AssertionError(f"{what}: step {trainer.state.step}, losses {losses}")
+    if launches != {"F32-ENC": F32_PER_STEP * counted, "F32-ENC-BWD": F32_PER_STEP * counted,
+                    "Q-ENC": 0} or python != {"F32-ENC": F32_PER_STEP * ran,
+                                              "F32-ENC-BWD": F32_PER_STEP * ran, "Q-ENC": 0} \
+            or trainer.steps_by_dispatch["replayed"] != (steps + traced if replays else 0):
+        raise AssertionError(f"{what} ran {launches} on the card in {counted} "
+                             f"{'traced' if replays else 'timed'} steps ({trace.records} "
+                             f"device records traced) and launched {python} in {ran} "
+                             f"({trainer.steps_by_dispatch}), not {F32_PER_STEP} + "
+                             f"{F32_PER_STEP} per step")
+    return trainer, losses, times, launches, counted, peak[0]
 
 
 def dino_phase(dev, root: Path, train_step_ms: float):
@@ -3135,12 +3540,14 @@ def dino_phase(dev, root: Path, train_step_ms: float):
     512x512: 127 x 127 patches at stride 4, layer 11 ``key``) through
     ``ViTExtractor`` (ms per image and peak memory by query rows per
     attention product, ``DINO_CHUNKS``) and ``get_dino_embeddings.main``;
-    a small image's descriptors on the card against the CPU; then
-    ``DINO_TRAIN_STEPS``
-    full-width ``samnerf_distill`` steps with ``--model.use-dino-feature
-    True --datamanager.use-dino-feature True`` through the train entry
-    (step ms beside the train phase's, the DINO loss falling, 6 + 6
-    launches a step).  Returns the result and the scene."""
+    a small image's descriptors on the card against the CPU; then one
+    block and ``DINO_TRAIN_STEPS`` full-width ``samnerf_distill`` steps
+    with ``--model.use-dino-feature True --datamanager.use-dino-feature
+    True`` through the train entry, in the preset's blocks: the first
+    captured, the others replays (step ms beside the train phase's, the
+    DINO loss of the last blocks below the first ones', 6 + 6 launches a
+    step on the card in one more replayed block under a trace).  Returns
+    the result and the scene."""
     from PIL import Image
 
     from samnerf_tpu_torch import train as train_entry
@@ -3217,8 +3624,8 @@ def dino_phase(dev, root: Path, train_step_ms: float):
         "samnerf_distill", "--data", str(scene), "--model.use-dino-feature", "True",
         "--datamanager.use-dino-feature", "True", "--vis", "none",
         "--trainer.save-final", "false", "--trainer.output-dir", str(root / "out_dino")])
-    trainer, losses, times, launches, peak = _timed_train(
-        config, dev, DINO_TRAIN_WARMUP, DINO_TRAIN_STEPS, "the DINO train path")
+    trainer, losses, times, launches, counted, peak = _timed_train(
+        config, dev, "the DINO train path", steps=DINO_TRAIN_STEPS)
     if trainer.get_features != ("sam", "dino", "clipseg") \
             or tuple(trainer.device_data["dino_features"].shape) != (len(train_names), *grid,
                                                                     384):
@@ -3231,18 +3638,18 @@ def dino_phase(dev, root: Path, train_step_ms: float):
                   feature_shape=list(first.shape), host_bytes=host_bytes,
                   card_vs_cpu_rel_err=ref_err, step_ms=step_ms, step_ms_all=times,
                   train_phase_step_ms=train_step_ms, rays_per_s=rays / step_ms * 1e3,
-                  launches=launches,
-                  launches_per_step={k: v / len(times) for k, v in launches.items()},
+                  launches=launches, traced_steps=counted,
+                  launches_per_step={k: v / counted for k, v in launches.items()},
                   max_memory_allocated=peak, dino_loss=dino,
                   first_losses=losses[0], last_losses=losses[-1])
     print(f"train_dino samnerf_distill --model.use-dino-feature True, {rays} rays/step: "
-          f"median step {step_ms:.2f} ms over {len(times)} steps ({min(times):.1f}-"
-          f"{max(times):.1f}; train phase {train_step_ms:.2f}), "
-          f"{result['rays_per_s']:,.0f} rays/s; launches/step "
+          f"median step {step_ms:.2f} ms over {len(times)} replays of {DISPATCH_BLOCK} steps "
+          f"({', '.join(f'{t:.2f}' for t in times)}; train phase {train_step_ms:.2f}), "
+          f"{result['rays_per_s']:,.0f} rays/s; on the card a step "
           + ", ".join(f"{k}={v:g}" for k, v in result["launches_per_step"].items())
           + f"; max_memory_allocated={peak / 2**30:.2f} GiB; dino_loss {dino[0]:.4f} -> "
           f"{dino[-1]:.4f}", flush=True)
-    if not statistics.mean(dino[-5:]) < statistics.mean(dino[:5]):
+    if not statistics.mean(dino[-2:]) < statistics.mean(dino[:2]):
         raise AssertionError(f"the DINO loss did not fall: {dino}")
     return result, scene
 
@@ -3448,11 +3855,12 @@ def data_phase(dev, scene: Path, root: Path, train_step_ms: float):
     """Every dataparser family's scene parsed, its rays on the card
     against the CPU; the synthetic scene as a Blender and an instant-ngp
     directory routed by ``_detect_parser``, each trained
-    ``DATA_TRAIN_STEPS`` full-width steps through the train entry; the
-    scene with a shared OpenCV distortion (rays card vs CPU, trained, its
-    run directory rendered along fisheye and equirectangular camera paths
-    by ``scripts/render.py``); the scene trained with appearance
-    embeddings and served as baked int8 512x512 frames, fused and not
+    ``DATA_TRAIN_STEPS`` full-width single steps through the train entry;
+    the scene with a shared OpenCV distortion (rays card vs CPU, trained
+    in the preset's blocks, one captured and two replayed, its run
+    directory rendered along fisheye and equirectangular camera paths by
+    ``scripts/render.py``); the scene trained with appearance embeddings in
+    those blocks and served as baked int8 512x512 frames, fused and not
     (FUSED-QMLP and Q-ENC launches)."""
     from samnerf_tpu_torch import train as train_entry
     from samnerf_tpu_torch.core.camera_paths import get_path_from_json
@@ -3498,8 +3906,8 @@ def data_phase(dev, scene: Path, root: Path, train_step_ms: float):
         config = train_entry.parse([
             "samnerf_distill", "--data", str(dirs[name]), "--vis", "none",
             "--trainer.save-final", "false", "--trainer.output-dir", str(root / f"out_{name}")])
-        trainer, losses, times, launches, _ = _timed_train(
-            config, dev, 1, DATA_TRAIN_STEPS - 1, f"the {name} train path")
+        trainer, losses, times, launches, _, _ = _timed_train(
+            config, dev, f"the {name} train path", 1, DATA_TRAIN_STEPS - 1)
         runs[name] = dict(step_ms=statistics.median(times), launches=launches,
                           images=trainer.datamanager.num_train_images,
                           last_losses=losses[-1])
@@ -3512,8 +3920,8 @@ def data_phase(dev, scene: Path, root: Path, train_step_ms: float):
         "samnerf_distill", "--data", str(dirs["distorted"]), "--vis", "none",
         "--trainer.output-dir", str(root / "run_distorted")])
     train_entry.save_config(config)
-    trainer, losses, times, launches, _ = _timed_train(
-        config, dev, 1, DATA_TRAIN_STEPS - 1, "the distorted train path")
+    trainer, losses, times, launches, _, _ = _timed_train(
+        config, dev, "the distorted train path")
     cams = trainer.datamanager.cameras
     if cams.distortion_params is None:
         raise AssertionError("the distorted scene parsed without distortion")
@@ -3548,8 +3956,8 @@ def data_phase(dev, scene: Path, root: Path, train_step_ms: float):
         "samnerf_distill", "--data", str(scene), "--model.use-appearance-embedding", "True",
         "--vis", "none", "--trainer.save-final", "false",
         "--trainer.output-dir", str(root / "out_appearance")])
-    trainer, losses, times, launches, _ = _timed_train(
-        config, dev, 1, DATA_TRAIN_STEPS - 1, "the appearance-embedding train path")
+    trainer, losses, times, launches, _, _ = _timed_train(
+        config, dev, "the appearance-embedding train path")
     emb = trainer.model.fields.embedding_appearance.weight
     runs["appearance"] = dict(step_ms=statistics.median(times), launches=launches,
                               embeddings=list(emb.shape), last_losses=losses[-1])
@@ -3567,27 +3975,33 @@ def data_phase(dev, scene: Path, root: Path, train_step_ms: float):
         snr.bake_serve_tables()
         n = DATA_SERVE_SIZE
         fn = snr.serve_frame_fn(sam, n, n)
-        fn(_cameras(dev, 0, n, n, 400.0 * n / 512), 0, (n / 2, n / 2))          # warm-up
+        _reset_encode_launches()
+        fn(_cameras(dev, 0, n, n, 400.0 * n / 512), 0, (n / 2, n / 2))  # eager, capture
+        python = _encode_launches()
         torch.cuda.synchronize()
-        _reset_encode_launches(hg)
         t0 = time.perf_counter()
         img = fn(_cameras(dev, 1, n, n, 400.0 * n / 512), 0, (0.4 * n, 0.6 * n))
         torch.cuda.synchronize()
-        serve[tag] = dict(frame_ms=(time.perf_counter() - t0) * 1e3,
-                          launches=_encode_launches(hg))
+        ms = (time.perf_counter() - t0) * 1e3
+        with _CardTrace() as trace:                 # one more replay
+            fn(_cameras(dev, 1, n, n, 400.0 * n / 512), 0, (0.4 * n, 0.6 * n))
+        serve[tag] = dict(frame_ms=ms, launches={k: trace.counts[k] for k in python},
+                          python_launches=python)
         if img.dtype != torch.uint8 or tuple(img.shape) != (n, n, 3):
             raise AssertionError(f"appearance frame {img.dtype} {tuple(img.shape)}")
         del model, snr, fn
     del trainer
     if serve["int8_fused"]["launches"] != {"F32-ENC": 0, "Q-ENC": 0,
                                           "FUSED-QMLP": FUSED_PER_FRAME} \
-            or serve["int8"]["launches"]["Q-ENC"] != F32_PER_FRAME \
-            or serve["int8"]["launches"]["FUSED-QMLP"]:
+            or serve["int8"]["launches"] != {"F32-ENC": 0, "Q-ENC": F32_PER_FRAME,
+                                            "FUSED-QMLP": 0} \
+            or any(r["python_launches"] != {k: 2 * v for k, v in r["launches"].items()}
+                   for r in serve.values()):
         raise AssertionError(f"appearance serve launches {serve}")
     result = dict(families=families, routed=routed, runs=runs, renders=renders,
                   serve_appearance=serve, train_phase_step_ms=train_step_ms)
-    print("data train (full width, median of "
-          f"{DATA_TRAIN_STEPS - 1} steps after one): "
+    print(f"data train (full width, median of {DATA_TRAIN_STEPS - 1} single steps after "
+          f"one, or of 2 replays of {DISPATCH_BLOCK} steps after a captured block): "
           + ", ".join(f"{k} {v['step_ms']:.2f} ms" for k, v in runs.items())
           + f" (train phase {train_step_ms:.2f}); 6 + 6 launches a step; distorted rays "
           f"card vs CPU {runs['distorted']['dir_err']:.2e}; render.py fisheye "
@@ -3721,7 +4135,7 @@ def zoo_phase(dev, scene: Path, root: Path):
             counts["last"] = launches
             t_prev[0] = now
 
-        _reset_encode_launches(hg)
+        _reset_encode_launches()
         rc = train_entry.main(
             [name, "--data", str(scene), "--max-num-iterations", str(steps),
              "--rays-per-batch", str(ZOO_RAYS), "--output-dir", str(root / "zoo"),
@@ -3887,7 +4301,8 @@ def quality_phase(dev, root: Path):
     image, 4 FLASH-RELPOS launches per image, the first embedding against
     the plain-attention route); ``quality_capacity.train_and_eval`` at
     2^19 / 2^17, morton, 16384 rays for ``QUALITY_STEPS`` steps (step ms,
-    rays/s, 6 F32-ENC and 6 F32-ENC-BWD launches a step, test PSNR, SSIM,
+    rays/s, 6 F32-ENC and 6 F32-ENC-BWD launches a step run eagerly or
+    captured, the other blocks replays, test PSNR, SSIM,
     SAM-feature MSE and cosine); ``view_miou`` on one held-out view at a
     ``QUALITY_GRID`` prompt grid; and instant-ngp through
     ``validate_zoo.run_method`` (its own process) for ``QUALITY_ZOO_STEPS``
@@ -3949,31 +4364,40 @@ def quality_phase(dev, root: Path):
         raise AssertionError(f"the ViT-B targets' kernel and plain routes disagree: {route_err}")
 
     # the training at reference capacity
+    # the wrappers count what Python launched: the first block eagerly and
+    # into its graph; the replays launch nothing from Python (what a replay
+    # runs on the card: dispatch_train, the same path untimed here, since a
+    # trace in the loop would be inside train_and_eval's timing)
     counts = {}
 
     def on_step(step, metrics):
         if step == QUALITY_STEPS:
-            counts.update(_encode_launches(hg), **{
+            counts.update(_encode_launches(), **{
                 "F32-ENC-BWD": hg.parity_hash_encode_bwd.launches})
 
     print(f"quality train: {QUALITY_STEPS} of the study's 3000 steps (cut to fit the phase)",
           flush=True)
-    _reset_encode_launches(hg)
+    _reset_encode_launches()
     m, trainer = train_and_eval(scene, *QUALITY_TABLES, QUALITY_STEPS, QUALITY_RAYS,
                                 args_views=24, hash_fn="morton", return_trainer=True,
                                 persist_run=False, device=dev, step_callback=on_step)
     eval_f32 = hg.parity_hash_encode.launches - counts["F32-ENC"]
-    per_step = {k: counts[k] / QUALITY_STEPS for k in ("F32-ENC", "F32-ENC-BWD")}
+    dispatched = trainer.steps_by_dispatch
+    ran = dispatched["eager"] + dispatched["captured"]
+    replayed = QUALITY_STEPS - DISPATCH_BLOCK
+    per_step = {k: counts[k] / ran for k in ("F32-ENC", "F32-ENC-BWD")}
     print(f"quality train 2^{QUALITY_TABLES[0]} / 2^{QUALITY_TABLES[1]} morton, "
           f"{QUALITY_RAYS} rays: {m['step_ms']:.2f} ms a "
-          f"step after the first, {QUALITY_RAYS / m['step_ms'] * 1e3:,.0f} rays/s "
-          f"({m['train_s']} s with set-up); launches a step F32-ENC {per_step['F32-ENC']:g}, "
-          f"F32-ENC-BWD {per_step['F32-ENC-BWD']:g}; test PSNR {m['psnr']:.2f}, SSIM "
+          f"step after the first block, {QUALITY_RAYS / m['step_ms'] * 1e3:,.0f} rays/s "
+          f"({m['train_s']} s with set-up; {dispatched}); launched F32-ENC "
+          f"{counts['F32-ENC']}, F32-ENC-BWD {counts['F32-ENC-BWD']} in the {ran} steps run "
+          f"eagerly or captured; test PSNR {m['psnr']:.2f}, SSIM "
           f"{m['ssim']:.4f}, train PSNR {m['train_psnr']:.2f}, SAM-feature MSE "
           f"{m['sam_feature_mse']:.4f}, cosine {m['sam_feature_cos']:.4f}; F32-ENC "
           f"{eval_f32} in the metrics' renders", flush=True)
-    if per_step != {"F32-ENC": F32_PER_STEP, "F32-ENC-BWD": F32_PER_STEP} or counts["Q-ENC"]:
-        raise AssertionError(f"the quality run launched {counts} in {QUALITY_STEPS} steps")
+    if per_step != {"F32-ENC": F32_PER_STEP, "F32-ENC-BWD": F32_PER_STEP} \
+            or counts["Q-ENC"] or dispatched["replayed"] != replayed:
+        raise AssertionError(f"the quality run ({dispatched}) launched {counts}")
     for k in ("psnr", "ssim", "train_psnr", "sam_feature_mse", "sam_feature_cos", "step_ms"):
         if not math.isfinite(m[k]):
             raise AssertionError(f"quality metric {k} is {m[k]}")
@@ -4014,6 +4438,7 @@ def quality_phase(dev, root: Path):
                 target_launches=target_launches, route_max_abs_err=route_err,
                 steps=QUALITY_STEPS, rays=QUALITY_RAYS, metrics=m,
                 launches={"F32-ENC": counts["F32-ENC"], "F32-ENC-BWD": counts["F32-ENC-BWD"]},
+                steps_by_dispatch=dict(dispatched),
                 launches_per_step=per_step, eval_f32_enc=eval_f32,
                 miou=dict(grid=QUALITY_GRID, vs_render=v, vs_gt=v_gt, seconds=miou_s,
                           flash_launches=miou_launches),
@@ -4170,12 +4595,12 @@ def export_phase(dev, run_dir: Path, root: Path):
         out = root / f"export_{mode}.{'ply' if mode == 'pointcloud' else 'obj'}"
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _reset_encode_launches(hg)
+        _reset_encode_launches()
         t0 = time.perf_counter()
         rc = export_script.main([mode, str(run_dir), "--output", str(out)], device=dev)
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        launches = _encode_launches(hg)
+        launches = _encode_launches()
         if rc != 0:
             raise AssertionError(f"the exporter's {mode} mode returned {rc}")
         if mode == "pointcloud":
@@ -4334,7 +4759,7 @@ def pose_phase(dev):
         with torch.no_grad():
             opt.pose_adjustment.copy_(torch.from_numpy(adj))
         ci = torch.as_tensor(gi, device=d)
-        _reset_encode_launches(hg)
+        _reset_encode_launches()
         rb = generate_rays(_pose_cameras(d), ci, torch.as_tensor(gc, device=d),
                            camera_opt_to_camera=opt(ci))
         loss = torch.mean((model(rb, train=True)["rgb"] - torch.as_tensor(target, device=d))
@@ -4396,14 +4821,14 @@ def sharded_frame_check(dev, size=VIEW_SIZE, cfg=None):
     cams = _cameras(dev, 1, H, W, 400.0)
     frame(cams, 0, coords, labels)                               # warm-up
     torch.cuda.synchronize()
-    _reset_encode_launches(hg)
+    _reset_encode_launches()
     times = []
     for _ in range(SHARDED_FRAMES):
         t0 = time.perf_counter()
         out = frame(cams, 0, coords, labels)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    launches = _encode_launches(hg)
+    launches = _encode_launches()
     mine = (torch.clamp(out["masked_rgb"], 0.0, 1.0) * 255.0).to(torch.uint8)
     ref = serve(cams, 0, click)
     diff = int((mine.int() - ref.int()).abs().max())
@@ -4459,7 +4884,7 @@ def dist_phase(dev, scene: Path, root: Path, train_step_ms: float):
             torch.cuda.synchronize()
             now = time.perf_counter()
             if step == DIST_WARMUP:
-                _reset_encode_launches(hg)
+                _reset_encode_launches()
             elif step > DIST_WARMUP:
                 times.append((now - t_prev[0]) * 1e3)
             t_prev[0] = now
@@ -4695,6 +5120,7 @@ def main() -> int:
     train_rows = train_kernel_phase(dev, step_calls)
     del step_calls
     serve = serve_phase(dev)
+    dispatch_serve = dispatch_serve_phase(dev)
     reference = reference_phase(dev)
     view = view_phase(dev)
     cull, fused_model = cull_phase(dev)
@@ -4703,6 +5129,7 @@ def main() -> int:
     del fused_model
     serve_bf16 = serve_bf16_phase(dev)
     train = train_phase(dev)
+    dispatch_train = dispatch_train_phase(dev)
     train_reference = train_reference_phase(dev)
     with tempfile.TemporaryDirectory() as keep, tempfile.TemporaryDirectory() as tmp:
         evaluation = eval_phase(dev, root=Path(keep))
@@ -4740,9 +5167,14 @@ def main() -> int:
     source = "samnerf_tpu_torch/csrc/hash_encode.cu"
     kernels = []
     # the nerfacto shape with the morton hash stands for each kernel: the
-    # largest encode per launch of its main path; ``launches`` is the count
-    # on that path (a serve run for the forward kernels, the timed train
-    # steps for the backward), ``launches_by_path`` every path's count
+    # largest encode per launch of its main path; ``launches`` is the
+    # wrapper's count on that path (a serve run for the forward kernels:
+    # its first frame's eager run and capture, the replays launching none;
+    # the timed eager train steps for the backward), ``launches_by_path``
+    # every path's count (for the paths trained in the preset's blocks,
+    # dino, data and viewer_train's backward, the kernel's runs on the card
+    # in one traced block of replays, by name from a profiler trace), ``replay_on_card``
+    # its runs on the card in one replayed frame or step of a graphed path
     for name, replaces, run in (("F32-ENC", "samnerf_tpu/ops/hash_pallas.py:519", "f32"),
                                 ("Q-ENC", "samnerf_tpu/ops/hash_pallas.py:1180", "int8")):
         mine = [r for r in rows if r["kernel"] == name]
@@ -4769,6 +5201,13 @@ def main() -> int:
                             and r["positions"] == "frame" and r["variant"] in ("f32", "q8"))})
     for k in kernels:
         k["launches_by_path"].update(serve_int8_fused=serve["int8_fused"]["launches"][k["name"]])
+    for k, route in zip(kernels, ("f32", "int8")):
+        k["replay_on_card"] = {
+            f"serve_{route}_frame": serve[route]["replay_on_card"][k["name"]],
+            f"dispatch_serve_{route}_frame":
+                dispatch_serve[route]["launches_per_frame"][k["name"]]}
+    kernels[0]["replay_on_card"]["dispatch_train_step"] = \
+        dispatch_train["on_card_per_step"]["F32-ENC"]
     kernels[0]["launches_by_path"].update(cull_bake_f32=cull["bake"]["f32"]["launches"]["F32-ENC"],
                                           viewer_train=viewer_train["launches"]["F32-ENC"])
     kernels[1]["launches_by_path"].update(
@@ -4819,6 +5258,12 @@ def main() -> int:
                         "serve_appearance_int8_fused":
                             data["serve_appearance"]["int8_fused"]["launches"]["FUSED-QMLP"],
                         "sharded_frame": dist["sharded_frame"]["launches"]["FUSED-QMLP"]},
+                    "replay_on_card": {
+                        "serve_int8_fused_frame":
+                            serve["int8_fused"]["replay_on_card"]["FUSED-QMLP"],
+                        **{f"dispatch_serve_{r}_frame":
+                           dispatch_serve[r]["launches_per_frame"]["FUSED-QMLP"]
+                           for r in ("int8_fused", "culled")}},
                     "max_abs_err": max(r["max_abs_err"] for r in qmlp_rows),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
@@ -4844,6 +5289,8 @@ def main() -> int:
                         "quality_zoo_depth": quality["zoo_depth"]["launches"]["F32-ENC-BWD"],
                         "pose_grad": pose["launches"]["F32-ENC-BWD"],
                         "dist_train": dist["launches"]["F32-ENC-BWD"]},
+                    "replay_on_card": {"dispatch_train_step":
+                                       dispatch_train["on_card_per_step"]["F32-ENC-BWD"]},
                     "max_abs_err": max(max(r["max_abs_err"] for r in bwd_rows),
                                        zoo["kernel_hold"]["f32_enc_bwd_max_abs_err"]),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
@@ -4890,6 +5337,7 @@ def main() -> int:
          "nvcc": nvcc, "build_s": build_s, "kernel_resources": resources, "kernel_rows": rows,
          "qmlp_kernel_rows": qmlp_rows,
          "train_kernel_rows": train_rows, "serve": serve, "reference": reference,
+         "dispatch_serve": dispatch_serve, "dispatch_train": dispatch_train,
          "view": view, "train": train,
          "train_reference": train_reference, "attn_kernel_rows": attn_rows,
          "encode": encode, "encode_reference": encode_reference,

@@ -1,10 +1,10 @@
 """Method presets ``samnerf_no_distill`` and ``samnerf_distill``.
 
-Counterpart of ``samnerf_tpu/configs/methods.py``, same hyperparameters.
-Left out: ``sort_points`` and ``use_remat`` (they only schedule the TPU;
-the sort is exact and order-restoring, and activations fit the card), the
-trainer's ``steps_per_dispatch`` scan fusion (a Python loop takes its
-place).  ``vis`` selects the event writers and the viewer as in the
+Counterpart of ``samnerf_tpu/configs/methods.py``, same hyperparameters,
+the trainer's ``steps_per_dispatch`` (20 steps a dispatch: a CUDA graph
+replay on the card) included.  Left out: ``sort_points`` and
+``use_remat`` (they only schedule the TPU; the sort is exact and
+order-restoring, and activations fit the card).  ``vis`` selects the event writers and the viewer as in the
 JAX package; the viewer listens on ``websocket_port`` and serves its
 client on ``http_port``.
 """

@@ -41,6 +41,13 @@ def uniform_shape(batch_size: int, patch_size: int = 1):
     return (batch_size if patch_size <= 1 else batch_size // (patch_size ** 2), 3)
 
 
+def _scaled(u: torch.Tensor, dims) -> torch.Tensor:
+    """Each column of u [B, 3] times its entry of ``dims``: the products of
+    ``u * tensor(dims)``, without the copy of ``dims`` to the device that a
+    CUDA graph cannot capture."""
+    return torch.stack([u[:, i] * float(d) for i, d in enumerate(dims)], dim=-1)
+
+
 def indices_from_uniform(u: torch.Tensor, num_images: int, height: int, width: int,
                          patch_size: int = 1) -> torch.Tensor:
     """Uniform draws u [uniform_shape(...)] in [0, 1) -> [B, 3] int64
@@ -48,11 +55,9 @@ def indices_from_uniform(u: torch.Tensor, num_images: int, height: int, width: i
     dtype."""
     ps = patch_size
     if ps <= 1:
-        scale = torch.tensor([num_images, height, width], dtype=u.dtype, device=u.device)
-        return torch.floor(u * scale).long()
-    scale = torch.tensor([num_images, height - ps, width - ps], dtype=u.dtype,
-                         device=u.device)
-    base = (u * scale)[:, None, None, :]   # floored after the offset, as the reference
+        return torch.floor(_scaled(u, (num_images, height, width))).long()
+    # floored after the offset, as the reference
+    base = _scaled(u, (num_images, height - ps, width - ps))[:, None, None, :]
     yy, xx = torch.meshgrid(torch.arange(ps, device=u.device),
                             torch.arange(ps, device=u.device), indexing="ij")
     offs = torch.stack([torch.zeros_like(yy), yy, xx], -1).to(u.dtype)

@@ -102,6 +102,14 @@ def _stream_index(h: int, w: int, chunk: int, bs: int = PIXEL_BLOCK):
     return index
 
 
+def camera_indices(camera_index, n: int, device) -> torch.Tensor:
+    """[n] int64 rays' camera index: an int, or a 0-d int64 tensor on
+    ``device`` (a CUDA graph's static input), broadcast without a copy."""
+    if isinstance(camera_index, torch.Tensor):
+        return camera_index.expand(n)
+    return torch.full((n,), camera_index, dtype=torch.int64, device=device)
+
+
 def _fused_feature_eval(model: SAMModel, cameras: Cameras, cam_idx: int,
                         w_flat: torch.Tensor, mid_flat: torch.Tensor,
                         px_coords: torch.Tensor, idx: torch.Tensor,
@@ -113,7 +121,8 @@ def _fused_feature_eval(model: SAMModel, cameras: Cameras, cam_idx: int,
     ``rays_per_call`` by repeating the last ``group`` rays (conv patches);
     callers slice the padding off."""
     wk, mid = w_flat[idx], mid_flat[idx]
-    rb = generate_rays(cameras, torch.full_like(idx, cam_idx), px_coords)
+    rb = generate_rays(cameras, camera_indices(cam_idx, idx.shape[0], idx.device),
+                       px_coords)
     pos = rb.origins[:, None, :] + rb.directions[:, None, :] * mid[..., None]
     pad = (-pos.shape[0]) % rays_per_call
     if pad:
@@ -188,7 +197,8 @@ class ImageRenderer:
         ``crop_aabb`` [2, 3] (min, max corner): the viewer's crop box; the
         rgb pass's rays are bounded to it and its empty space takes the
         background ``crop_bg`` [3] (black unless given).  ``occ``: a baked
-        occupancy grid on the same device; its empty space is culled."""
+        occupancy grid on the same device; its empty space is culled.
+        ``camera_index``: an int or a 0-d int64 tensor on the device."""
         cfg, chunk = self.cfg, self.chunk
         device = cameras.camera_to_worlds.device
         plan = self._plan(height, width, tuple(features), device)
@@ -201,8 +211,7 @@ class ImageRenderer:
                   torch.as_tensor(crop_bg, dtype=torch.float32, device=device))
         outs = []
         for c in rgb_coords:
-            rb = generate_rays(cameras, torch.full((c.shape[0],), camera_index,
-                                                   device=device), c,
+            rb = generate_rays(cameras, camera_indices(camera_index, c.shape[0], device), c,
                                aabb_box=crop_aabb)
             outs.append(self.model(rb, bg_color=bg, return_topk=fuse, occupancy=occ))
         out = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}

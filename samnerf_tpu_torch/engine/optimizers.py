@@ -20,6 +20,21 @@ each with its own schedule and optional clip, matching
   elsewhere (:func:`samnerf_tpu_torch.convert.train_checkpoint_from_jax`)
   loads without knowing the parameter order; the groups' hyperparameters
   come from their configs.
+- :meth:`GroupedAdam.device_step` is the same update in a form a CUDA
+  graph can hold (the trainer's ``steps_per_dispatch`` blocks): eager
+  Adam takes the step size ``s = -lr / (1 - beta1^t)`` and ``b = sqrt(1 -
+  beta2^t)`` as float64 host scalars, which a graph would freeze; here
+  the host computes the same float64 values for every step of a block
+  (:meth:`GroupedAdam.block_scalars`), folded into ``b s`` and ``eps /
+  s``, and the update reads those, rounded to f32, from a device buffer
+  that is refilled before each replay: ``p += m / (sqrt(v) / (b s) + eps
+  / s)``, as ``torch.optim.Adam(capturable=True)`` orders it (an
+  ``addcdiv`` takes no device scalar), in as many passes over the
+  parameters as the eager update.  The moments are the eager update's
+  bit for bit; the parameter step rounds in another order, a few f32 ulps
+  of ``|p| + lr`` apart per step.  The step counts stay on the CPU,
+  advanced by the host (:meth:`GroupedAdam.advance`), so the state dict
+  is the same in both.
 """
 from __future__ import annotations
 
@@ -27,6 +42,7 @@ import dataclasses
 import math
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -75,6 +91,8 @@ class GroupedAdam:
     """Adam over named parameter groups with per-group schedules and
     global-norm clipping."""
 
+    BETAS = (0.9, 0.999)
+
     def __init__(self, groups: Dict[str, OptimizerGroupConfig], model: nn.Module):
         params: Dict[str, list] = {}
         names: Dict[str, list] = {}
@@ -90,27 +108,85 @@ class GroupedAdam:
         self.optimizer = torch.optim.Adam(
             [{"params": params[g], "name": g, "lr": self.schedules[g](0),
               "eps": groups[g].eps} for g in self.names],
-            betas=(0.9, 0.999))
+            betas=self.BETAS)
         # torch's state index of each parameter: groups in order, then params
         self.param_names = [n for g in self.names for n in names[g]]
         self.count = 0
 
+    def _clipped_grads(self, group: dict):
+        cfg = self.configs[group["name"]]
+        grads = [p.grad for p in group["params"]]
+        if any(g is None for g in grads):
+            raise RuntimeError(f"a parameter of group {group['name']!r} has no "
+                               "gradient; optax would update it with zeros")
+        if cfg.max_norm is not None:
+            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            scale = torch.where(norm < cfg.max_norm, 1.0, cfg.max_norm / norm)
+            for g in grads:
+                g.mul_(scale)
+        return grads
+
     def step(self) -> None:
         """One update of every group at ``lr(count)``."""
         for group in self.optimizer.param_groups:
-            cfg = self.configs[group["name"]]
-            grads = [p.grad for p in group["params"]]
-            if any(g is None for g in grads):
-                raise RuntimeError(f"a parameter of group {group['name']!r} has no "
-                                   "gradient; optax would update it with zeros")
-            if cfg.max_norm is not None:
-                norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-                scale = torch.where(norm < cfg.max_norm, 1.0, cfg.max_norm / norm)
-                for g in grads:
-                    g.mul_(scale)
+            self._clipped_grads(group)
             group["lr"] = self.schedules[group["name"]](self.count)
         self.optimizer.step()
         self.count += 1
+
+    def block_scalars(self, n: int) -> np.ndarray:
+        """[n, groups, 2] f32: for each of the next ``n`` updates and each
+        group, ``b s`` and ``eps / s`` of the step size ``s = -lr(count) /
+        (1 - beta1^t)`` and ``b = sqrt(1 - beta2^t)`` (t = count + 1),
+        computed in float64 as ``torch.optim.Adam`` computes ``s`` and
+        ``b``, rounded once to f32."""
+        beta1, beta2 = self.BETAS
+        out = np.empty((n, len(self.names), 2), np.float32)
+        for i in range(n):
+            t = self.count + i + 1
+            for j, g in enumerate(self.names):
+                s = (self.schedules[g](self.count + i) / (1 - beta1 ** t)) * -1
+                b = (1 - beta2 ** t) ** 0.5
+                out[i, j] = b * s, self.configs[g].eps / s
+        return out
+
+    @torch.no_grad()
+    def device_step(self, scalars: torch.Tensor) -> None:
+        """One update of every group from ``scalars`` [groups, 2] (a row of
+        :meth:`block_scalars` on the parameters' device), reading nothing
+        back to the host and changing no host state: the caller advances
+        the counts (:meth:`advance`) once the update has run, since a graph
+        replays it where Python does not run.  The first call makes the
+        moments, so it must not be captured."""
+        for j, group in enumerate(self.optimizer.param_groups):
+            grads = self._clipped_grads(group)
+            params = group["params"]
+            for p in params:
+                state = self.optimizer.state[p]
+                if not state:
+                    state["step"] = torch.tensor(0.0)
+                    state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                    state["exp_avg_sq"] = torch.zeros_like(
+                        p, memory_format=torch.preserve_format)
+            exp_avgs = [self.optimizer.state[p]["exp_avg"] for p in params]
+            exp_avg_sqs = [self.optimizer.state[p]["exp_avg_sq"] for p in params]
+            beta1, beta2 = self.BETAS
+            torch._foreach_lerp_(exp_avgs, grads, 1 - beta1)
+            torch._foreach_mul_(exp_avg_sqs, beta2)
+            torch._foreach_addcmul_(exp_avg_sqs, grads, grads, 1 - beta2)
+            denom = torch._foreach_sqrt(exp_avg_sqs)
+            torch._foreach_div_(denom, scalars[j, 0])
+            # the list add of a 0-d device tensor reads it back to the host;
+            # a tensor's own add does not
+            for d in denom:
+                d.add_(scalars[j, 1])
+            torch._foreach_addcdiv_(params, exp_avgs, denom)
+
+    def advance(self, n: int) -> None:
+        """Count ``n`` updates made by :meth:`device_step`."""
+        for state in self.optimizer.state.values():
+            state["step"] += n
+        self.count += n
 
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)

@@ -4,7 +4,8 @@ click on the rendered embedding, composite the overlay.
 Counterpart of ``samnerf_tpu/engine/render_pipeline.py``: ``serve_model``,
 the geometry of 3D prompt locking (``backproject``, ``project``,
 ``visible_mask``, ``pooled_heatmap_points``, ``draw_pins``) and
-``SamNerfRenderer`` with ``serve_frame_fn`` (the all-device frame),
+``SamNerfRenderer`` with ``serve_frame_fn`` (the all-device frame, one
+CUDA graph replay on the card),
 ``render_view`` (the viewer's flow, which locks clicks as 3D points,
 decodes ClipSeg text prompts on the rendered ClipSeg grid, and runs
 LanguageSAM on the rendered rgb for a model that distills nothing),
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from samnerf_tpu_torch.core.cameras import Cameras
+from samnerf_tpu_torch.engine import cuda_graph
 from samnerf_tpu_torch.engine.eval_render import ImageRenderer, bake_occupancy
 from samnerf_tpu_torch.fields.hash_encoding import ParityHashEncoding
 from samnerf_tpu_torch.models.sam_model import SAMModel
@@ -147,6 +149,19 @@ def draw_pins(image: np.ndarray, pins: np.ndarray, radius: int = 4,
     return img
 
 
+def _clone_cameras(cameras: Cameras) -> Cameras:
+    """A copy of ``cameras`` in tensors of its own (a graph's static input)."""
+    return dataclasses.replace(cameras, **{
+        f.name: getattr(cameras, f.name).clone() for f in dataclasses.fields(cameras)
+        if isinstance(getattr(cameras, f.name), torch.Tensor)})
+
+
+def _copy_cameras(dst: Cameras, src: Cameras) -> None:
+    for f in dataclasses.fields(src):
+        if isinstance(getattr(src, f.name), torch.Tensor):
+            getattr(dst, f.name).copy_(getattr(src, f.name))
+
+
 def cameras_from_intrin_c2w(intrin: np.ndarray, c2w: np.ndarray, height: int,
                             width: int, device="cuda") -> Cameras:
     """One camera from a viewer camera message: intrin [3, 3], c2w [3|4, 4]."""
@@ -238,38 +253,98 @@ class SamNerfRenderer:
         -> uint8 [H, W, 3]`` on the model's device: render rgb + SAM and
         ClipSeg grids, decode a mask from the click on the rendered SAM
         embedding, composite the red overlay.  The occupancy grid installed
-        when this is called culls every frame of it."""
+        when this is called culls every frame of it.
+
+        On the card a frame is one dispatch, as JAX's jitted frame: one
+        replay of a CUDA graph of the whole frame, captured on a key's
+        first frame (after one eager frame) and kept per key, as
+        ``jax.jit`` keeps a trace per shape: the cameras' shapes and size.
+        A key's graph is captured anew, in place of the old one, when a
+        tensor the model or decoder holds has another address or shape
+        than at its capture (baking serve tables, loading weights).  The camera,
+        camera index, click and labels are copied into the graph's static
+        inputs before each replay; the frame and mask returned are copies,
+        which a later replay does not overwrite.  Elsewhere the frame runs
+        eagerly.  ``serve.eager`` is the same frame run eagerly on any
+        device, the reference the graph is held against."""
         H, W = height, width
         renderer = self._renderer_for(preset)
         occ = self.occ
         cfg = self.cfg
         feats = (("sam", "clipseg") if cfg.distill_sam and cfg.use_clipseg_feature
                  else ("sam",) if cfg.distill_sam else ())
+        graphs: Dict[tuple, tuple] = {}     # key -> (held, static inputs, graph)
+        side = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
-        @torch.no_grad()
-        def serve(cameras: Cameras, cam_idx: int, click_xy,
-                  return_mask: bool = False):
-            device = cameras.camera_to_worlds.device
-            frame = renderer.render_image_device(cameras, cam_idx, W, H,
-                                                 features=feats, minimal=True, occ=occ)
+        def prompt(click_xy):
             # click -> 1024-frame coords (ResizeLongestSide convention)
             scale = 1024.0 / max(H, W)
             pts = np.zeros((1, max_points, 2), np.float32)
             pts[0, 0] = [click_xy[0] * scale, click_xy[1] * scale]
             labels = np.full((1, max_points), -1, np.int64)
             labels[0, 0] = 1
-            low_res, _ = sam.decode_masks(
-                frame["sam"][None], (torch.as_tensor(pts, device=device),
-                                     torch.as_tensor(labels, device=device)),
-                multimask_output=False)
+            return torch.from_numpy(pts), torch.from_numpy(labels)
+
+        def frame(cameras: Cameras, cam_idx, pts: torch.Tensor, labels: torch.Tensor):
+            device = cameras.camera_to_worlds.device
+            rendered = renderer.render_image_device(cameras, cam_idx, W, H, features=feats,
+                                                    minimal=True, occ=occ)
+            low_res, _ = sam.decode_masks(rendered["sam"][None], (pts, labels),
+                                          multimask_output=False)
             masks = postprocess_masks(low_res, (1024, 1024), (H, W), sam.img_size)
             mask = masks[0, 0] > 0.0
-            rgb = frame["rgb"]
-            red = torch.tensor([1.0, 0.0, 0.0], device=device)
+            rgb = rendered["rgb"]
+            red = (torch.arange(3, device=device) == 0).to(rgb.dtype)     # [1, 0, 0]
             overlay = torch.where(mask[..., None], 0.5 * rgb + 0.5 * red, rgb)
             img = (torch.clamp(overlay, 0.0, 1.0) * 255.0).to(torch.uint8)
+            return img, mask
+
+        @torch.no_grad()
+        def eager(cameras: Cameras, cam_idx: int, click_xy, return_mask: bool = False):
+            device = cameras.camera_to_worlds.device
+            pts, labels = prompt(click_xy)
+            img, mask = frame(cameras, cam_idx, pts.to(device), labels.to(device))
             return (img, mask) if return_mask else img
 
+        def key_of(cameras: Cameras):
+            fields = (getattr(cameras, f.name) for f in dataclasses.fields(cameras))
+            return tuple(t.shape if isinstance(t, torch.Tensor) else t for t in fields)
+
+        def held():
+            return tuple((t.data_ptr(), t.shape) for m in (renderer.model, sam)
+                         for t in (*m.parameters(), *m.buffers()))
+
+        @torch.no_grad()
+        def serve(cameras: Cameras, cam_idx: int, click_xy, return_mask: bool = False):
+            device = cameras.camera_to_worlds.device
+            if device.type != "cuda":
+                return eager(cameras, cam_idx, click_xy, return_mask)
+            current = torch.cuda.current_stream(device)
+            key, tensors = key_of(cameras), held()
+            pts, labels = prompt(click_xy)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                if key not in graphs or graphs[key][0] != tensors:
+                    graphs.pop(key, None)   # frees the old graph and its pool first
+                    static = (_clone_cameras(cameras),
+                              torch.tensor(cam_idx, dtype=torch.int64, device=device),
+                              pts.to(device), labels.to(device))
+                    frame(*static)          # set up cuBLAS and cuDNN on this stream
+                    graphs[key] = (tensors, static,
+                                   cuda_graph.capture(lambda: frame(*static), side))
+                _, (cams, idx, pts_d, labels_d), graph = graphs[key]
+                _copy_cameras(cams, cameras)
+                idx.fill_(int(cam_idx))
+                pts_d.copy_(pts)
+                labels_d.copy_(labels)
+                img, mask = (t.clone() for t in graph.replay())
+            current.wait_stream(side)
+            img.record_stream(current)
+            mask.record_stream(current)
+            return (img, mask) if return_mask else img
+
+        serve.eager = eager
+        serve.graphs = graphs
         return serve
 
     def render_view(self, cameras: Cameras, camera_index: int,

@@ -173,7 +173,8 @@ class SAMModel(nn.Module):
         ``generator``; with neither they are not jittered, as the JAX
         model without an rng.  ``anneal`` and ``proposal_grad`` are the
         values of :func:`proposal_anneal_value` and
-        :func:`proposal_grad_gate` for this step.
+        :func:`proposal_grad_gate` for this step, floats or 0-d tensors
+        (a CUDA graph's per-step values).
 
         ``occupancy`` (serve): a grid from
         :func:`samnerf_tpu_torch.ops.occupancy.pack_serve_occupancy` that

@@ -12,7 +12,8 @@ memory.  Used by the ViT image encoder's global layers.
   operands).  CPU tensors run the plain version, CUDA tensors launch the
   kernel of their dtype (or raise); bf16 takes one of two kernels, as
   :func:`bf16_route` decides.  ``launches``, ``launches_bf16`` and
-  ``launches_bf16_wgmma`` count kernel launches;
+  ``launches_bf16_wgmma`` count kernel launches (registered in
+  :mod:`samnerf_tpu_torch.ops.kernel_launches`);
 - :func:`attention_relpos`: the wrapper under autograd, whose backward
   recomputes through a plain version, as ``_flash_bwd_rule`` does in the
   JAX package (there is no backward kernel): on f32 operands through
@@ -26,6 +27,7 @@ import functools
 
 import torch
 
+from samnerf_tpu_torch.ops import kernel_launches
 from samnerf_tpu_torch.utils.dtypes import scalar
 
 MAX_HEAD_DIM = 128        # the kernels pad D to 8 KD, KD <= 16 mma k-steps
@@ -151,9 +153,12 @@ def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-flash_attention_relpos.launches = 0
-flash_attention_relpos.launches_bf16 = 0
-flash_attention_relpos.launches_bf16_wgmma = 0
+kernel_launches.register("FLASH-RELPOS", flash_attention_relpos, ("flash_relpos_kernel",))
+kernel_launches.register("FLASH-RELPOS-BF16", flash_attention_relpos,
+                         ("flash_relpos_bf16_kernel", "flash_relpos_bf16_wgmma_kernel"),
+                         attr="launches_bf16")
+kernel_launches.register("FLASH-RELPOS-BF16-WGMMA", flash_attention_relpos,
+                         ("flash_relpos_bf16_wgmma_kernel",), attr="launches_bf16_wgmma")
 
 
 class _AttentionRelPos(torch.autograd.Function):

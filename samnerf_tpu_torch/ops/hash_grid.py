@@ -29,7 +29,8 @@ launches apart.  Each wrapper runs its plain PyTorch version
 (:func:`parity_hash_encode_ref`, :func:`_parity_hash_encode_q8_ref`,
 :func:`_parity_hash_encode_qmlp_ref`, :func:`parity_hash_encode_bwd_ref`)
 for CPU tensors and launches the kernel for CUDA tensors; ``launches`` on
-the wrapper counts kernel launches.  The TPU's slab scans, touched-slab
+the wrapper counts kernel launches (registered in
+:mod:`samnerf_tpu_torch.ops.kernel_launches`).  The TPU's slab scans, touched-slab
 ids, group skips and point sorting have no counterpart: on Hopper each
 corner is a direct gather and each gradient contribution an atomic add.
 """
@@ -42,6 +43,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from samnerf_tpu_torch.ops import kernel_launches
 
 LANES = 128
 PARITIES = 8
@@ -348,7 +351,7 @@ def pack_bf16_table(table: torch.Tensor, num_levels: int) -> torch.Tensor:
     return out
 
 
-pack_bf16_table.launches = 0
+kernel_launches.register("BF16-PACK", pack_bf16_table, ("pack_bf16_kernel",))
 
 
 def deinterleave_table_grad(scratch: torch.Tensor) -> torch.Tensor:
@@ -377,7 +380,8 @@ def deinterleave_table_grad(scratch: torch.Tensor) -> torch.Tensor:
     return grad
 
 
-deinterleave_table_grad.launches = 0
+kernel_launches.register("GRAD-DEINTERLEAVE", deinterleave_table_grad,
+                         ("deinterleave_grad_kernel",))
 
 
 def is_parity_table(leaf) -> bool:
@@ -566,7 +570,7 @@ def parity_hash_encode(table: torch.Tensor, positions: torch.Tensor,
     return out
 
 
-parity_hash_encode.launches = 0
+kernel_launches.register("F32-ENC", parity_hash_encode, ("f32_encode_kernel",))
 
 
 def parity_hash_encode_q8(table: torch.Tensor, scales: torch.Tensor,
@@ -605,7 +609,7 @@ def parity_hash_encode_q8(table: torch.Tensor, scales: torch.Tensor,
     return out
 
 
-parity_hash_encode_q8.launches = 0
+kernel_launches.register("Q-ENC", parity_hash_encode_q8, ("q_encode_kernel",))
 
 _MAX_PYRAMIDS = 4
 _MAX_QMLP_OUT = 256
@@ -678,7 +682,7 @@ def parity_hash_encode_qmlp(tables, scales_list, positions: torch.Tensor,
     return out
 
 
-parity_hash_encode_qmlp.launches = 0
+kernel_launches.register("FUSED-QMLP", parity_hash_encode_qmlp, ("qmlp_kernel",))
 
 
 def parity_hash_encode_bwd(grad_out: torch.Tensor, positions: torch.Tensor,
@@ -728,7 +732,7 @@ def parity_hash_encode_bwd(grad_out: torch.Tensor, positions: torch.Tensor,
     return grad.view(num_levels, rows, LANES, 2)
 
 
-parity_hash_encode_bwd.launches = 0
+kernel_launches.register("F32-ENC-BWD", parity_hash_encode_bwd, ("f32_encode_bwd_kernel",))
 
 
 class _HashEncode(torch.autograd.Function):

@@ -12,7 +12,7 @@ one; the zoo's linear-spacing models pass :func:`spacing_linear` as
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -139,8 +139,8 @@ def proposal_sampling(ray_bundle: RayBundle,
                       density_fns: Sequence[Callable[[torch.Tensor], torch.Tensor]],
                       num_proposal_samples: Sequence[int], num_nerf_samples: int,
                       jitter: Optional[Sequence[torch.Tensor]] = None,
-                      anneal: float = 1.0,
-                      proposal_grad: Optional[float] = None,
+                      anneal: Union[float, torch.Tensor] = 1.0,
+                      proposal_grad: Union[float, torch.Tensor, None] = None,
                       ) -> Tuple[RaySamples, List[torch.Tensor], List[RaySamples]]:
     """Proposal-network sampling loop.  Returns (final nerf RaySamples,
     proposal weights, proposal RaySamples); the caller appends the nerf
@@ -151,7 +151,8 @@ def proposal_sampling(ray_bundle: RayBundle,
     the proposal weights before resampling.  ``proposal_grad``: the
     training gate; density becomes ``d*g + d.detach()*(1-g)``, which has
     value d and gradient g*dd, so at g = 0 the proposal parameters get
-    zero gradients (not none: Adam still moves them, as optax does)."""
+    zero gradients (not none: Adam still moves them, as optax does).
+    Both are floats, or 0-d tensors in a CUDA graph."""
     weights_list: List[torch.Tensor] = []
     ray_samples_list: List[RaySamples] = []
     jit = list(jitter) if jitter is not None else [None] * (len(density_fns) + 1)
@@ -175,5 +176,11 @@ def proposal_sampling(ray_bundle: RayBundle,
     return ray_samples, weights_list, ray_samples_list
 
 
-def _annealed(weights: torch.Tensor, anneal: float) -> torch.Tensor:
+def _annealed(weights: torch.Tensor, anneal) -> torch.Tensor:
+    """``weights ** anneal``, the weights themselves at ``anneal`` 1.  A
+    0-d tensor ``anneal`` (a CUDA graph's per-step value) selects on the
+    device what a float selects on the host: the same values, and no
+    gradient either way, since :func:`pdf_samples` detaches its weights."""
+    if isinstance(anneal, torch.Tensor):
+        return torch.where(anneal == 1.0, weights, torch.pow(weights.detach(), anneal))
     return weights if anneal == 1.0 else torch.pow(weights.detach(), anneal)

@@ -1,7 +1,9 @@
 """Where the time of a served frame goes on the card.
 
-Serves full-width ``samnerf_distill`` 512x512 frames (random weights from
-a seed, static preset, f32 tables, baked int8 tables, and baked int8
+Serves full-width ``samnerf_distill`` 512x512 frames through
+``serve_frame_fn`` (one CUDA graph replay a frame; ``chip_smoke.py``'s
+dispatch_serve phase profiles the eager frame beside it) (random weights
+from a seed, static preset, f32 tables, baked int8 tables, and baked int8
 tables through FUSED-QMLP with ``serve_fuse_mlp``), first unprofiled
 (median wall of synchronised frames, peak memory), then as many under
 ``torch.profiler``, and prints, per table kind, the frame's walls, the

@@ -1,7 +1,9 @@
 """Where the time of a training step goes on the card.
 
 Trains full-width ``samnerf_distill`` (random initial weights from a
-seed, 16384 rays per step) on a synthetic 512x512 scene: 24 train images,
+seed, 16384 rays per step, the eager step: ``steps_per_dispatch`` 1;
+``chip_smoke.py``'s dispatch_train phase times and profiles the preset's
+graphed blocks beside it) on a synthetic 512x512 scene: 24 train images,
 SAM maps 64x64x256, ClipSeg maps 32x32x192.  After warm-up it times steps
 unprofiled (host clock, synchronised), then profiles as many under
 ``torch.profiler`` and prints the device busy time per step (the sum of
@@ -26,6 +28,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 from torch.autograd import DeviceType
@@ -40,22 +43,28 @@ from samnerf_tpu_torch.utils.synthetic import write_scene
 
 
 def build_trainer(scene: Path, output_dir: Path, device, seed: int = 0,
-                  method: str = "samnerf_distill") -> Trainer:
-    """The trainer of ``method`` at full width on ``scene``."""
+                  method: str = "samnerf_distill",
+                  steps_per_dispatch: Optional[int] = None) -> Trainer:
+    """The trainer of ``method`` at full width on ``scene`` (the preset's
+    ``steps_per_dispatch`` unless given)."""
     method = method_configs()[method]
     method.datamanager.dataparser.data = scene
     dm = DataManager(method.datamanager)
     tcfg = dataclasses.replace(method.trainer, seed=seed, output_dir=output_dir,
                                save_final=False)
+    if steps_per_dispatch is not None:
+        tcfg.steps_per_dispatch = steps_per_dispatch
     return Trainer(method.model, tcfg, method.optimizers, dm, device=device)
 
 
-def build_synthetic_trainer(root: Path, device, seed: int = 0) -> Trainer:
+def build_synthetic_trainer(root: Path, device, seed: int = 0,
+                            steps_per_dispatch: Optional[int] = None) -> Trainer:
     """The ``samnerf_distill`` trainer at full width on a synthetic
     512x512 scene written under ``root``."""
     scene = write_scene(root / "scene", num_train=24, num_test=2, h=512, w=512,
                         with_features=True, feature_long_side=64)
-    return build_trainer(scene, root / "out", device, seed)
+    return build_trainer(scene, root / "out", device, seed,
+                         steps_per_dispatch=steps_per_dispatch)
 
 
 def capture_step_encodes(device, warmup: int = 2):
@@ -67,7 +76,7 @@ def capture_step_encodes(device, warmup: int = 2):
     from samnerf_tpu_torch.fields import hash_encoding
 
     with tempfile.TemporaryDirectory() as tmp:
-        trainer = build_synthetic_trainer(Path(tmp), device)
+        trainer = build_synthetic_trainer(Path(tmp), device, steps_per_dispatch=1)
         for step in range(warmup):
             trainer.train_iteration(step)
         calls = []
@@ -113,7 +122,7 @@ def main() -> None:
     print(smi)
     cuda_build.build_all()
     with tempfile.TemporaryDirectory() as tmp:
-        trainer = build_synthetic_trainer(Path(tmp), dev)
+        trainer = build_synthetic_trainer(Path(tmp), dev, steps_per_dispatch=1)
         step = 0
         for _ in range(args.warmup):
             trainer.train_iteration(step)

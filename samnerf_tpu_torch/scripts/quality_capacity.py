@@ -57,8 +57,9 @@ def train_and_eval(scene, log2_size, prop_log2, steps, rays_per_batch,
     first 4 test images, the train PSNR of 2 views, the rendered SAM grid
     of train view 0 (average-pooled to the targets' size) against its
     targets (MSE, cosine), the training seconds and rays/s, and the
-    steady-state ms per step (after the first).  ``step_callback(step,
-    metrics)`` runs after each step."""
+    steady-state ms per step (after the first dispatch: a block of the
+    preset's ``steps_per_dispatch`` steps, or a step).  ``step_callback(step,
+    metrics)`` runs after each dispatch."""
     from samnerf_tpu_torch.configs.methods import method_configs
     from samnerf_tpu_torch.data.datamanager import DataManager, DataManagerConfig
     from samnerf_tpu_torch.data.dataparser import DataparserConfig
@@ -102,8 +103,8 @@ def train_and_eval(scene, log2_size, prop_log2, steps, rays_per_batch,
     first = {}
 
     def after_step(step, metrics):
-        if step == start_step + 1:                # the trainer synchronised after it
-            first["t"] = time.perf_counter()
+        if not first:                   # the trainer synchronised after its first dispatch
+            first.update(t=time.perf_counter(), step=step)
         if step_callback is not None:
             step_callback(step, metrics)
 
@@ -117,7 +118,7 @@ def train_and_eval(scene, log2_size, prop_log2, steps, rays_per_batch,
     m["train_s"] = round(train_s, 1)
     m["rays_per_s"] = round((steps - start_step) * rays_per_batch / train_s)
     m["resumed_from"] = start_step
-    timed = steps - start_step - 1
+    timed = steps - first["step"]
     m["step_ms"] = (t_end - first["t"]) * 1e3 / timed if timed > 0 else float("nan")
 
     # the train split's PSNR on 2 views: overfitting (train high, test

@@ -99,7 +99,8 @@ def save_config(config: MethodConfig) -> None:
 def train_loop(config: MethodConfig, device="cuda", step_callback=None,
                num_devices: Optional[int] = None):
     """Seed, build the data and the trainer, set up ``config.vis``, train
-    (``step_callback(step, metrics)`` after each step, after the viewer's
+    (``step_callback(step, metrics)`` after each dispatch, a block of
+    ``steps_per_dispatch`` steps or a single step, after the viewer's
     own), and stop the viewer when training ends.  ``num_devices``: the
     ranks the run expects (None: the process group's, 1 without one); a
     run on another number raises ValueError.  Writers and the viewer run
@@ -388,7 +389,7 @@ def main(argv=None, device="cuda",
     """The command line, on ``device``: a zoo method runs :func:`train_zoo`
     (``step_callback`` after each step, ``run_callback`` with its
     :class:`ZooRun`), a preset :func:`train_loop` (``step_callback`` after
-    each step).  Returns 1 when ``device`` is a card and there is none."""
+    each dispatch).  Returns 1 when ``device`` is a card and there is none."""
     from samnerf_tpu_torch.configs.zoo import zoo_methods
 
     from samnerf_tpu_torch.parallel import mesh

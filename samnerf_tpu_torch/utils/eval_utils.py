@@ -5,8 +5,8 @@ Counterpart of ``samnerf_tpu/utils/eval_utils.py``.  A run directory
 holds ``config.json`` and ``samnerf_tpu_torch_ckpts/step-*.pt``, as
 ``samnerf_tpu_torch.train`` writes them.  The config may also be one the
 JAX package wrote (keys the port's dataclasses lack, such as
-``steps_per_dispatch``, ``sort_points`` or ``use_remat``, are ignored),
-with a checkpoint bridged by
+``use_device_data``, ``sort_points`` or ``use_remat``, are ignored;
+``steps_per_dispatch`` is restored), with a checkpoint bridged by
 :func:`samnerf_tpu_torch.convert.train_checkpoint_from_jax`.
 """
 from __future__ import annotations

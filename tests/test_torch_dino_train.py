@@ -367,6 +367,7 @@ def test_train_loop_distils_extracted_dino_features(tmp_path, monkeypatch):
     config.optimizers = GROUPS
     config.trainer.output_dir = tmp_path / "out"
     config.trainer.steps_per_save = 100000
+    config.trainer.steps_per_dispatch = 1            # one callback a step
     losses = []
     trainer = train_cli.train_loop(config, device="cpu",
                                    step_callback=lambda s, m: losses.append(

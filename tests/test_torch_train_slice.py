@@ -63,8 +63,9 @@ def _trainer_config(out, **kw):
 
 @pytest.fixture(scope="module")
 def trained(scene, tmp_path_factory):
-    tr = Trainer(TINY, _trainer_config(tmp_path_factory.mktemp("out")), GROUPS,
-                 DataManager(_dm_config(scene)), device="cpu")
+    # one callback a step: the eager step (blocks: tests/test_torch_dispatch.py)
+    tr = Trainer(TINY, _trainer_config(tmp_path_factory.mktemp("out"), steps_per_dispatch=1),
+                 GROUPS, DataManager(_dm_config(scene)), device="cpu")
     losses = []
     tr.train(step_callback=lambda step, m: losses.append(
         {k: float(v) for k, v in m.items()}))
