@@ -111,27 +111,35 @@ which raises on failure:
    equirectangular camera paths by ``scripts/render.py``); a model with
    appearance embeddings trained and served as baked int8 512x512
    frames, fused (19 FUSED-QMLP) and not (22 Q-ENC);
-   zoo: each of the eight zoo methods through ``train.main`` at its
-   default widths on that scene (4096 rays a step; instant-ngp with its
-   occupancy grid updated twice): ms per step, rays/s, peak memory, the
-   losses and the eval PSNR of view 0, F32-ENC / F32-ENC-BWD launches per
-   step and per eval image for the hash methods, and both f32 kernels held
-   against their plain versions at an instant-ngp step's positions;
+   zoo: each of the eight zoo methods at its default widths on that
+   scene (4096 rays a step): one chunk of its ``dispatch_chunk`` steps
+   (16, or 2 for the nerfplayer methods) replayed against the same chunk
+   run eagerly from one state, within ``DISPATCH_SPREAD`` times the eager
+   chunks' spread, F32-ENC / F32-ENC-BWD per replayed step counted by
+   name in a trace of the chunk; then ``train.main`` in chunks (instant-
+   ngp with its occupancy grid updated twice between chunks): eager and
+   replayed ms per step, rays/s, the losses (the rgb loss below the
+   untrained model's) and the eval PSNR of view 0, the hash methods'
+   launches from Python (the first chunk's eager run and capture) and per
+   eval image, and both f32 kernels held against their plain versions at
+   an instant-ngp step's positions;
    zoo_reference: one small instant-ngp step on the card against the CPU
    (the grid bit for bit, the losses, every gradient, the eval outputs);
    quality: the textured scene of the mIoU study (24 + 4 views of
    256x256, detail 4; its digests against the JAX package's), ViT-B
    targets through ``quality_distill_miou.make_vit_features`` (ms per
-   image, 4 FLASH-RELPOS launches per image, the first embedding against
-   the plain-attention route), ``quality_capacity.train_and_eval`` at
-   2^19 / 2^17 with the morton hash and 16384 rays for 300 of the study's
+   image; the first image's encode eagerly and captured, 4 + 4
+   FLASH-RELPOS launches from Python, the others replays; the first
+   embedding against the plain-attention route), ``quality_capacity.train_and_eval`` at
+   2^19 / 2^17 with the morton hash and 16384 rays for 100 of the study's
    3000 steps (step ms, rays/s, 6 + 6 launches a step, test PSNR, SSIM,
    SAM-feature MSE and cosine), ``view_miou`` on one held-out view at a
    16x16 prompt grid, and instant-ngp through ``validate_zoo.run_method``
    for 200 steps at 128x128 with its margin over ``trivial_psnr``, and
    depth-nerfacto the same way on ``validate_zoo --views 64``'s scene for
    2000 steps at seed 3, which must clear the constant colour by 3 dB
-   with 2 + 2 f32 launches a step, its proposal MLP's dead units beside;
+   with 2 + 2 f32 launches a step of its first chunk from Python (its
+   eager run and capture), its proposal MLP's dead units beside;
 9. export: ``scripts/exporter.py``'s ``main`` on the eval phase's run
    directory in each mode at the exporter's defaults (8 views of
    256x256, TSDF and Poisson at 128^3): ms, points / vertices / faces,
@@ -168,26 +176,35 @@ which raises on failure:
    ragged shape); every row keeps a digest of the kernel's output bits;
 11. encode: SAM ViT-H at full width (seeded weights, saved once as a
    reference-layout checkpoint and loaded through ``build_sam``) through
-   ``SamPredictor.set_image`` on 512x512 frames (ms per image, peak
-   memory, FLASH-RELPOS launches per image, click -> mask ms), and the
-   kernel route's embedding against the plain route's;
+   ``SamPredictor.set_image`` on 512x512 frames: the first image eagerly
+   and captured (the encode graph's pool), then each image eagerly and by
+   replay, the replayed embedding bit for bit the eager one (ms per image
+   of both, peak memory; wall, busy, idle of one profiled eager and one
+   replayed image, 4 FLASH-RELPOS each by name, none from Python in a
+   replay); click -> mask at 1 and 3 clicks (buckets 1 and 4), eager and
+   replayed (ms of both; replays bit for bit the eager decode, which is
+   within ``TOL_CLICK`` of the unpadded decode); and the kernel route's
+   embedding against the plain route's;
    amg: ``SamAutomaticMaskGenerator`` over the same ViT-H on a 512x512
    frame with the JAX package's defaults, then with the IoU and stability
-   filters off and one crop layer (5 crops: ms per ``generate``, masks,
-   peak memory, 4 FLASH-RELPOS launches per ``set_image``), and a small
-   SAM's ``generate`` on the card against the CPU;
+   filters off and one crop layer at 8x8 points (5 crops) by graph
+   replays and eagerly (ms per ``generate``, masks, peak memory; the same
+   annotations bit for bit; 4 FLASH-RELPOS launches per eager
+   ``set_image``), and a small SAM's ``generate`` on the card against the
+   CPU;
    encode_reference: a small encoder on the card against the same encoder
    on the CPU, in f32 and in bf16 (its 16-wide grid takes the
    ``mma.sync`` bf16 kernel);
    encode_bf16: ``build_sam_vit_h(checkpoint,
-   compute_dtype=torch.bfloat16)`` through ``set_image`` (ms per image,
-   peak memory, 4 bf16 FLASH-RELPOS launches per image, all by the wgmma
-   kernel, the embedding's error against the f32 encode, the kernel route
-   against the plain version in its place);
+   compute_dtype=torch.bfloat16)`` through ``set_image``, eager against
+   replayed as in the encode phase (4 bf16 FLASH-RELPOS per image, all by
+   the wgmma kernel), the embedding's error against the f32 encode, the
+   kernel route against the plain version in its place;
 12. preprocess: ``python -m samnerf_tpu_torch.preprocessing
    .get_image_embeddings`` (its ``main``) with that checkpoint on a
-   synthetic 24-image 512x512 scene, the port's feature loader on the
-   files, and 3 ``Trainer`` steps on them;
+   synthetic 24-image 512x512 scene (the first image's encode eagerly and
+   captured, the others replays), the port's feature loader on the files,
+   and 3 ``Trainer`` steps on them;
 13. clipseg_checkpoint: seeded CLIP ViT-B/16 and ``rd64-uni`` weights in
    the reference layouts and a small merges file, in the same temporary
    directory; clipseg: ``ClipSegPredictor`` at full width on the card
@@ -204,8 +221,9 @@ which raises on failure:
 16. no_distill_view: ``render_view`` of the ``samnerf_no_distill``
    preset's model at full width with a ``LanguageSAM`` (the ViT-H
    checkpoint and the seeded ClipSeg): a click view, three moved views
-   with the click locked, a text-prompt view; 4 FLASH-RELPOS launches per
-   view, the locked point in every mask decode;
+   with the click locked, a text-prompt view; the first view's encode
+   eagerly and captured, the others replays (the text view traced: 4
+   FLASH-RELPOS by name), the locked point in every mask decode;
 17. no_distill_train: 10 full-width ``samnerf_no_distill`` steps through
    ``Trainer`` on the scene; train_bf16: ``samnerf_distill
    --model.compute-dtype bfloat16`` through the train entry at full width
@@ -235,6 +253,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import hashlib
 import importlib.util
 import inspect
@@ -624,10 +643,22 @@ def _pass_launches():
     return kernel_launches.counts(("BF16-PACK", "GRAD-DEINTERLEAVE"))
 
 
-def _trace_launches(names):
-    """The hash kernels and layout passes among a trace's device kernel names."""
+ATTN_KERNELS = ("FLASH-RELPOS", "FLASH-RELPOS-BF16", "FLASH-RELPOS-BF16-WGMMA")
+
+
+def _trace_launches(names, labels=HASH_KERNELS):
+    """The kernels of ``labels`` (the hash kernels and layout passes) among
+    a trace's device kernel names."""
     from samnerf_tpu_torch.ops import kernel_launches
-    return kernel_launches.trace_counts(names, HASH_KERNELS)
+    return kernel_launches.trace_counts(names, labels)
+
+
+def _graph_pool_bytes(graphs) -> int:
+    """Bytes the caching allocator holds in the private memory pools of
+    ``graphs`` (captured graphs): the reserved memory they add."""
+    pools = {tuple(g.graph.pool()) for g in graphs}
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) in pools)
 
 
 class _CardTrace:
@@ -635,15 +666,16 @@ class _CardTrace:
     ``start()`` and ``stop()``, by name, from a profiler trace: CUDA graph
     replays included, which the wrappers' counters do not see (they count
     what Python launches, a capture once).  Also a context manager.
-    The profiler has lost device records once (a trace of 80 replayed
-    DINO steps, about 70,000 records, came back 4 F32-ENC-BWD short; the
-    cause is not known), so a trace spans at most one block of replayed
-    steps or a few frames, and ends with a few no-op kernels after the
-    work it counts; ``records`` is the number of device records it
-    kept."""
+    The profiler has lost device records (a trace of 80 replayed DINO
+    steps, about 70,000 records, came back 4 F32-ENC-BWD short; a zoo
+    chunk's trace, its first step's 3 F32-ENC), so a trace spans at most
+    one block of replayed steps or a few frames, and begins and ends with
+    a few no-op kernels and a sync around the work it counts; ``records``
+    is the number of device records it kept."""
 
-    def __init__(self):
+    def __init__(self, labels=HASH_KERNELS):
         self._prof = None
+        self.labels = labels
         self.counts = None
         self.records = None
 
@@ -651,19 +683,27 @@ class _CardTrace:
         from torch.profiler import ProfilerActivity, profile
         self._prof = profile(activities=[ProfilerActivity.CUDA])
         self._prof.start()
+        # the tracer comes up after ``start`` returns: a zoo chunk replayed
+        # at once came back without its first step's three F32-ENC records;
+        # a few no-op kernels and a sync first
+        self._pad()
         return self
 
-    def stop(self) -> dict:
-        from torch.autograd import DeviceType
-        torch.cuda.synchronize()
+    @staticmethod
+    def _pad():
         pad = torch.zeros(1, device=torch.cuda.current_device())
         for _ in range(4):
             pad.add_(1)
         torch.cuda.synchronize()
+
+    def stop(self) -> dict:
+        from torch.autograd import DeviceType
+        torch.cuda.synchronize()
+        self._pad()
         self._prof.stop()
         names = [e.name() for e in self._prof.profiler.kineto_results.events()
                  if e.device_type() == DeviceType.CUDA]
-        self.counts = _trace_launches(names)
+        self.counts = _trace_launches(names, self.labels)
         self.records = len(names)
         self._prof = None
         return self.counts
@@ -677,6 +717,26 @@ class _CardTrace:
 
     def __exit__(self, *exc):
         self.stop()
+
+
+TRACE_TRIES = 3
+"""Traces per count of one more replay: the profiler drops a device
+record now and then (a replayed bf16 frame's trace once came back one
+Q-ENC short, a zoo chunk's without its first step's F32-ENC), while a
+graph replays a fixed kernel list, so a short trace is taken again."""
+
+
+def _trace_replay(fn, python) -> _CardTrace:
+    """``fn()``, one more replay, under a trace, taken again (at most
+    ``TRACE_TRIES`` times) while the trace's counts of ``python``'s labels
+    are not half of ``python`` (the launches of the eager run and the
+    capture); the callers' checks then hold the last trace."""
+    for _ in range(TRACE_TRIES):
+        with _CardTrace() as trace:
+            fn()
+        if all(2 * trace.counts[k] == v for k, v in python.items()):
+            break
+    return trace
 
 
 def serve_phase(dev):
@@ -728,8 +788,8 @@ def serve_phase(dev):
         frames = len(times)
         launches = _encode_launches()       # the first frame's eager run and capture
         passes = _pass_launches()
-        with _CardTrace() as trace:         # one more replay
-            serve(_cameras(dev, 1, H, W, 400.0), 0, clicks[1])
+        trace = _trace_replay(lambda: serve(_cameras(dev, 1, H, W, 400.0), 0, clicks[1]),
+                              {**launches, **passes})
         results[tag] = dict(frame_ms=statistics.median(times), frame_ms_all=times,
                             frames=frames, launches=launches, pass_launches=passes,
                             replay_on_card=trace.counts,
@@ -1175,14 +1235,15 @@ DISPATCH_SPREAD = 4.0
 DISPATCH_FLOOR = 1e-6
 
 
-def _wall_busy(fn, per: int, reps: int = DISPATCH_REPS) -> dict:
+def _wall_busy(fn, per: int, reps: int = DISPATCH_REPS, labels=HASH_KERNELS) -> dict:
     """``fn()`` runs ``per`` steps or frames.  After a warm-up call: the
     median host wall of ``reps`` synchronised calls, the device span of
     one (CUDA events on the current stream), and one under the profiler:
     device busy (the sum of its kernels: one stream, so they do not
-    overlap), kernels, the hash kernels and layout passes among them by
-    name, and idle share (1 - busy / wall), each per step or frame.  A
-    profile that shows no kernel leaves busy unmeasured (None)."""
+    overlap), kernels, the kernels of ``labels`` (the hash kernels and
+    layout passes) among them by name, and idle share (1 - busy / wall),
+    each per step or frame.  A profile that shows no kernel leaves busy
+    unmeasured (None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1206,7 +1267,7 @@ def _wall_busy(fn, per: int, reps: int = DISPATCH_REPS) -> dict:
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / per if kernels else None
     wall = statistics.median(times)
-    on_card = _trace_launches(e.name for e in kernels)
+    on_card = _trace_launches((e.name for e in kernels), labels)
     return dict(wall_ms=wall, wall_ms_all=times, device_span_ms=a.elapsed_time(b) / per,
                 busy_ms=busy, kernels=len(kernels) / per,
                 on_card={k: v / per for k, v in on_card.items()},
@@ -1284,7 +1345,7 @@ def dispatch_train_phase(dev):
         if graphed.block != n:
             raise AssertionError(f"the preset dispatches {graphed.block} steps, not {n}")
         graphed.run_block(n)                                # eager, then captured
-        if graphed._graph is None:
+        if list(graphed._graphs.graphs) != ["block"]:
             raise AssertionError("the first block was not captured")
         snap = _train_snapshot(graphed)
         eager = []
@@ -1295,14 +1356,14 @@ def dispatch_train_phase(dev):
             losses = [float(tr.train_iteration(n + i)["total_loss"]) for i in range(2 * n)]
             eager.append((tr, losses, {**_encode_launches(), **_pass_launches(),
                                        "F32-ENC-BWD": hg.parity_hash_encode_bwd.launches}))
-        graph = graphed._graph
+        graph = graphed._graphs.graphs["block"][1]
         _reset_encode_launches()
         graph_losses = [float(graphed.run_block(n)["total_loss"])]
         with _CardTrace() as trace:                 # the second (see _CardTrace)
             graph_losses.append(float(graphed.run_block(n)["total_loss"]))
         python = {**_encode_launches(), **_pass_launches(),
                   "F32-ENC-BWD": hg.parity_hash_encode_bwd.launches}
-        if graphed._graph is not graph \
+        if graphed._graphs.graphs["block"][1] is not graph \
                 or graphed.steps_by_dispatch != {"eager": n, "captured": n, "replayed": 2 * n}:
             raise AssertionError(f"a block was captured again, not replayed: "
                                  f"{graphed.steps_by_dispatch}")
@@ -1534,8 +1595,8 @@ def serve_bf16_phase(dev, cfg=None, size=VIEW_SIZE):
             times.append((time.perf_counter() - t0) * 1e3)
             if img.dtype != torch.uint8 or tuple(img.shape) != (H, W, 3):
                 raise AssertionError(f"bf16 frame {img.dtype} {tuple(img.shape)}")
-        with _CardTrace() as trace:                 # one more replay
-            serve(_cameras(dev, 1, H, W, focal), 0, clicks[1])
+        trace = _trace_replay(lambda: serve(_cameras(dev, 1, H, W, focal), 0, clicks[1]),
+                              python)
         launches = {k: trace.counts[k] for k in python}
         results[tag] = dict(frame_ms=statistics.median(times), frame_ms_all=times,
                             launches=launches, python_launches=python,
@@ -1812,54 +1873,181 @@ def _scene_images(scene: Path):
             for p in sorted((scene / "images").glob("*.png"))]
 
 
+TOL_CLICK = dict(rtol=1e-4, atol=1e-4)
+"""A bucketed, masked decode against the unpadded one: the CPU test's
+tolerance (``tests/test_torch_predictor_dispatch.py``: the masked keys
+weigh exactly 0, so only the order of f32 sums differs)."""
+CLICK_CALLS = 5                 # timed calls per click count and path, after a warm-up
+CLICKS = [(256.0, 256.0), (100.0, 300.0), (400.0, 120.0)]
+
+
+def _encode_replays(predictor, images, label: str) -> dict:
+    """``predictor.set_image`` on ``images`` by its encode graph: the
+    first image runs eagerly and is captured (the bytes its graph's pool
+    reserves measured after it); each other image runs eagerly
+    (``use_graphs=False``) and then by replay, and the replayed embedding
+    must equal the eager one bit for bit; ms per image of both paths and
+    the Python launches of ``label`` (FLASH-RELPOS or a bf16 label) of
+    each (4 per eager image, 8 for the first: its eager run and its
+    capture, none for a replay); then wall, device span, busy, idle and
+    ``label``'s kernels by name of one profiled eager and one replayed
+    image (4 each)."""
+    from samnerf_tpu_torch.ops import kernel_launches
+
+    def count():
+        return kernel_launches.counts([label])[label]
+
+    kernel_launches.reset(ATTN_KERNELS)
+    predictor.use_graphs = True
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    predictor.set_image(images[0])
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    encode = [g for key, (_, g) in predictor._graphs.graphs.items() if key[0] == "encode"]
+    pool = _graph_pool_bytes(encode)
+    captured = count()
+    torch.cuda.reset_peak_memory_stats()
+    ms = {"eager": [], "replay": []}
+    launched = {"eager": 0, "replay": 0}
+    for img in images[1:]:
+        embs = {}
+        for path in ("eager", "replay"):
+            predictor.use_graphs = path == "replay"
+            before = count()
+            t0 = time.perf_counter()
+            predictor.set_image(img)
+            torch.cuda.synchronize()
+            ms[path].append((time.perf_counter() - t0) * 1e3)
+            launched[path] += count() - before
+            embs[path] = predictor.get_image_embedding()
+        emb = embs["replay"]
+        if not torch.equal(emb, embs["eager"]):
+            raise AssertionError(f"a replayed embedding differs from the eager one by "
+                                 f"{(emb - embs['eager']).abs().max().item():.3e}")
+        if tuple(emb.shape) != (1, 64, 64, 256) or emb.dtype != torch.float32 \
+                or not bool(torch.isfinite(emb).all()):
+            raise AssertionError(f"embedding {tuple(emb.shape)} {emb.dtype} or not finite")
+    peak = torch.cuda.max_memory_allocated()
+    timing = {}
+    for path in ("eager", "replay"):
+        predictor.use_graphs = path == "replay"
+        before = count()
+        timing[path] = _wall_busy(lambda: predictor.set_image(images[-1]), 1,
+                                  labels=ATTN_KERNELS)
+        timing[path]["python_launches"] = count() - before
+    predictor.use_graphs = True
+    n = len(images) - 1
+    result = dict(first_ms=first_ms, graph_pool_bytes=pool,
+                  captured_launches=captured, images=n, launches=captured + launched["eager"],
+                  eager_launches=launched["eager"], replay_launches=launched["replay"],
+                  eager_image_ms=statistics.median(ms["eager"]), eager_image_ms_all=ms["eager"],
+                  image_ms=statistics.median(ms["replay"]), image_ms_all=ms["replay"],
+                  max_memory_allocated=peak, calls=dict(predictor.calls), timing=timing)
+    print(f"  {label}: first image (eager, then captured) {first_ms:.1f} ms, the encode "
+          f"graph's pool {pool / 2**30:.3f} GiB reserved; over {n} images "
+          f"eager median {result['eager_image_ms']:.2f} ms "
+          f"({', '.join(f'{t:.1f}' for t in ms['eager'])}), replay median "
+          f"{result['image_ms']:.2f} ms ({', '.join(f'{t:.1f}' for t in ms['replay'])}), "
+          f"each replay bit for bit the eager embedding; launched from Python: capture "
+          f"{captured}, eager {launched['eager']}, replays {launched['replay']}; "
+          f"max_memory_allocated {peak / 2**30:.2f} GiB", flush=True)
+    for path, t in timing.items():
+        print(f"  {label} {path} image: " + _fmt_timing(t) + f"; by name {t['on_card']}, "
+              f"{t['python_launches']} launched from Python", flush=True)
+    per_image = {p: t["on_card"][label] for p, t in timing.items()}
+    if captured != 8 or launched["eager"] != 4 * n or launched["replay"] \
+            or timing["replay"]["python_launches"] or per_image != {"eager": 4, "replay": 4} \
+            or timing["eager"]["python_launches"] != 4 * (DISPATCH_REPS + 3):
+        raise AssertionError(f"{label}: launched from Python {captured} (capture), "
+                             f"{launched} over {n} images; by name per image {per_image}")
+    return result
+
+
+def _click_replays(predictor) -> dict:
+    """1 and 3 clicks (buckets 1 and 4) on the set image: ``CLICK_CALLS``
+    timed eager decodes, then the bucket's graph (its first call
+    captures) and ``CLICK_CALLS`` timed replays, each replay's masks, IoU
+    and logits bit for bit the eager decode's; and the eager logits
+    within ``TOL_CLICK`` of the unpadded decode of the same clicks."""
+    sam = predictor.model
+    out = {}
+    for n in (1, 3):
+        kw = dict(point_coords=np.array(CLICKS[:n]), point_labels=np.ones(n, np.int64))
+        res = {}
+        for path in ("eager", "replay"):
+            predictor.use_graphs = path == "replay"
+            first = predictor.predict(**kw)              # the warm-up (or the capture)
+            times = []
+            for _ in range(CLICK_CALLS):
+                t0 = time.perf_counter()
+                got = predictor.predict(**kw)
+                times.append((time.perf_counter() - t0) * 1e3)
+            res[path] = (first, got, times)
+        predictor.use_graphs = True
+        want = res["eager"][1]
+        same = all(np.array_equal(g, w) for r in (res["replay"][0], res["replay"][1])
+                   for g, w in zip(r, want))
+        coords = predictor.transform.apply_coords(kw["point_coords"], predictor.original_size)
+        with torch.no_grad():
+            low, _ = sam.decode_masks(
+                predictor.get_image_embedding(),
+                (torch.as_tensor(coords, dtype=torch.float32, device=predictor.device)[None],
+                 torch.ones((1, n), dtype=torch.long, device=predictor.device)))
+        low = low[0].cpu().numpy()
+        err = float(np.abs(want[2] - low).max())
+        close = bool(np.allclose(want[2], low, **TOL_CLICK))
+        bucket = 1 if n == 1 else 4
+        out[n] = dict(bucket=bucket, eager_ms=statistics.median(res["eager"][2]),
+                      eager_ms_all=res["eager"][2],
+                      replay_ms=statistics.median(res["replay"][2]),
+                      replay_ms_all=res["replay"][2], replay_equal=same,
+                      unpadded_max_abs_err=err, unpadded_close=close,
+                      logits_absmax=float(np.abs(low).max()))
+        print(f"  click -> mask, {n} click(s) (bucket {bucket}): eager median "
+              f"{out[n]['eager_ms']:.2f} ms, replay median {out[n]['replay_ms']:.2f} ms; "
+              f"replays bit for bit the eager decode: {same}; against the unpadded decode "
+              f"max abs err {err:.3e} (|logits| max {out[n]['logits_absmax']:.2f}, "
+              f"tol {TOL_CLICK})", flush=True)
+        if want[0].shape != (3, 512, 512) or not np.isfinite(want[2]).all() \
+                or not same or not close:
+            raise AssertionError(f"click -> mask with {n} click(s): {out[n]}")
+    return out
+
+
+def _predictor_pool(predictor, tag: str) -> int:
+    """Bytes of the one memory pool a predictor's encode and decode graphs
+    share (``KeyedGraphs``): the reserved memory all of them add."""
+    graphs = [g for _, g in predictor._graphs.graphs.values()]
+    pool = _graph_pool_bytes(graphs)
+    print(f"  {tag}: the predictor's {len(graphs)} graphs (1 encode, "
+          f"{len(graphs) - 1} decode) share a pool of {pool / 2**30:.3f} GiB", flush=True)
+    return pool
+
+
 def encode_phase(dev, checkpoint: Path, images):
-    """ViT-H through ``SamPredictor.set_image``: ms per image over distinct
-    512x512 frames after a warm-up, peak memory, FLASH-RELPOS launches per
-    image, click -> mask ms; then one image through the plain route
-    (``use_flash=False``, the same weights) against the kernel route."""
+    """ViT-H through ``SamPredictor.set_image`` on distinct 512x512 frames:
+    the encode graph against the eager encode (:func:`_encode_replays`),
+    click -> mask at buckets 1 and 4 (:func:`_click_replays`); then one
+    image through the plain route (``use_flash=False``, the same
+    weights, eagerly) against the kernel route."""
     from samnerf_tpu_torch.ops import attention as ta
     from samnerf_tpu_torch.perception.sam.build_sam import build_sam
     from samnerf_tpu_torch.perception.sam.predictor import SamPredictor
 
     sam = build_sam("vit_h", checkpoint=str(checkpoint), device=dev)
     predictor = SamPredictor(sam)
-    predictor.set_image(images[0])                       # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ta.flash_attention_relpos.launches = 0
-    times = []
-    for img in images[1:ENCODE_IMAGES]:
-        t0 = time.perf_counter()
-        predictor.set_image(img)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        emb = predictor.get_image_embedding()
-        if tuple(emb.shape) != (1, 64, 64, 256) or not bool(torch.isfinite(emb).all()):
-            raise AssertionError(f"embedding {tuple(emb.shape)} or not finite")
+    print("encode vit_h 512x512 -> 1024x1024:", flush=True)
+    result = _encode_replays(predictor, images[:ENCODE_IMAGES], "FLASH-RELPOS")
     launches = ta.flash_attention_relpos.launches
-    peak = torch.cuda.max_memory_allocated()
-    images_timed = len(times)
-    if launches != 4 * images_timed:
-        raise AssertionError(f"FLASH-RELPOS launched {launches} times for "
-                             f"{images_timed} ViT-H images, not 4 per image")
-    clicks = [(256.0, 256.0), (100.0, 300.0), (400.0, 120.0), (320.0, 420.0),
-              (60.0, 60.0), (480.0, 300.0)]
-    click_ms = []
-    for i, click in enumerate(clicks):
-        t0 = time.perf_counter()
-        masks, iou, low = predictor.predict(point_coords=np.array([click]),
-                                            point_labels=np.array([1]))
-        if i:                                            # the first is the warm-up
-            click_ms.append((time.perf_counter() - t0) * 1e3)
-        if masks.shape != (3, 512, 512) or low.shape != (3, 256, 256) \
-                or not np.isfinite(low).all() or not np.isfinite(iou).all():
-            raise AssertionError(f"predict: masks {masks.shape}, low-res {low.shape}")
-    kernel_emb = predictor.get_image_embedding().clone()
+    result["clicks"] = _click_replays(predictor)
+    result["graph_pool_bytes_with_decodes"] = _predictor_pool(predictor, "encode vit_h")
+    kernel_emb = predictor.get_image_embedding()
     plain = build_sam("vit_h", device="meta")
     plain.load_state_dict(sam.state_dict(), assign=True)
     for block in plain.image_encoder.blocks:
         block.attn.use_flash = False
-    plain_predictor = SamPredictor(plain)
+    plain_predictor = SamPredictor(plain, use_graphs=False)
     plain_predictor.set_image(images[ENCODE_IMAGES - 1])     # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1871,18 +2059,10 @@ def encode_phase(dev, checkpoint: Path, images):
     if ta.flash_attention_relpos.launches != launches:
         raise AssertionError("the plain route launched FLASH-RELPOS")
     route_err = (kernel_emb - plain_predictor.get_image_embedding()).abs().max().item()
-    result = dict(image_ms=statistics.median(times), image_ms_all=times,
-                  images=images_timed, launches=launches,
-                  launches_per_image=launches / images_timed,
-                  max_memory_allocated=peak, click_ms=statistics.median(click_ms),
-                  click_ms_all=click_ms, plain_image_ms=plain_image_ms,
-                  plain_max_memory_allocated=plain_peak, route_max_abs_err=route_err,
+    result.update(plain_image_ms=plain_image_ms, plain_max_memory_allocated=plain_peak,
+                  route_max_abs_err=route_err,
                   embedding_absmax=kernel_emb.abs().max().item())
-    print(f"encode vit_h 512x512 -> 1024x1024: median {result['image_ms']:.2f} ms/image "
-          f"over {images_timed} images ({', '.join(f'{t:.1f}' for t in times)}); "
-          f"FLASH-RELPOS launches/image {launches / images_timed:g}; "
-          f"max_memory_allocated={peak / 2**30:.2f} GiB; click -> mask median "
-          f"{result['click_ms']:.2f} ms; plain route {plain_image_ms:.2f} ms/image, "
+    print(f"encode vit_h: plain route {plain_image_ms:.2f} ms/image, "
           f"{plain_peak / 2**30:.2f} GiB; kernel vs plain route embedding max abs err "
           f"{route_err:.3e} (tol {TOL_ENCODE:g}, |emb| max "
           f"{result['embedding_absmax']:.2f})", flush=True)
@@ -1942,13 +2122,15 @@ def encode_reference_phase(dev):
 
 def encode_bf16_phase(dev, checkpoint: Path, images):
     """ViT-H with ``compute_dtype=torch.bfloat16`` from the same seeded
-    checkpoint through ``SamPredictor.set_image``: ms per image after a
-    warm-up, peak memory, 4 bf16 FLASH-RELPOS launches per image, all by
-    the wgmma kernel, and no f32 one; the bf16 embedding's relative error against the f32 encode of
-    the same frame (information); and the kernel route against the same
-    bf16 encoder with the kernel's plain version in its place.  That last
-    pair is held at a mean absolute difference no larger than the bf16
-    embedding's mean distance from the f32 one: one-ulp flips of bf16
+    checkpoint through ``SamPredictor.set_image``: the encode graph
+    against the eager encode (:func:`_encode_replays`: 4 bf16
+    FLASH-RELPOS per image, all by the wgmma kernel, by name in a traced
+    replay, none launched from Python by a replay), and no f32 one; the
+    bf16 embedding's relative error against the f32 encode of the same
+    frame (information); and the kernel route against the same bf16
+    encoder with the kernel's plain version in its place, eagerly.  That
+    last pair is held at a mean absolute difference no larger than the
+    bf16 embedding's mean distance from the f32 one: one-ulp flips of bf16
     products spread through 32 blocks, so the two bf16 routes differ by
     bf16 noise, and a wrong kernel would put them further apart than bf16
     is from f32."""
@@ -1957,54 +2139,39 @@ def encode_bf16_phase(dev, checkpoint: Path, images):
     from samnerf_tpu_torch.perception.sam.predictor import SamPredictor
 
     frame = images[ENCODE_IMAGES - 1]
-    f32_predictor = SamPredictor(build_sam_vit_h(str(checkpoint), device=dev))
+    f32_predictor = SamPredictor(build_sam_vit_h(str(checkpoint), device=dev),
+                                 use_graphs=False)
     f32_predictor.set_image(frame)
-    f32_emb = f32_predictor.get_image_embedding().clone()
+    f32_emb = f32_predictor.get_image_embedding()
     del f32_predictor
     sam = build_sam_vit_h(str(checkpoint), device=dev, compute_dtype=torch.bfloat16)
     predictor = SamPredictor(sam)
-    predictor.set_image(images[0])                       # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     fn = ta.flash_attention_relpos
-    fn.launches = fn.launches_bf16 = fn.launches_bf16_wgmma = 0
-    times = []
-    for img in images[1:ENCODE_IMAGES]:
-        t0 = time.perf_counter()
-        predictor.set_image(img)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        emb = predictor.get_image_embedding()
-        if tuple(emb.shape) != (1, 64, 64, 256) or emb.dtype != torch.float32 \
-                or not bool(torch.isfinite(emb).all()):
-            raise AssertionError(f"bf16 embedding {tuple(emb.shape)} {emb.dtype} or not finite")
+    print("encode_bf16 vit_h 512x512:", flush=True)
+    result = _encode_replays(predictor, images[:ENCODE_IMAGES], "FLASH-RELPOS-BF16-WGMMA")
     launches, wgmma_launches, f32_launches = (fn.launches_bf16, fn.launches_bf16_wgmma,
                                               fn.launches)
-    peak = torch.cuda.max_memory_allocated()
-    if launches != 4 * len(times) or wgmma_launches != launches or f32_launches:
+    if wgmma_launches != launches or f32_launches \
+            or result["timing"]["replay"]["on_card"]["FLASH-RELPOS-BF16"] != 4 \
+            or result["timing"]["replay"]["on_card"]["FLASH-RELPOS"]:
         raise AssertionError(f"bf16 ViT-H: {launches} bf16 ({wgmma_launches} by the wgmma "
-                             f"kernel) and {f32_launches} f32 FLASH-RELPOS launches for "
-                             f"{len(times)} images")
-    kernel_emb = predictor.get_image_embedding().clone()       # of ``frame``
+                             f"kernel) and {f32_launches} f32 FLASH-RELPOS launches; a replay "
+                             f"ran {result['timing']['replay']['on_card']}")
+    kernel_emb = predictor.get_image_embedding()       # of ``frame``
     rel_err = ((kernel_emb - f32_emb).norm() / f32_emb.norm()).item()
     bf16_dist = (kernel_emb - f32_emb).abs().mean().item()
+    predictor.use_graphs = False
     with torch.no_grad(), _plain_attention(ta):
         predictor.set_image(frame)
     plain_emb = predictor.get_image_embedding()
     if ta.flash_attention_relpos.launches_bf16 != launches:
         raise AssertionError("the plain route launched FLASH-RELPOS")
     route = (kernel_emb - plain_emb).abs()
-    result = dict(image_ms=statistics.median(times), image_ms_all=times, images=len(times),
-                  launches=launches, launches_wgmma=wgmma_launches,
-                  launches_per_image=launches / len(times),
-                  max_memory_allocated=peak, rel_err_vs_f32=rel_err,
-                  mean_abs_dist_vs_f32=bf16_dist, route_mean_abs_diff=route.mean().item(),
+    result.update(launches=launches, launches_wgmma=wgmma_launches,
+                  rel_err_vs_f32=rel_err, mean_abs_dist_vs_f32=bf16_dist,
+                  route_mean_abs_diff=route.mean().item(),
                   route_max_abs_diff=route.max().item())
-    print(f"encode_bf16 vit_h 512x512: median {result['image_ms']:.2f} ms/image over "
-          f"{len(times)} images ({', '.join(f'{t:.1f}' for t in times)}); bf16 FLASH-RELPOS "
-          f"launches/image {launches / len(times):g} (wgmma kernel {wgmma_launches} of "
-          f"{launches}); max_memory_allocated="
-          f"{peak / 2**30:.2f} GiB; embedding vs f32 relative error {rel_err:.3e} (mean abs "
+    print(f"encode_bf16 vit_h: embedding vs f32 relative error {rel_err:.3e} (mean abs "
           f"{bf16_dist:.3e}); kernel vs plain route mean abs {route.mean().item():.3e}, "
           f"max {route.max().item():.3e}", flush=True)
     if not route.mean().item() <= bf16_dist:
@@ -2027,8 +2194,9 @@ def _plain_attention(ta):
 
 def preprocess_phase(dev, checkpoint: Path, root: Path):
     """The feature-extraction entry point on a synthetic 512x512 scene (24
-    train images), the port's feature loader on its files, and 3 trainer
-    steps distilling them."""
+    train images, one encode graph replay an image after the first), the
+    port's feature loader on its files, and 3 trainer steps distilling
+    them."""
     import shutil
 
     from samnerf_tpu_torch.data.feature_loader import load_features
@@ -2047,8 +2215,11 @@ def preprocess_phase(dev, checkpoint: Path, root: Path):
     seconds = time.perf_counter() - t0
     launches = ta.flash_attention_relpos.launches
     files = sorted((scene / "sam_features").glob("*.npy"))
-    if len(files) != 24 or launches != 4 * 24:
-        raise AssertionError(f"{len(files)} feature files, {launches} FLASH-RELPOS launches")
+    # the first image runs eagerly and is captured (4 + 4 from Python); the
+    # other 23 replay the encode graph, launching nothing from Python
+    if len(files) != 24 or launches != 2 * 4:
+        raise AssertionError(f"{len(files)} feature files, {launches} FLASH-RELPOS launches "
+                             f"from Python, not 8")
     feats = load_features(files)
     if feats.shape != (24, 64, 64, 256) or feats.dtype != np.float32 \
             or not np.isfinite(feats).all():
@@ -2066,7 +2237,8 @@ def preprocess_phase(dev, checkpoint: Path, root: Path):
     result = dict(files=len(files), seconds=seconds, launches=launches,
                   feature_std=float(feats.std()), losses=losses)
     print(f"preprocess: get_image_embeddings wrote {len(files)} [256, 64, 64] f32 files "
-          f"in {seconds:.1f} s ({launches} FLASH-RELPOS launches); 3 train steps on them, "
+          f"in {seconds:.1f} s ({launches} FLASH-RELPOS launches from Python: the first "
+          f"image eagerly and captured, 23 replays); 3 train steps on them, "
           f"sam_loss {losses[0].get('sam_loss', float('nan')):.4f} -> "
           f"{losses[-1].get('sam_loss', float('nan')):.4f}", flush=True)
     return result
@@ -2249,11 +2421,13 @@ def no_distill_view_phase(dev, checkpoint: Path, paths, size=VIEW_SIZE, chunk=1 
     """``render_view`` of the ``samnerf_no_distill`` preset's model at full
     width (seeded, ``static`` preset) with a ``LanguageSAM`` over the seeded
     ViT-H checkpoint and the seeded ClipSeg: a click view, three moved views
-    with the click locked, one further view with a text prompt.  Raises
-    unless FLASH-RELPOS runs 4 times in each view (ViT-H on the rendered
-    rgb) and the mask decode got the heatmap's points followed by the
-    locked point wherever it lies in bounds.  The branch draws no pins,
-    as the JAX package's does not."""
+    with the click locked, one further view with a text prompt.  ViT-H
+    encodes each view's rendered rgb by ``set_image``: the first view's
+    runs eagerly and is captured (FLASH-RELPOS 4 + 4 from Python), each
+    later one is a replay of that graph (none from Python; the text view
+    traced: 4 by name).  Raises unless so, and unless the mask decode got
+    the heatmap's points followed by the locked point wherever it lies in
+    bounds.  The branch draws no pins, as the JAX package's does not."""
     from samnerf_tpu_torch.configs.methods import method_configs
     from samnerf_tpu_torch.engine.render_pipeline import (SamNerfRenderer,
                                                           cameras_from_intrin_c2w, project)
@@ -2283,9 +2457,14 @@ def no_distill_view_phase(dev, checkpoint: Path, paths, size=VIEW_SIZE, chunk=1 
         ta.flash_attention_relpos.launches = 0
         _reset_encode_launches()
         decoded.clear()
+        trace = _CardTrace(ATTN_KERNELS) if text else None
+        if trace:
+            trace.start()
         t0 = time.perf_counter()
         out = snr.render_view(cams, 0, intrin, c2w, points=click, text_prompt=text)
         ms = (time.perf_counter() - t0) * 1e3
+        if trace:
+            trace.stop()
         launches = dict(_encode_launches(), **{"FLASH-RELPOS": ta.flash_attention_relpos.launches})
         for k in ("rgb", "depth", "masked_rgb"):
             if out[k].shape[:2] != (size, size) or not np.isfinite(out[k]).all():
@@ -2305,15 +2484,19 @@ def no_distill_view_phase(dev, checkpoint: Path, paths, size=VIEW_SIZE, chunk=1 
         changed = np.abs(out["masked_rgb"] - out["rgb"]).max(-1) > 1e-6
         row = dict(view=i, text_prompt=text, ms=ms, pins=pins.tolist(), in_bounds=legal.tolist(),
                    heat_points=len(got) - n_legal, mask_fraction=float(changed.mean()),
-                   launches=launches)
+                   launches=launches, on_card=trace.counts if trace else None)
         rows.append(row)
         print(f"no_distill view {i} {size}x{size}{' text' if text else ''}: {ms:.1f} ms, pins "
               f"{row['pins']} in bounds {row['in_bounds']}, {row['heat_points']} heatmap "
-              f"points, mask covers {100 * row['mask_fraction']:.1f} % of the frame; launches "
-              + " ".join(f"{k}={v}" for k, v in launches.items()), flush=True)
-        if launches["FLASH-RELPOS"] != 4:
+              f"points, mask covers {100 * row['mask_fraction']:.1f} % of the frame; launched "
+              "from Python " + " ".join(f"{k}={v}" for k, v in launches.items())
+              + (f"; on the card by name {trace.counts} ({trace.records} records)"
+                 if trace else ""), flush=True)
+        want = 8 if i == 0 else 0       # the first view's encode eagerly and captured
+        if launches["FLASH-RELPOS"] != want or (trace and trace.counts["FLASH-RELPOS"] != 4):
             raise AssertionError(f"no-distill view {i}: {launches['FLASH-RELPOS']} "
-                                 "FLASH-RELPOS launches, not 4")
+                                 f"FLASH-RELPOS launches from Python, not {want}; on the "
+                                 f"card {trace and trace.counts}")
 
     c2w0 = look_at_c2w(p0, np.zeros(3))
     view(0, c2w0)
@@ -2327,10 +2510,13 @@ def no_distill_view_phase(dev, checkpoint: Path, paths, size=VIEW_SIZE, chunk=1 
     launches = sum(r["launches"]["FLASH-RELPOS"] for r in rows)
     result = dict(views=rows, view_ms=statistics.median(timed), view_ms_all=timed,
                   click_view_ms=rows[0]["ms"], text_view_ms=rows[4]["ms"],
-                  launches=launches, launches_per_view=launches / len(rows))
+                  launches=launches, on_card_per_view=rows[4]["on_card"]["FLASH-RELPOS"],
+                  predictor_calls=dict(lang.predictor.calls))
     print(f"no_distill view: median {result['view_ms']:.1f} ms per moved view "
-          f"({', '.join(f'{t:.1f}' for t in timed)}), click view {rows[0]['ms']:.1f} ms, "
-          f"text view {rows[4]['ms']:.1f} ms; FLASH-RELPOS 4 launches per view", flush=True)
+          f"({', '.join(f'{t:.1f}' for t in timed)}), click view {rows[0]['ms']:.1f} ms "
+          f"(its encode eagerly and captured), text view {rows[4]['ms']:.1f} ms (traced); "
+          f"FLASH-RELPOS 4 per view on the card, {launches} launched from Python; predictor "
+          f"calls {result['predictor_calls']}", flush=True)
     del snr, model, lang
     return result
 
@@ -2653,18 +2839,34 @@ def eval_reference_phase(dev):
 
 # --- the automatic mask generator -------------------------------------------
 
-AMG_FULL = dict(pred_iou_thresh=0.0, stability_score_thresh=0.0, crop_n_layers=1)
+AMG_FULL = dict(pred_iou_thresh=0.0, stability_score_thresh=0.0, crop_n_layers=1,
+                points_per_side=8)
+"""Every step on, at 8x8 points (4x4 in the crops), by graph replays and
+eagerly: the JAX defaults' 32x32 took 57-66 s of host work a run beside
+an H100 (numpy on every kept mask), cut so that both runs fit the run's
+time."""
 AMG_CROPS = 5                   # the image and the four crops of layer 1
+
+
+def _same_annotations(a, b) -> bool:
+    keys = ("area", "bbox", "predicted_iou", "point_coords", "stability_score", "crop_box")
+    return len(a) == len(b) and all(
+        np.array_equal(x["segmentation"], y["segmentation"])
+        and all(np.array_equal(np.asarray(x[k]), np.asarray(y[k])) for k in keys)
+        for x, y in zip(a, b))
 
 
 def amg_phase(dev, checkpoint: Path, images):
     """``SamAutomaticMaskGenerator(SamPredictor(build_sam_vit_h(ckpt)))`` on
     a 512x512 frame: with the JAX package's defaults (ms, masks; random
-    weights may give few or none), then with the IoU and stability filters
-    off and one crop layer, so that every step runs over 5 crops (ms per
-    ``generate``, masks, peak memory, 4 FLASH-RELPOS launches per
-    ``set_image``); then a small SAM's ``generate`` on the card against the
-    CPU."""
+    weights may give few or none; its ``set_image`` runs eagerly and is
+    captured, 4 + 4 FLASH-RELPOS launches from Python), then with the IoU
+    and stability filters off and one crop layer at ``AMG_FULL``'s 8x8
+    points, so that every step runs over 5 crops, by graph replays (no
+    launch from Python) and eagerly (``use_graphs=False``, 4 launches per
+    ``set_image``): the two give the same annotations, bit for bit (ms per
+    ``generate``, masks, peak memory of each run); then a small SAM's
+    ``generate`` on the card against the CPU."""
     from samnerf_tpu_torch.ops import attention as ta
     from samnerf_tpu_torch.perception.sam.automatic_mask_generator import \
         SamAutomaticMaskGenerator
@@ -2673,8 +2875,12 @@ def amg_phase(dev, checkpoint: Path, images):
 
     predictor = SamPredictor(build_sam_vit_h(str(checkpoint), device=dev))
     image = images[1]
-    runs = {}
-    for tag, kw, crops in (("defaults", {}, 1), ("full", AMG_FULL, AMG_CROPS)):
+    runs, anns_of = {}, {}
+    for tag, kw, crops, graphs, want in (("defaults", {}, 1, True, 8),
+                                         ("full", AMG_FULL, AMG_CROPS, True, 0),
+                                         ("full_eager", AMG_FULL, AMG_CROPS, False,
+                                          4 * AMG_CROPS)):
+        predictor.use_graphs = graphs
         gen = SamAutomaticMaskGenerator(predictor, **kw)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2685,24 +2891,34 @@ def amg_phase(dev, checkpoint: Path, images):
         ms = (time.perf_counter() - t0) * 1e3
         launches = ta.flash_attention_relpos.launches
         peak = torch.cuda.max_memory_allocated()
-        if launches != 4 * crops:
-            raise AssertionError(f"AMG {tag}: FLASH-RELPOS launched {launches} times over "
-                                 f"{crops} crops, not 4 per set_image")
+        if launches != want:
+            raise AssertionError(f"AMG {tag}: FLASH-RELPOS launched {launches} times from "
+                                 f"Python over {crops} crops, not {want}")
         if not all(a["segmentation"].shape == image.shape[:2]
                    and a["area"] == int(a["segmentation"].sum())
                    and math.isfinite(a["predicted_iou"]) for a in anns):
             raise AssertionError(f"AMG {tag}: a malformed annotation")
-        runs[tag] = dict(ms=ms, masks=len(anns), launches=launches,
+        anns_of[tag] = anns
+        runs[tag] = dict(ms=ms, masks=len(anns), launches=launches, graphs=graphs,
                          max_memory_allocated=peak,
                          crops=sorted({tuple(a["crop_box"]) for a in anns}))
-        print(f"amg {tag} ({kw or 'JAX defaults'}): generate {ms:.1f} ms, {len(anns)} masks "
-              f"from {len(runs[tag]['crops'])} of {crops} crops, FLASH-RELPOS launches "
-              f"{launches}; max_memory_allocated={peak / 2**30:.2f} GiB", flush=True)
-    if runs["full"]["masks"] == 0:
-        raise AssertionError("AMG with the filters off kept no mask")
+        print(f"amg {tag} ({kw or 'JAX defaults'}{', graphs' if graphs else ', eager'}): "
+              f"generate {ms:.1f} ms, {len(anns)} masks from {len(runs[tag]['crops'])} of "
+              f"{crops} crops, FLASH-RELPOS launched from Python {launches}; "
+              f"max_memory_allocated={peak / 2**30:.2f} GiB", flush=True)
+    predictor.use_graphs = True
+    pool = _predictor_pool(predictor, "amg")
+    same = _same_annotations(anns_of["full"], anns_of["full_eager"])
+    print(f"amg: the graphed and eager runs give the same {len(anns_of['full'])} "
+          f"annotations: {same} (predictor calls {predictor.calls})", flush=True)
+    if runs["full"]["masks"] == 0 or not same:
+        raise AssertionError(f"AMG with the filters off kept {runs['full']['masks']} masks; "
+                             f"graphed and eager annotations equal: {same}")
     del predictor
     reference = amg_reference_phase(dev)
-    return dict(runs=runs, launches=runs["full"]["launches"], reference=reference)
+    return dict(runs=runs, graphs_equal_eager=same, graph_pool_bytes=pool,
+                launches=runs["defaults"]["launches"] + runs["full_eager"]["launches"],
+                reference=reference)
 
 
 def small_sam(device):
@@ -2722,7 +2938,9 @@ def amg_reference_phase(dev):
     """A small SAM's ``generate`` (96x128 frame, 16 points, filters and box
     NMS off, so every mask stays) on the card against the CPU: the same
     number of annotations, each card mask at IoU >= 0.99 with the CPU mask
-    of its prompt point that matches it best, boxes within 1 px."""
+    of its prompt point that matches it best, boxes within 1 px; the card's
+    one ``set_image`` runs eagerly and is captured (FLASH-RELPOS 1 + 1
+    from Python)."""
     from samnerf_tpu_torch.ops import attention as ta
     from samnerf_tpu_torch.perception.sam.automatic_mask_generator import \
         SamAutomaticMaskGenerator
@@ -2752,7 +2970,7 @@ def amg_reference_phase(dev):
           f"worst matched IoU {worst_iou:.5f}, worst box diff {worst_box:g} px; "
           f"FLASH-RELPOS launches {launches}", flush=True)
     if len(card) != len(cpu) or len(card) != 16 * 3 or worst_iou < 0.99 \
-            or worst_box > 1.0 or launches != 1:
+            or worst_box > 1.0 or launches != 2:
         raise AssertionError(f"card and CPU masks disagree: {report}")
     return report
 
@@ -2918,8 +3136,7 @@ def cull_phase(dev, cfg=None, size=VIEW_SIZE):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ms, times = _serve_ms(serve, cams, click)
-        with _CardTrace() as trace:                 # one more replay
-            serve(cams, 0, click)
+        trace = _trace_replay(lambda: serve(cams, 0, click), launches)
         on_card = {k: trace.counts[k] for k in launches}
         runs[name] = dict(frame_ms=ms, frame_ms_all=times, culled=_share(counts),
                           launches=launches, launches_per_frame=on_card,
@@ -3983,8 +4200,9 @@ def data_phase(dev, scene: Path, root: Path, train_step_ms: float):
         img = fn(_cameras(dev, 1, n, n, 400.0 * n / 512), 0, (0.4 * n, 0.6 * n))
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        with _CardTrace() as trace:                 # one more replay
-            fn(_cameras(dev, 1, n, n, 400.0 * n / 512), 0, (0.4 * n, 0.6 * n))
+        trace = _trace_replay(
+            lambda: fn(_cameras(dev, 1, n, n, 400.0 * n / 512), 0, (0.4 * n, 0.6 * n)),
+            python)
         serve[tag] = dict(frame_ms=ms, launches={k: trace.counts[k] for k in python},
                           python_launches=python)
         if img.dtype != torch.uint8 or tuple(img.shape) != (n, n, 3):
@@ -4016,9 +4234,9 @@ def data_phase(dev, scene: Path, root: Path, train_step_ms: float):
 
 # --- the model zoo ---------------------------------------------------------
 
-ZOO_STEPS = 32                  # steps of each zoo method through the train entry
+ZOO_STEPS = 32                  # steps of each zoo method through the train entry: two
+                                # chunks of 16 (16 of 2 for the nerfplayer methods)
 ZOO_NGP_STEPS = 288             # instant-ngp: the grid updates before steps 257 and 273
-ZOO_WARMUP = 2                  # steps before the timed ones
 ZOO_RAYS = 4096                 # rays per step, the zoo's default
 ZOO_CLASSES = 16
 ZOO_F32_PER_STEP = {"instant-ngp": 1, "depth-nerfacto": 2, "semantic-nerfw": 3}
@@ -4096,40 +4314,247 @@ def _zoo_kernel_hold(dev, run):
     return hold
 
 
+def _zoo_snapshot(zs):
+    return (copy.deepcopy(zs.model.state_dict()), copy.deepcopy(zs.optimizer.state_dict()),
+            zs.generator.get_state(), None if zs.occupancy is None else zs.occupancy.clone())
+
+
+def _zoo_restore(zs, snap):
+    model, opt, gen, grid = snap
+    zs.model.load_state_dict(model)
+    zs.optimizer.load_state_dict(copy.deepcopy(opt))
+    zs.generator.set_state(gen)
+    if grid is not None:
+        zs.occupancy.copy_(grid)
+
+
+def _zoo_state(zs):
+    """Copies of a zoo setup's parameters and Adam moments by name, and its
+    update count."""
+    opt = zs.optimizer.state_dict()
+    return ({n: p.detach().clone() for n, p in zs.model.named_parameters()},
+            {n: (s["exp_avg"].clone(), s["exp_avg_sq"].clone())
+             for n, s in opt["optimizer"]["state"].items()}, opt["count"])
+
+
+def _zoo_distance(a, b, keep=None) -> dict:
+    """Worst relative L2 distance of the parameters and of the Adam moments
+    of two zoo states (:func:`_zoo_state`), over the entries ``keep`` (name
+    -> mask, :func:`_zoo_settled`) keeps, else over all; raises unless
+    their update counts agree."""
+    (pa, ma, ca), (pb, mb, cb) = a, b
+    if ca != cb:
+        raise AssertionError(f"update counts differ: {ca} {cb}")
+
+    def rel(x, y, name):
+        return _rel_l2(x, y) if keep is None else _rel_l2(x[keep[name]], y[keep[name]])
+
+    moments = max(max(rel(m, mb[n][0], n), rel(v, mb[n][1], n)) for n, (m, v) in ma.items())
+    return dict(params=max(rel(p, pb[n], n) for n, p in pa.items()), moments=moments)
+
+
+ZOO_SPREAD_CEILING = 1e-3
+"""The widest eager pair above which a distance within ``DISPATCH_SPREAD``
+of it would hide a replay fault (stale step sizes, a lost step): the check
+then holds the settled entries (:func:`_zoo_settled`) instead, and where
+their spread is above it too, the parameters and moments are reported as
+uninformative and only the loss is held."""
+ZOO_V_FLOOR = 1e-12
+"""An entry whose Adam second moment lies below this share of its
+tensor's largest in any eager run had a gradient at float noise (the
+atomics' rounding), which Adam's first update turns into a step of lr
+either way."""
+
+
+def _zoo_settled(states) -> dict:
+    """name -> the entries whose Adam second moment lies above
+    ``ZOO_V_FLOOR`` of the tensor's largest in every state of ``states``."""
+    keep = {}
+    for n in states[0][1]:
+        v = torch.stack([s[1][n][1] for s in states])
+        keep[n] = v.amin(0) > ZOO_V_FLOOR * v.max()
+    return keep
+
+
+ZOO_EAGER_RUNS = 3
+"""Eager runs of the checked chunk: on the current stream, a side stream
+(as the capture's own eager run), the current stream."""
+
+
+def _zoo_chunk_check(dev, name: str, scene: Path) -> dict:
+    """One chunk of zoo method ``name`` at full width from
+    ``train.setup_zoo`` (the train entry's set-up, 4096 rays, seed 42):
+    the untrained model's losses on a batch (no update); for the ngp
+    methods a grid update; the first chunk eagerly and captured; from that
+    state a second setup runs the chunk eagerly ``ZOO_EAGER_RUNS`` times
+    (timed, with a sync; the first and third on the current stream, the
+    second on a side stream, as the capture's own eager run), and the
+    first setup replays it, then once more under a profiler trace that
+    spans that chunk and no more (:func:`_trace_replay`).  F32-ENC-BWD's
+    atomics (and TensoRF's scatters) sum in a
+    run-to-run order, and Adam's first update moves an entry whose
+    gradient is float noise by up to lr either way, so two eager runs can
+    lie 1e-7 or 1e-3 apart (on an H100, six pairs of one semantic-nerfw
+    chunk ranged 3.7e-5 to 3.8e-4): the replay's distance to each eager run must
+    stay within ``DISPATCH_SPREAD`` times the eager runs' widest pair (or
+    ``DISPATCH_FLOOR``) for the parameters and the moments, over all
+    entries where that pair is within ``ZOO_SPREAD_CEILING``, else over the
+    settled entries (:func:`_zoo_settled`) where theirs is, else the
+    comparison is reported as uninformative; its loss within ``TOL_LOSS``
+    of each; it launches nothing from Python and runs on the card, by
+    name, the hash kernels an eager chunk launched."""
+    from samnerf_tpu_torch import train as train_entry
+    from samnerf_tpu_torch.configs.zoo import zoo_losses
+    from samnerf_tpu_torch.core.cameras import generate_rays
+
+    args = train_entry.zoo_arg_parser(name).parse_args(
+        ["--data", str(scene), "--rays-per-batch", str(ZOO_RAYS)])
+    graphed = train_entry.setup_zoo(name, args, dev)
+    chunk = graphed.method.dispatch_chunk
+    occ = {} if graphed.occupancy is None else {"occupancy": graphed.occupancy}
+    gen_state = graphed.generator.get_state()
+    batch = graphed.sample()
+    idx = batch["indices"]
+    with torch.no_grad():
+        out = graphed.model(generate_rays(graphed.cameras, idx[:, 0], idx[:, 1:]), train=True,
+                            generator=graphed.generator, **occ)
+        initial = {k: float(v) for k, v in zoo_losses(graphed.method, graphed.model,
+                                                      graphed.config, out, batch).items()}
+    del out
+    graphed.generator.set_state(gen_state)
+    if occ:
+        graphed.update_grid()
+    _reset_encode_launches()
+    graphed.run_chunk()                                 # eagerly, then captured
+    captured = {**_encode_launches(), "F32-ENC-BWD": _bwd_launches()}
+    snap = _zoo_snapshot(graphed)
+    ev, eager = train_entry.setup_zoo(name, args, dev), []
+    for i in range(ZOO_EAGER_RUNS):
+        _zoo_restore(ev, snap)
+        torch.cuda.synchronize()
+        _reset_encode_launches()
+        t0 = time.perf_counter()
+        with torch.cuda.stream(torch.cuda.Stream(dev) if i % 2 else None):
+            metrics = ev.run_chunk.eager()
+        torch.cuda.synchronize()
+        eager.append((_zoo_state(ev), float(metrics["total_loss"]),
+                      (time.perf_counter() - t0) * 1e3 / chunk,
+                      {**_encode_launches(), "F32-ENC-BWD": _bwd_launches()}))
+    del ev
+    _reset_encode_launches()
+    metrics = graphed.run_chunk()
+    state = _zoo_state(graphed)
+    trace = _trace_replay(graphed.run_chunk, captured)     # one more replay, counted
+    python = {**_encode_launches(), "F32-ENC-BWD": _bwd_launches()}
+    keep = _zoo_settled([e[0] for e in eager])
+    settled_share = (sum(int(k.sum()) for k in keep.values())
+                     / sum(k.numel() for k in keep.values()))
+    compared = {}
+    for part, mask in (("whole", None), ("settled", keep)):
+        pairs = [_zoo_distance(a[0], b[0], mask) for i, a in enumerate(eager)
+                 for b in eager[i + 1:]]
+        to_eager = [_zoo_distance(state, e[0], mask) for e in eager]
+        compared[part] = dict(
+            pairs=pairs, replay_to_eager=to_eager,
+            spread={k: max(d[k] for d in pairs) for k in ("params", "moments")},
+            gap={k: max(d[k] for d in to_eager) for k in ("params", "moments")})
+    held = next((part for part, c in compared.items()
+                 if max(c["spread"].values()) <= ZOO_SPREAD_CEILING), "uninformative")
+    spread, gap = compared["whole"]["spread"], compared["whole"]["gap"]
+    loss = float(metrics["total_loss"])
+    loss_err = max(abs(loss - e[1]) / abs(e[1]) for e in eager)
+    launched = eager[0][3]
+    on_card = {k: trace.counts[k] for k in launched}
+    ms = [e[2] for e in eager]
+    report = dict(chunk=chunk, initial_losses=initial, spread=spread, gap=gap,
+                  compared=compared, held=held, settled_share=settled_share,
+                  spread_ceiling=ZOO_SPREAD_CEILING, graph_loss=loss,
+                  eager_losses=[e[1] for e in eager], loss_rel_err=loss_err,
+                  eager_step_ms=min(ms), eager_step_ms_all=ms, eager_launches=launched,
+                  captured_launches=captured, replay_python_launches=python,
+                  replay_on_card=on_card, trace_records=trace.records,
+                  on_card_per_step={k: v / chunk for k, v in on_card.items()},
+                  steps_by_dispatch=dict(graphed.run_chunk.steps_by_dispatch))
+    print(f"zoo {name}: a chunk of {chunk} steps replayed against the same chunk run "
+          f"eagerly {ZOO_EAGER_RUNS} times from one state: params rel L2 to the eager runs "
+          f"at most {gap['params']:.3e}, moments {gap['moments']:.3e} (the eager runs' "
+          f"widest pair {spread['params']:.3e}, {spread['moments']:.3e}); on the "
+          f"{settled_share:.4f} of entries whose Adam second moment is above float noise "
+          f"{compared['settled']['gap']['params']:.3e}, "
+          f"{compared['settled']['gap']['moments']:.3e} (widest pair "
+          f"{compared['settled']['spread']['params']:.3e}, "
+          f"{compared['settled']['spread']['moments']:.3e}); held: {held} (spread ceiling "
+          f"{ZOO_SPREAD_CEILING:g}); loss {loss:.6f} "
+          f"(max rel err {loss_err:.1e}); eager " + " / ".join(f"{t:.2f}" for t in ms)
+          + f" ms a step (a sync a chunk); the replay "
+          f"ran on the card per step F32-ENC {report['on_card_per_step']['F32-ENC']:g}, "
+          f"F32-ENC-BWD {report['on_card_per_step']['F32-ENC-BWD']:g} ({trace.records} "
+          f"records), launched from Python {python}", flush=True)
+    if held != "uninformative":
+        worst = max(compared[held]["spread"].values())
+        if max(compared[held]["gap"].values()) > max(DISPATCH_SPREAD * worst, DISPATCH_FLOOR):
+            raise AssertionError(f"zoo {name}: a chunk replay is not its eager chunk: "
+                                 f"{report}")
+    if loss_err > TOL_LOSS or not math.isfinite(loss):
+        raise AssertionError(f"zoo {name}: a chunk replay is not its eager chunk: {report}")
+    per = ZOO_F32_PER_STEP.get(name, 0)
+    if any(python.values()) or on_card != launched \
+            or any(e[3] != launched for e in eager) \
+            or launched["F32-ENC"] != per * chunk or launched["F32-ENC-BWD"] != per * chunk \
+            or captured["F32-ENC"] != 2 * per * chunk:
+        raise AssertionError(f"zoo {name}: the replay ran {on_card} on the card and launched "
+                             f"{python} from Python; the eager chunks launched "
+                             f"{[e[3] for e in eager]}, the capture {captured}")
+    del graphed, eager, state
+    gc.collect()                    # the graphs' pools go with their last reference
+    torch.cuda.empty_cache()
+    return report
+
+
+def _bwd_launches() -> int:
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    return hg.parity_hash_encode_bwd.launches
+
+
 def zoo_phase(dev, scene: Path, root: Path):
-    """Each of the eight zoo methods through ``train.main([method, "--data",
-    scene, ...])`` at its default widths and 4096 rays a step (instant-ngp
-    ``ZOO_NGP_STEPS``, the others ``ZOO_STEPS``): ms per step (median after
-    ``ZOO_WARMUP``), rays/s, peak memory over the timed steps, the first
-    and last losses (finite; the rgb loss falling), the eval PSNR of
-    view 0 (finite) and its render's ms, and for the hash methods the
-    F32-ENC / F32-ENC-BWD launches per step and per eval image; the
-    instant-ngp grid's occupied share after each update (two, in (0, 1]);
-    then F32-ENC and F32-ENC-BWD held against their plain versions at an
-    instant-ngp step's positions."""
+    """Each of the eight zoo methods at its default widths and 4096 rays a
+    step: one chunk replay against the eager chunk (:func:`_zoo_chunk_check`,
+    eager ms a step), then ``train.main([method, "--data", scene, ...])``
+    for ``ZOO_STEPS`` steps (instant-ngp ``ZOO_NGP_STEPS``) in the method's
+    chunks: ms per replayed step (the chunks after the first, a sync a
+    chunk), rays/s, peak memory over them, the last chunk's losses (finite;
+    the rgb loss below the untrained model's), the eval PSNR of view 0
+    (finite) and its render's ms, and for the hash methods the F32-ENC /
+    F32-ENC-BWD launches from Python (the first chunk's eager run and
+    capture; none from the replays; one F32-ENC per grid update) and per
+    eval image; the instant-ngp grid's occupied share after each update
+    (two, in (0, 1]); then F32-ENC and F32-ENC-BWD held against their
+    plain versions at an instant-ngp step's positions."""
     from samnerf_tpu_torch import train as train_entry
     from samnerf_tpu_torch.configs.zoo import zoo_methods
-    from samnerf_tpu_torch.ops import hash_grid as hg
 
     h, w = zoo_scene_extras(scene)
     chunks = -(-h * w // train_entry.EVAL_CHUNK)     # eval view 0 is as large as the images
     results, hold = {}, None
-    for name in zoo_methods():
+    for name, method in zoo_methods().items():
+        check = _zoo_chunk_check(dev, name, scene)
         steps = ZOO_NGP_STEPS if name == "instant-ngp" else ZOO_STEPS
-        losses, times, per_step, t_prev, counts = [], [], [], [0.0], {}
+        chunk = method.dispatch_chunk
+        losses, times, per_chunk, t_prev, counts = [], [], [], [0.0], {}
         runs = []
 
         def on_step(step, metrics):
             losses.append({k: float(v) for k, v in metrics.items()})
             torch.cuda.synchronize()
             now = time.perf_counter()
-            launches = (hg.parity_hash_encode.launches, hg.parity_hash_encode_bwd.launches)
-            if step == ZOO_WARMUP:
+            launches = (_encode_launches()["F32-ENC"], _bwd_launches())
+            last = counts.get("last", (0, 0))
+            per_chunk.append((launches[0] - last[0], launches[1] - last[1],
+                              "occupied" in metrics))
+            if step == chunk:
                 torch.cuda.reset_peak_memory_stats()
-            elif step > ZOO_WARMUP:
-                times.append((now - t_prev[0]) * 1e3)
-                per_step.append((launches[0] - counts["last"][0]
-                                 - ("occupied" in metrics), launches[1] - counts["last"][1]))
+            else:
+                times.append((now - t_prev[0]) * 1e3 / chunk)
             if step == steps:
                 counts["peak"] = torch.cuda.max_memory_allocated()
             counts["last"] = launches
@@ -4142,41 +4567,43 @@ def zoo_phase(dev, scene: Path, root: Path):
              "--log-every", str(steps)],
             device=dev, step_callback=on_step, run_callback=runs.append)
         run = runs[0]
-        eval_launches = hg.parity_hash_encode.launches - counts["last"][0]
+        eval_launches = _encode_launches()["F32-ENC"] - counts["last"][0]
         rgb_key = "rgb_loss_fine" if "rgb_loss_fine" in losses[0] else "rgb_loss"
-        rgb = [m[rgb_key] for m in losses]
         step_ms = statistics.median(times)
-        res = dict(steps=steps, step_ms=step_ms, step_ms_all=times,
+        per = ZOO_F32_PER_STEP.get(name, 0)
+        # launched from Python: the first chunk twice (eagerly and into its
+        # graph), a grid update's query once, a replay nothing
+        want = [(2 * per * chunk, 2 * per * chunk, False)] + [
+            (int(grid) if per else 0, 0, grid) for _, _, grid in per_chunk[1:]]
+        res = dict(steps=steps, chunk=chunk, check=check, step_ms=step_ms, step_ms_all=times,
+                   eager_step_ms=check["eager_step_ms"],
                    rays_per_s=ZOO_RAYS / step_ms * 1e3, max_memory_allocated=counts["peak"],
-                   first_losses=losses[0], last_losses=losses[-1], rgb_loss_key=rgb_key,
-                   psnr=run.psnr, eval_ms=run.eval_ms,
-                   occupancy_updates=run.occupancy_updates,
-                   f32_enc_per_step=sorted({a for a, _ in per_step}),
-                   f32_enc_bwd_per_step=sorted({b for _, b in per_step}),
+                   last_losses=losses[-1], rgb_loss_key=rgb_key, psnr=run.psnr,
+                   eval_ms=run.eval_ms, occupancy_updates=run.occupancy_updates,
+                   steps_by_dispatch=run.steps_by_dispatch, python_launches_by_chunk=per_chunk,
                    f32_enc_per_eval_image=eval_launches, eval_chunks=chunks)
         results[name] = res
-        per = ZOO_F32_PER_STEP.get(name, 0)
-        print(f"zoo {name}: {ZOO_RAYS} rays/step, median step {step_ms:.2f} ms over "
-              f"{len(times)} steps, {res['rays_per_s']:,.0f} rays/s, peak "
-              f"{counts['peak'] / 2**30:.2f} GiB; {rgb_key} {rgb[0]:.5f} -> {rgb[-1]:.5f}, "
-              f"total {losses[0]['total_loss']:.5f} -> {losses[-1]['total_loss']:.5f}; "
-              f"eval view 0 PSNR {run.psnr:.2f} ({run.eval_ms:.0f} ms for {h}x{w}); F32-ENC "
-              f"{res['f32_enc_per_step']}/step, F32-ENC-BWD {res['f32_enc_bwd_per_step']}"
-              f"/step, F32-ENC {eval_launches}/eval image"
+        print(f"zoo {name}: {ZOO_RAYS} rays/step in chunks of {chunk}, median replayed step "
+              f"{step_ms:.2f} ms over {len(times)} chunks (eager {res['eager_step_ms']:.2f} "
+              f"ms), {res['rays_per_s']:,.0f} rays/s, peak {counts['peak'] / 2**30:.2f} GiB; "
+              f"{rgb_key} {check['initial_losses'][rgb_key]:.5f} untrained -> "
+              f"{losses[-1][rgb_key]:.5f}, total {losses[-1]['total_loss']:.5f}; eval view 0 "
+              f"PSNR {run.psnr:.2f} ({run.eval_ms:.0f} ms for {h}x{w}); steps "
+              f"{run.steps_by_dispatch}; F32-ENC {eval_launches}/eval image"
               + (f"; grid updates (step, occupied share) {run.occupancy_updates}"
                  if run.occupancy_updates else ""), flush=True)
         if rc != 0 or not all(math.isfinite(v) for m in losses for v in m.values()) \
                 or not math.isfinite(run.psnr):
-            raise AssertionError(f"zoo {name}: rc {rc}, losses {losses[0]} -> {losses[-1]}, "
-                                 f"PSNR {run.psnr}")
-        if not statistics.mean(rgb[-4:]) < statistics.mean(rgb[:4]):
-            raise AssertionError(f"zoo {name}: the rgb loss did not fall: {rgb}")
-        if res["f32_enc_per_step"] != [per] or res["f32_enc_bwd_per_step"] != [per] \
-                or eval_launches != ZOO_F32_PER_CHUNK.get(name, 0) * chunks:
-            raise AssertionError(f"zoo {name}: launches per step F32-ENC "
-                                 f"{res['f32_enc_per_step']}, F32-ENC-BWD "
-                                 f"{res['f32_enc_bwd_per_step']}, not [{per}]; per eval "
-                                 f"image {eval_launches} for {chunks} chunks")
+            raise AssertionError(f"zoo {name}: rc {rc}, losses {losses[-1]}, PSNR {run.psnr}")
+        if not losses[-1][rgb_key] < check["initial_losses"][rgb_key]:
+            raise AssertionError(f"zoo {name}: the rgb loss did not fall: "
+                                 f"{check['initial_losses']} -> {losses[-1]}")
+        if per_chunk != want or eval_launches != ZOO_F32_PER_CHUNK.get(name, 0) * chunks \
+                or run.steps_by_dispatch != {"eager": chunk, "captured": chunk,
+                                             "replayed": steps - chunk}:
+            raise AssertionError(f"zoo {name}: launched from Python by chunk {per_chunk}, "
+                                 f"not {want}; per eval image {eval_launches} for {chunks} "
+                                 f"chunks; steps {run.steps_by_dispatch}")
         if name == "instant-ngp":
             if [s for s, _ in run.occupancy_updates] != [257, 273] or not all(
                     0.0 < share <= 1.0 for _, share in run.occupancy_updates):
@@ -4189,13 +4616,14 @@ def zoo_phase(dev, scene: Path, root: Path):
                   f"{hold['f32_enc_bwd_max_abs_err']:.2e} ({hold['f32_enc_bwd_tol_ratio']:.3f}"
                   f" x tol)", flush=True)
         del run, runs
+        gc.collect()
         torch.cuda.empty_cache()
     return dict(methods=results, kernel_hold=hold,
-                launches={"F32-ENC": sum((r["f32_enc_per_step"][0] * len(r["step_ms_all"])
-                                          for r in results.values())),
-                          "F32-ENC-BWD": sum((r["f32_enc_bwd_per_step"][0]
-                                              * len(r["step_ms_all"])
-                                              for r in results.values()))})
+                launches={k: sum(sum(c[i] for c in r["python_launches_by_chunk"])
+                                 + r["check"]["captured_launches"][k]
+                                 + ZOO_EAGER_RUNS * r["check"]["eager_launches"][k]
+                                 for r in results.values())
+                          for i, k in enumerate(("F32-ENC", "F32-ENC-BWD"))})
 
 
 ZOO_REF_RAYS = 256
@@ -4259,7 +4687,7 @@ def zoo_reference_phase(dev):
     return report
 
 
-QUALITY_STEPS = 300             # of the mIoU study's 3000: the cut that fits the phase
+QUALITY_STEPS = 100             # of the mIoU study's 3000: the cut that fits the run
 QUALITY_RAYS = 16384
 QUALITY_TABLES = (19, 17)       # log2 rows of the field and proposal tables: the reference's
 QUALITY_GRID = 16               # point prompts a side on the held-out view (the study's 64)
@@ -4338,15 +4766,15 @@ def quality_phase(dev, root: Path):
     sam, target_ms = qm.make_vit_features(scene, seed=0, device=dev)
     target_launches = ta.flash_attention_relpos.launches
     images = len(target_ms)
-    if target_launches != 4 * images:
-        raise AssertionError(f"FLASH-RELPOS launched {target_launches} times for {images} "
-                             f"ViT-B images, not 4 per image")
+    if target_launches != 2 * 4:            # the first image eagerly and captured
+        raise AssertionError(f"FLASH-RELPOS launched {target_launches} times from Python for "
+                             f"{images} ViT-B images, not 4 + 4")
     img0 = np.asarray(Image.open(scene / "images" / "frame_00000.png"))
     plain = build_sam_vit_b(device="meta")
     plain.load_state_dict(sam.state_dict(), assign=True)
     for block in plain.image_encoder.blocks:
         block.attn.use_flash = False
-    plain_predictor = SamPredictor(plain)
+    plain_predictor = SamPredictor(plain, use_graphs=False)
     plain_predictor.set_image(img0)
     if ta.flash_attention_relpos.launches != target_launches:
         raise AssertionError("the plain route launched FLASH-RELPOS")
@@ -4356,8 +4784,8 @@ def quality_phase(dev, root: Path):
     del plain, plain_predictor
     target_image_ms = statistics.median(target_ms[1:])     # the first is the warm-up
     print(f"quality targets: ViT-B on {images} images, median {target_image_ms:.2f} ms per "
-          f"image after the first ({target_ms[0]:.1f}); FLASH-RELPOS launches "
-          f"{target_launches} ({target_launches / images:g} per image); kernel vs plain "
+          f"image after the first ({target_ms[0]:.1f}); FLASH-RELPOS launches from Python "
+          f"{target_launches} (the first image eagerly and captured); kernel vs plain "
           f"route embedding max abs err {route_err:.3e} (tol {TOL_ENCODE:g}, |emb| max "
           f"{np.abs(kernel_emb).max():.2f})", flush=True)
     if not route_err <= TOL_ENCODE:
@@ -4414,8 +4842,11 @@ def quality_phase(dev, root: Path):
     print(f"quality mIoU held-out view 0, {QUALITY_GRID}x{QUALITY_GRID} prompts: vs "
           f"set_image(rendered rgb) {v:.4f}, vs set_image(GT) {v_gt:.4f} ({miou_s:.1f} s, "
           f"{miou_launches} FLASH-RELPOS)", flush=True)
+    # two set_image on one predictor: the first eagerly and captured, the
+    # second a replay
     if not (0.0 <= v <= 1.0 and 0.0 <= v_gt <= 1.0) or miou_launches != 8:
-        raise AssertionError(f"mIoU {v}, {v_gt}; FLASH-RELPOS {miou_launches}, not 2 x 4")
+        raise AssertionError(f"mIoU {v}, {v_gt}; FLASH-RELPOS {miou_launches} from Python, "
+                             f"not 4 + 4")
     del trainer, sam
     torch.cuda.empty_cache()
 
@@ -4452,8 +4883,10 @@ def zoo_depth_check(root: Path, dev) -> dict:
     on ``validate_zoo --views 64``'s scene for ``QUALITY_DN_STEPS`` steps of
     ``ZOO_RAYS`` rays at seed ``QUALITY_DN_SEED``: its eval PSNR must clear
     the constant colour by ``QUALITY_DN_MARGIN``; its F32-ENC and
-    F32-ENC-BWD launches (the train entry's last line) must be 2 a step,
-    and 2 per 4096-ray eval chunk for F32-ENC.
+    F32-ENC-BWD launches from Python (the train entry's last line) must be
+    2 a step of its first chunk, twice (the chunk runs eagerly and is
+    captured; the other chunks replay), and 2 per 4096-ray eval chunk for
+    F32-ENC.
 
     The seed is chosen: on some seeds the zoo loop loses every hidden unit
     of the proposal MLP in its first steps and never trains, in the JAX
@@ -4464,6 +4897,7 @@ def zoo_depth_check(root: Path, dev) -> dict:
     The proposal MLP's dead hidden units (those that no sample of eval
     view 0 activates) are reported beside the PSNR: 16 of 16 is that
     collapse."""
+    from samnerf_tpu_torch.configs.zoo import zoo_methods
     from samnerf_tpu_torch.scripts import validate_zoo
     from samnerf_tpu_torch.train import EVAL_CHUNK
     from samnerf_tpu_torch.utils.synthetic import write_textured_scene
@@ -4482,7 +4916,8 @@ def zoo_depth_check(root: Path, dev) -> dict:
         raise AssertionError("validate_zoo depth-nerfacto failed:\n" + "\n".join(tail))
     dead, units = dead_proposal_units(Path(saved), scene, QUALITY_DN_STEPS, dev)
     chunks = -(-QUALITY_ZOO_SIZE ** 2 // EVAL_CHUNK)
-    want = (2 * QUALITY_DN_STEPS + 2 * chunks, 2 * QUALITY_DN_STEPS)
+    first = 2 * 2 * zoo_methods()["depth-nerfacto"].dispatch_chunk
+    want = (first + 2 * chunks, first)
     print(f"quality zoo: depth-nerfacto {QUALITY_DN_STEPS} steps x {ZOO_RAYS} rays on "
           f"{QUALITY_DN_VIEWS} + 2 views of {QUALITY_ZOO_SIZE}x{QUALITY_ZOO_SIZE}, seed "
           f"{QUALITY_DN_SEED}, eval PSNR {p:.2f} against the trivial {base:.2f} "
@@ -5089,6 +5524,18 @@ def tools_phase(dev, root: Path):
                                   pil_ms=pil_ms, images=len(files), bytes_equal=same))
 
 
+PHASE_SECONDS = {}
+"""Each phase's seconds in this run (``_timed``), for the run's budget."""
+
+
+def _timed(name: str, fn, *args, **kw):
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    print(f"phase {name}: {PHASE_SECONDS[name]:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5111,58 +5558,63 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s ({nvcc})", flush=True)
 
-    resources = kernel_resources()
-    frame_pos = capture_frame_positions(dev)     # scripts/bench_encode.py
-    rows = kernel_phase(dev, frame_pos)
-    qmlp_rows = qmlp_kernel_phase(dev, frame_pos)
+    resources = _timed("kernel_resources", kernel_resources)
+    frame_pos = _timed("capture_frame_positions", capture_frame_positions,
+                       dev)                             # scripts/bench_encode.py
+    rows = _timed("kernel", kernel_phase, dev, frame_pos)
+    qmlp_rows = _timed("qmlp_kernel", qmlp_kernel_phase, dev, frame_pos)
     del frame_pos
-    step_calls = capture_step_encodes(dev)
-    train_rows = train_kernel_phase(dev, step_calls)
+    step_calls = _timed("capture_step_encodes", capture_step_encodes, dev)
+    train_rows = _timed("train_kernel", train_kernel_phase, dev, step_calls)
     del step_calls
-    serve = serve_phase(dev)
-    dispatch_serve = dispatch_serve_phase(dev)
-    reference = reference_phase(dev)
-    view = view_phase(dev)
-    cull, fused_model = cull_phase(dev)
+    serve = _timed("serve", serve_phase, dev)
+    dispatch_serve = _timed("dispatch_serve", dispatch_serve_phase, dev)
+    reference = _timed("reference", reference_phase, dev)
+    view = _timed("view", view_phase, dev)
+    cull, fused_model = _timed("cull", cull_phase, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        viewer = viewer_phase(dev, fused_model, Path(tmp))
+        viewer = _timed("viewer", viewer_phase, dev, fused_model, Path(tmp))
     del fused_model
-    serve_bf16 = serve_bf16_phase(dev)
-    train = train_phase(dev)
-    dispatch_train = dispatch_train_phase(dev)
-    train_reference = train_reference_phase(dev)
+    serve_bf16 = _timed("serve_bf16", serve_bf16_phase, dev)
+    train = _timed("train", train_phase, dev)
+    dispatch_train = _timed("dispatch_train", dispatch_train_phase, dev)
+    train_reference = _timed("train_reference", train_reference_phase, dev)
     with tempfile.TemporaryDirectory() as keep, tempfile.TemporaryDirectory() as tmp:
-        evaluation = eval_phase(dev, root=Path(keep))
-        dino, dino_scene = dino_phase(dev, Path(tmp), train["step_ms"])
-        data = data_phase(dev, dino_scene, Path(tmp), train["step_ms"])
-        zoo = zoo_phase(dev, dino_scene, Path(tmp))
-        zoo_reference = zoo_reference_phase(dev)
-        quality = quality_phase(dev, Path(tmp))
-        export = export_phase(dev, Path(evaluation["run_dir"]), Path(tmp))
-        pose = pose_phase(dev)
-        dist = dist_phase(dev, dino_scene, Path(tmp), train["step_ms"])
-        tools = tools_phase(dev, Path(tmp))
-    attn_rows = attn_kernel_phase(dev)
-    attn_bf16_rows = attn_bf16_kernel_phase(dev)
+        evaluation = _timed("eval", eval_phase, dev, root=Path(keep))
+        dino, dino_scene = _timed("dino", dino_phase, dev, Path(tmp), train["step_ms"])
+        data = _timed("data", data_phase, dev, dino_scene, Path(tmp), train["step_ms"])
+        zoo = _timed("zoo", zoo_phase, dev, dino_scene, Path(tmp))
+        zoo_reference = _timed("zoo_reference", zoo_reference_phase, dev)
+        quality = _timed("quality", quality_phase, dev, Path(tmp))
+        export = _timed("export", export_phase, dev, Path(evaluation["run_dir"]), Path(tmp))
+        pose = _timed("pose", pose_phase, dev)
+        dist = _timed("dist", dist_phase, dev, dino_scene, Path(tmp), train["step_ms"])
+        tools = _timed("tools", tools_phase, dev, Path(tmp))
+    attn_rows = _timed("attn_kernel", attn_kernel_phase, dev)
+    attn_bf16_rows = _timed("attn_bf16_kernel", attn_bf16_kernel_phase, dev)
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         checkpoint = root / "sam_vit_h_seeded.pth"
-        vit_h_checkpoint(dev, checkpoint)
+        _timed("vit_h_checkpoint", vit_h_checkpoint, dev, checkpoint)
         frames = _scene_images(write_scene(root / "frames", num_train=ENCODE_IMAGES,
                                            num_test=0, h=512, w=512))
-        encode = encode_phase(dev, checkpoint, frames)
-        amg = amg_phase(dev, checkpoint, frames)
-        encode_reference = encode_reference_phase(dev)
-        encode_bf16 = encode_bf16_phase(dev, checkpoint, frames)
-        preprocess = preprocess_phase(dev, checkpoint, root)
-        clip_paths = clipseg_checkpoint(dev, root)
-        clipseg = clipseg_phase(dev, clip_paths, frames)
-        preprocess_clipseg = preprocess_clipseg_phase(dev, clip_paths, root / "scene", root)
-        text_view = view_phase(dev, clipseg=clip_paths)
-        no_distill_view = no_distill_view_phase(dev, checkpoint, clip_paths)
-        no_distill_train = no_distill_train_phase(dev, root / "scene", root)
-        train_bf16 = train_bf16_phase(dev, root)
-        viewer_train = viewer_train_phase(dev, root / "scene_bf16", root, train["step_ms"])
+        encode = _timed("encode", encode_phase, dev, checkpoint, frames)
+        amg = _timed("amg", amg_phase, dev, checkpoint, frames)
+        encode_reference = _timed("encode_reference", encode_reference_phase, dev)
+        encode_bf16 = _timed("encode_bf16", encode_bf16_phase, dev, checkpoint, frames)
+        preprocess = _timed("preprocess", preprocess_phase, dev, checkpoint, root)
+        clip_paths = _timed("clipseg_checkpoint", clipseg_checkpoint, dev, root)
+        clipseg = _timed("clipseg", clipseg_phase, dev, clip_paths, frames)
+        preprocess_clipseg = _timed("preprocess_clipseg", preprocess_clipseg_phase, dev,
+                                    clip_paths, root / "scene", root)
+        text_view = _timed("text_view", view_phase, dev, clipseg=clip_paths)
+        no_distill_view = _timed("no_distill_view", no_distill_view_phase, dev, checkpoint,
+                                 clip_paths)
+        no_distill_train = _timed("no_distill_train", no_distill_train_phase, dev,
+                                  root / "scene", root)
+        train_bf16 = _timed("train_bf16", train_bf16_phase, dev, root)
+        viewer_train = _timed("viewer_train", viewer_train_phase, dev, root / "scene_bf16", root,
+                              train["step_ms"])
 
     source = "samnerf_tpu_torch/csrc/hash_encode.cu"
     kernels = []
@@ -5208,6 +5660,9 @@ def main() -> int:
                 dispatch_serve[route]["launches_per_frame"][k["name"]]}
     kernels[0]["replay_on_card"]["dispatch_train_step"] = \
         dispatch_train["on_card_per_step"]["F32-ENC"]
+    kernels[0]["replay_on_card"].update(
+        {f"zoo_{m}_step": zoo["methods"][m]["check"]["on_card_per_step"]["F32-ENC"]
+         for m in ZOO_F32_PER_STEP})
     kernels[0]["launches_by_path"].update(cull_bake_f32=cull["bake"]["f32"]["launches"]["F32-ENC"],
                                           viewer_train=viewer_train["launches"]["F32-ENC"])
     kernels[1]["launches_by_path"].update(
@@ -5289,8 +5744,11 @@ def main() -> int:
                         "quality_zoo_depth": quality["zoo_depth"]["launches"]["F32-ENC-BWD"],
                         "pose_grad": pose["launches"]["F32-ENC-BWD"],
                         "dist_train": dist["launches"]["F32-ENC-BWD"]},
-                    "replay_on_card": {"dispatch_train_step":
-                                       dispatch_train["on_card_per_step"]["F32-ENC-BWD"]},
+                    "replay_on_card": {
+                        "dispatch_train_step": dispatch_train["on_card_per_step"]["F32-ENC-BWD"],
+                        **{f"zoo_{m}_step":
+                           zoo["methods"][m]["check"]["on_card_per_step"]["F32-ENC-BWD"]
+                           for m in ZOO_F32_PER_STEP}},
                     "max_abs_err": max(max(r["max_abs_err"] for r in bwd_rows),
                                        zoo["kernel_hold"]["f32_enc_bwd_max_abs_err"]),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
@@ -5307,6 +5765,9 @@ def main() -> int:
                                          "view_no_distill": no_distill_view["launches"],
                                          "quality_targets": quality["target_launches"],
                                          "quality_miou": quality["miou"]["flash_launches"]},
+                    "replay_on_card": {
+                        "encode_image": encode["timing"]["replay"]["on_card"]["FLASH-RELPOS"],
+                        "view_no_distill": no_distill_view["on_card_per_view"]},
                     "max_abs_err": max(r["max_abs_err"] for r in attn_rows),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
@@ -5316,7 +5777,9 @@ def main() -> int:
     # small encoder's 16-wide grid, the ragged row)
     for name, shape, launches, by_path in (
             ("FLASH-RELPOS-BF16-WGMMA", "vit_h", encode_bf16["launches_wgmma"],
-             {"encode_bf16": encode_bf16["launches_wgmma"]}),
+             {"encode_bf16": encode_bf16["launches_wgmma"],
+              "encode_bf16_replay_on_card_per_image":
+                  encode_bf16["timing"]["replay"]["on_card"]["FLASH-RELPOS-BF16-WGMMA"]}),
             ("FLASH-RELPOS-BF16", "ragged", encode_reference["bf16_launches"],
              {"encode_reference_bf16": encode_reference["bf16_launches"],
               "encode_bf16": encode_bf16["launches"] - encode_bf16["launches_wgmma"]})):
@@ -5334,7 +5797,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "nvcc": nvcc, "build_s": build_s, "kernel_resources": resources, "kernel_rows": rows,
+         "nvcc": nvcc, "build_s": build_s, "phase_seconds": PHASE_SECONDS,
+         "kernel_resources": resources, "kernel_rows": rows,
          "qmlp_kernel_rows": qmlp_rows,
          "train_kernel_rows": train_rows, "serve": serve, "reference": reference,
          "dispatch_serve": dispatch_serve, "dispatch_train": dispatch_train,

@@ -1,14 +1,17 @@
 """Registry of the non-flagship model families and their train step.
 
 Counterpart of ``samnerf_tpu/configs/zoo.py``: each ``ZooMethod`` bundles
-a model builder, its loss, its Adam lr and whether it trains with an
-occupancy grid, with the JAX registry's names and values.  The JAX
-package's ``dispatch_chunk`` and ``make_zoo_train_chunk`` only schedule
-the TPU (one ``lax.scan`` of 16 or 2 steps per device dispatch, short for
-the slow nerfplayer steps); the port runs steps one by one, as its
-``Trainer`` does, so neither is here.  ``make_zoo_train_step`` is one
-Adam step over every parameter (optax ``adam(lr)``: one group, b1 0.9, b2
-0.999, eps 1e-8, a constant lr) through the port's ``GroupedAdam``.
+a model builder, its loss, its Adam lr, whether it trains with an
+occupancy grid and its ``dispatch_chunk``, with the JAX registry's names
+and values.  ``make_zoo_train_step`` is one Adam step over every
+parameter (optax ``adam(lr)``: one group, b1 0.9, b2 0.999, eps 1e-8, a
+constant lr) through the port's ``GroupedAdam``.  As the JAX package
+scans ``dispatch_chunk`` steps per device dispatch (16, and 2 for the
+slow nerfplayer steps), ``make_zoo_train_chunk`` runs a chunk of steps,
+their batch draws included, as one dispatch: on the card one replay of a
+CUDA graph (:mod:`samnerf_tpu_torch.engine.cuda_graph`; the first chunk
+runs eagerly and is captured), elsewhere the same steps eagerly; its
+Adam update is :meth:`GroupedAdam.device_step`.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 from torch import nn
 
 from samnerf_tpu_torch.core.cameras import Cameras, generate_rays
+from samnerf_tpu_torch.engine import cuda_graph
 from samnerf_tpu_torch.engine.optimizers import GroupedAdam, OptimizerGroupConfig, group_of
 from samnerf_tpu_torch.utils.init import init_state
 
@@ -41,6 +45,9 @@ class ZooMethod:
     """Train with an occupancy grid and pass it to the model as
     ``occupancy`` (instant-ngp, nerfplayer-ngp)."""
     lr: float = 1e-2
+    dispatch_chunk: int = 16
+    """Steps a dispatch (:func:`make_zoo_train_chunk`); ``train_zoo``
+    rounds its iteration count up to a multiple of it."""
 
 
 def _vanilla(device="cuda"):
@@ -102,9 +109,9 @@ def zoo_methods() -> Dict[str, ZooMethod]:
         "semantic-nerfw": ZooMethod("semantic-nerfw", _semantic_nerfw,
                                     semantic_nerfw.get_loss_dict, loss_needs_config=True),
         "nerfplayer-nerfacto": ZooMethod("nerfplayer-nerfacto", _nerfplayer,
-                                         nerfplayer.get_loss_dict),
+                                         nerfplayer.get_loss_dict, dispatch_chunk=2),
         "nerfplayer-ngp": ZooMethod("nerfplayer-ngp", _nerfplayer, nerfplayer.get_loss_dict,
-                                    use_occupancy=True),
+                                    use_occupancy=True, dispatch_chunk=2),
     }
 
 
@@ -164,19 +171,86 @@ def zoo_loss_and_grads(method: ZooMethod, model: nn.Module, config, cameras: Cam
 
 def make_zoo_train_step(method: ZooMethod, model: nn.Module, config,
                         optimizer: GroupedAdam) -> Callable:
-    """(cameras, batch, generator, occupancy, draws) -> metrics (the losses
-    and ``total_loss``, on the device); updates the parameters in place."""
+    """(cameras, batch, generator, occupancy, draws, scalars) -> metrics
+    (the losses and ``total_loss``, on the device); updates the parameters
+    in place, by ``optimizer.step()`` or, given ``scalars`` (a row of
+    :meth:`GroupedAdam.block_scalars` on the device), by
+    ``optimizer.device_step(scalars)``, whose counts the caller advances."""
 
     def step(cameras: Cameras, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              occupancy: Optional[torch.Tensor] = None,
-             draws: Optional[Dict[str, Any]] = None) -> Dict[str, torch.Tensor]:
+             draws: Optional[Dict[str, Any]] = None,
+             scalars: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad()
         losses, total = zoo_loss_and_grads(method, model, config, cameras, batch,
                                            generator, occupancy, draws)
-        optimizer.step()
+        if scalars is None:
+            optimizer.step()
+        else:
+            optimizer.device_step(scalars)
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_loss"] = total.detach()
         return metrics
 
     return step
+
+
+def make_zoo_train_chunk(method: ZooMethod, model: nn.Module, config,
+                         optimizer: GroupedAdam, cameras: Cameras,
+                         sample: Callable[[], Dict[str, torch.Tensor]],
+                         generator: torch.Generator, chunk: int,
+                         occupancy: Optional[torch.Tensor] = None) -> Callable:
+    """``run() -> metrics``: the next ``chunk`` steps of
+    :func:`make_zoo_train_step` (each on ``sample()``, a batch drawn on the
+    device from ``generator``, and the grid ``occupancy``, which the caller
+    updates in place between chunks), the last step's metrics (copies).
+    On the card ``run`` is one replay of the chunk's graph, captured
+    after the first chunk runs eagerly, and captured anew when a
+    parameter, moment or the grid has moved; ``run.eager()`` runs the same
+    chunk eagerly on the current stream, and ``run.steps_by_dispatch``
+    counts the steps run eagerly, captured and replayed."""
+    step = make_zoo_train_step(method, model, config, optimizer)
+    device = generator.device
+    rows = torch.empty((chunk, len(optimizer.names), 2), device=device)
+    graphs = cuda_graph.KeyedGraphs(device) if device.type == "cuda" else None
+    # shared by ``run`` and ``eager`` (neither refers to the other, so the
+    # graph and its memory pool go with the last reference to ``run``)
+    counts = {"eager": 0, "captured": 0, "replayed": 0}
+
+    def steps():
+        metrics = None
+        for i in range(chunk):
+            metrics = step(cameras, sample(), generator, occupancy, scalars=rows[i])
+        return metrics
+
+    def held():
+        return optimizer.held() + (() if occupancy is None else (occupancy.data_ptr(),))
+
+    def eager():
+        rows.copy_(torch.from_numpy(optimizer.block_scalars(chunk)))
+        metrics = steps()
+        optimizer.advance(chunk)
+        counts["eager"] += chunk
+        return metrics
+
+    def run():
+        if graphs is None:
+            return eager()
+        current = torch.cuda.current_stream(device)
+        with graphs.on_stream():
+            rows.copy_(torch.from_numpy(optimizer.block_scalars(chunk)))
+            metrics, how = graphs.run("chunk", steps, held, (generator,))
+            metrics = {k: v.clone() for k, v in metrics.items()}
+        for v in metrics.values():
+            v.record_stream(current)
+        optimizer.advance(chunk)
+        counts[how] += chunk
+        if how == "captured":
+            counts["eager"] += chunk
+        return metrics
+
+    run.eager = eager
+    run.graphs = graphs
+    run.steps_by_dispatch = counts
+    return run

@@ -182,6 +182,14 @@ class GroupedAdam:
                 d.add_(scalars[j, 1])
             torch._foreach_addcdiv_(params, exp_avgs, denom)
 
+    def held(self) -> tuple:
+        """The addresses of the parameters and moments :meth:`device_step`
+        writes: a graph of it is captured anew when they change (a loaded
+        state has new moments)."""
+        state = self.optimizer.state
+        return tuple(t.data_ptr() for g in self.optimizer.param_groups for p in g["params"]
+                     for t in (p, *(v for k, v in state.get(p, {}).items() if k != "step")))
+
     def advance(self, n: int) -> None:
         """Count ``n`` updates made by :meth:`device_step`."""
         for state in self.optimizer.state.values():

@@ -256,8 +256,9 @@ class SamNerfRenderer:
         when this is called culls every frame of it.
 
         On the card a frame is one dispatch, as JAX's jitted frame: one
-        replay of a CUDA graph of the whole frame, captured on a key's
-        first frame (after one eager frame) and kept per key, as
+        replay of a CUDA graph of the whole frame, captured after a key's
+        first frame runs eagerly and kept per key
+        (:class:`~samnerf_tpu_torch.engine.cuda_graph.KeyedGraphs`), as
         ``jax.jit`` keeps a trace per shape: the cameras' shapes and size.
         A key's graph is captured anew, in place of the old one, when a
         tensor the model or decoder holds has another address or shape
@@ -273,8 +274,9 @@ class SamNerfRenderer:
         cfg = self.cfg
         feats = (("sam", "clipseg") if cfg.distill_sam and cfg.use_clipseg_feature
                  else ("sam",) if cfg.distill_sam else ())
-        graphs: Dict[tuple, tuple] = {}     # key -> (held, static inputs, graph)
-        side = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        graphs = (cuda_graph.KeyedGraphs(self.device) if self.device.type == "cuda"
+                  else None)
+        statics: Dict[tuple, tuple] = {}    # key -> the graph's static inputs
 
         def prompt(click_xy):
             # click -> 1024-frame coords (ResizeLongestSide convention)
@@ -320,31 +322,26 @@ class SamNerfRenderer:
             if device.type != "cuda":
                 return eager(cameras, cam_idx, click_xy, return_mask)
             current = torch.cuda.current_stream(device)
-            key, tensors = key_of(cameras), held()
+            key = key_of(cameras)
             pts, labels = prompt(click_xy)
-            side.wait_stream(current)
-            with torch.cuda.stream(side):
-                if key not in graphs or graphs[key][0] != tensors:
-                    graphs.pop(key, None)   # frees the old graph and its pool first
-                    static = (_clone_cameras(cameras),
-                              torch.tensor(cam_idx, dtype=torch.int64, device=device),
-                              pts.to(device), labels.to(device))
-                    frame(*static)          # set up cuBLAS and cuDNN on this stream
-                    graphs[key] = (tensors, static,
-                                   cuda_graph.capture(lambda: frame(*static), side))
-                _, (cams, idx, pts_d, labels_d), graph = graphs[key]
+            with graphs.on_stream():
+                if key not in statics:
+                    statics[key] = (_clone_cameras(cameras),
+                                    torch.tensor(cam_idx, dtype=torch.int64, device=device),
+                                    pts.to(device), labels.to(device))
+                static = cams, idx, pts_d, labels_d = statics[key]
                 _copy_cameras(cams, cameras)
                 idx.fill_(int(cam_idx))
                 pts_d.copy_(pts)
                 labels_d.copy_(labels)
-                img, mask = (t.clone() for t in graph.replay())
-            current.wait_stream(side)
+                out, _ = graphs.run(key, lambda: frame(*static), held)
+                img, mask = (t.clone() for t in out)
             img.record_stream(current)
             mask.record_stream(current)
             return (img, mask) if return_mask else img
 
         serve.eager = eager
-        serve.graphs = graphs
+        serve.graphs = graphs.graphs if graphs is not None else {}
         return serve
 
     def render_view(self, cameras: Cameras, camera_index: int,

@@ -257,10 +257,8 @@ class Trainer:
                              f"{trainer_cfg.steps_per_dispatch}")
         # blocks of steps_per_dispatch steps (module docstring), else the eager step
         self.block = 1 if self.distributed else trainer_cfg.steps_per_dispatch
-        self._graph: Optional[cuda_graph.CapturedGraph] = None
-        self._graph_key = None
         self._scalars: Optional[torch.Tensor] = None    # the graph's [block, C] input
-        self._stream = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+        self._graphs = (cuda_graph.KeyedGraphs(self.device) if self.device.type == "cuda"
                         and self.block > 1 else None)
         # steps run eagerly, captured into the block's graph (not run) and
         # run by its replays, for the caller's bookkeeping
@@ -324,7 +322,7 @@ class Trainer:
         optimizer's counts once the steps have run."""
         rows, since = dispatch_scalars(self.model_cfg, self.optimizer,
                                           self.state.step, self.state.steps_since_update, n)
-        if self._stream is None:
+        if self._graphs is None:
             metrics = self._block(torch.from_numpy(rows).to(self.device))
             self.steps_by_dispatch["eager"] += n
         else:
@@ -335,10 +333,9 @@ class Trainer:
         return metrics
 
     def _run_block_on_card(self, rows: np.ndarray) -> Dict[str, torch.Tensor]:
-        stream, current = self._stream, torch.cuda.current_stream(self.device)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):
-            n = rows.shape[0]
+        current = torch.cuda.current_stream(self.device)
+        n = rows.shape[0]
+        with self._graphs.on_stream():
             if n != self.block:
                 metrics = self._block(torch.from_numpy(rows).to(self.device))
                 self.steps_by_dispatch["eager"] += n
@@ -346,29 +343,16 @@ class Trainer:
                 if self._scalars is None:
                     self._scalars = torch.empty(rows.shape, device=self.device)
                 self._scalars.copy_(torch.from_numpy(rows))
-                if self._graph is not None and self._tensors_key() == self._graph_key:
-                    metrics = self._graph.replay()
-                    self.steps_by_dispatch["replayed"] += n
-                else:
-                    metrics = self._block(self._scalars)      # makes the moments, once
-                    self._graph = cuda_graph.capture(lambda: self._block(self._scalars),
-                                                     stream, (self.generator,))
-                    self._graph_key = self._tensors_key()
+                # the eager run makes the moments, once
+                metrics, how = self._graphs.run("block", lambda: self._block(self._scalars),
+                                                self.optimizer.held, (self.generator,))
+                self.steps_by_dispatch[how] += n
+                if how == "captured":
                     self.steps_by_dispatch["eager"] += n
-                    self.steps_by_dispatch["captured"] += n
             metrics = {k: v.clone() for k, v in metrics.items()}
-        current.wait_stream(stream)
         for v in metrics.values():
             v.record_stream(current)
         return metrics
-
-    def _tensors_key(self) -> tuple:
-        """The addresses of the parameters and Adam moments a graph updates:
-        a loaded optimizer state has new ones, and the block is captured
-        anew."""
-        state = self.optimizer.optimizer.state
-        return tuple(t.data_ptr() for p in self.model.parameters()
-                     for t in (p, *(v for k, v in state.get(p, {}).items() if k != "step")))
 
     @staticmethod
     def _crossed(step: int, n: int, every: int) -> bool:

@@ -18,6 +18,7 @@ from samnerf_tpu_torch.models.zoo_base import ZooModel
 from samnerf_tpu_torch.ops import rendering as render_ops
 from samnerf_tpu_torch.ops.occupancy import occupancy_mask
 from samnerf_tpu_torch.ops.samplers import initial_samples
+from samnerf_tpu_torch.utils.misc import device_constant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,8 +46,8 @@ class InstantNGPModel(ZooModel):
     @property
     def aabb(self) -> torch.Tensor:
         s = self.config.aabb_scale
-        return torch.tensor([[-s, -s, -s], [s, s, s]], dtype=torch.float32,
-                            device=self.field.encoding.table.device)
+        return device_constant([[-s, -s, -s], [s, s, s]], torch.float32,
+                               self.field.encoding.table.device)
 
     def density_fn(self, positions: torch.Tensor) -> torch.Tensor:
         """[N, 3] world positions -> [N, 1] density (the grid update's query)."""

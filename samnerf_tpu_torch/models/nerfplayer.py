@@ -23,6 +23,7 @@ from samnerf_tpu_torch.ops.encodings import (hash_grid_scalings, sh_encoding,
 from samnerf_tpu_torch.ops.occupancy import occupancy_mask
 from samnerf_tpu_torch.ops.samplers import initial_samples
 from samnerf_tpu_torch.utils.dtypes import sigmoid
+from samnerf_tpu_torch.utils.misc import device_constant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,8 +104,8 @@ class NerfPlayerModel(ZooModel):
         out = self.field(pos, samples.directions, times)
         density = out["density"]
         if occupancy is not None:
-            box = aabb if aabb is not None else torch.tensor(
-                [[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]], device=pos.device)
+            box = aabb if aabb is not None else device_constant(
+                [[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]], torch.float32, pos.device)
             density = density * occupancy_mask(occupancy, pos, box)
         weights = samples.get_weights(density)
         return {"rgb": render_ops.render_rgb(out["rgb"], weights, cfg.background_color,

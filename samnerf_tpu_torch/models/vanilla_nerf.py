@@ -21,6 +21,7 @@ from samnerf_tpu_torch.ops.colliders import aabb_collider
 from samnerf_tpu_torch.ops.encodings import nerf_frequency_encoding
 from samnerf_tpu_torch.ops.samplers import initial_samples, pdf_samples, spacing_linear
 from samnerf_tpu_torch.utils.dtypes import sigmoid
+from samnerf_tpu_torch.utils.misc import device_constant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,8 +77,7 @@ def collide(ray_bundle: RayBundle, aabb_scale: float, near_plane: float,
     """The box collider of the linear-spacing zoo models, far capped at
     ``far_plane``."""
     s = aabb_scale
-    aabb = torch.tensor([[-s] * 3, [s] * 3], dtype=torch.float32,
-                        device=ray_bundle.origins.device)
+    aabb = device_constant([[-s] * 3, [s] * 3], torch.float32, ray_bundle.origins.device)
     rb = aabb_collider(ray_bundle, aabb, near_plane=near_plane)
     return dataclasses.replace(rb, fars=torch.clamp_max(rb.fars, far_plane))
 

@@ -21,6 +21,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from samnerf_tpu_torch.utils.misc import device_constant
+
 _PRIMES = (1, 2654435761, 805459861)
 _U32 = 0xFFFFFFFF
 
@@ -49,12 +51,13 @@ def _corner_indices_weights(positions: torch.Tensor, scalings,
     table_size = 1 << log2_table_size
     num_levels = len(scalings)
     pos_t = positions.T.float()                                   # [3, N]
-    scales = torch.as_tensor(np.asarray(scalings, np.float32), device=positions.device)
+    scales = device_constant(np.asarray(scalings, np.float32), torch.float32,
+                             positions.device)
     scaled = pos_t[:, None, :] * scales[None, :, None]            # [3, L, N]
     floor = torch.floor(scaled)
     offset = scaled - floor
     base = floor.long() & _U32
-    primes = torch.tensor(_PRIMES, dtype=torch.long, device=positions.device)[:, None, None]
+    primes = device_constant(_PRIMES, torch.long, positions.device)[:, None, None]
     h0 = (base * primes) & _U32
     h1 = (((base + 1) & _U32) * primes) & _U32
     level_offset = (torch.arange(num_levels, device=positions.device)
@@ -231,7 +234,8 @@ def tensor_vm_encode(planes: torch.Tensor, lines: torch.Tensor,
     y, z), concatenated; planes [3, RES, RES, C], lines [3, RES, C] ->
     [N, 3C]."""
     p = positions
-    uv = torch.stack([p[:, [1, 2]], p[:, [0, 2]], p[:, [0, 1]]])
+    # slices, not index lists: a list index copies to the card, which a graph cannot hold
+    uv = torch.stack([p[:, 1:3], p[:, 0::2], p[:, :2]])
     out = _interp_2d(planes, uv) * _interp_1d(lines, p.T)
     return torch.cat([out[0], out[1], out[2]], dim=-1)
 
@@ -241,7 +245,7 @@ def triplane_encode(planes: torch.Tensor, positions: torch.Tensor,
     """Triplane: the xy, xz and yz planes' features, summed or multiplied;
     planes [3, RES, RES, C] -> [N, C]."""
     p = positions
-    f = _interp_2d(planes, torch.stack([p[:, [0, 1]], p[:, [0, 2]], p[:, [1, 2]]]))
+    f = _interp_2d(planes, torch.stack([p[:, :2], p[:, 0::2], p[:, 1:3]]))
     if reduce == "sum":
         return f[0] + f[1] + f[2]
     if reduce == "product":

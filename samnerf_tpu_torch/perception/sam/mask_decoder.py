@@ -3,10 +3,11 @@
 ``output_upscaling`` holds torch ``ConvTranspose2d`` weights as the
 reference checkpoint stores them).  ``compute_dtype`` reaches the two-way
 transformer only; the upscaling, hypernetwork and IoU layers stay f32, as
-in the JAX module."""
+in the JAX module.  ``sparse_valid`` [B, N] marks the real prompt tokens
+of a padded prompt (the two-way transformer's ``token_valid``)."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -62,28 +63,34 @@ class MaskDecoder(nn.Module):
 
     def forward(self, image_embeddings: torch.Tensor, image_pe: torch.Tensor,
                 sparse_prompt_embeddings: torch.Tensor,
-                dense_prompt_embeddings: torch.Tensor, multimask_output: bool
+                dense_prompt_embeddings: torch.Tensor, multimask_output: bool,
+                sparse_valid: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """image_embeddings / image_pe [1, h, w, C], sparse [B, N, C], dense
         [B, h, w, C] -> (masks [B, k, 4h, 4w], iou_pred [B, k])."""
         masks, iou_pred = self.predict_masks(
             image_embeddings, image_pe, sparse_prompt_embeddings,
-            dense_prompt_embeddings)
+            dense_prompt_embeddings, sparse_valid)
         sl = slice(1, None) if multimask_output else slice(0, 1)
         return masks[:, sl], iou_pred[:, sl]
 
     def predict_masks(self, image_embeddings, image_pe, sparse_prompt_embeddings,
-                      dense_prompt_embeddings):
+                      dense_prompt_embeddings, sparse_valid=None):
         bs = sparse_prompt_embeddings.shape[0]
         output_tokens = torch.cat([self.iou_token.weight, self.mask_tokens.weight])
         output_tokens = output_tokens[None].expand(bs, *output_tokens.shape)
         tokens = torch.cat([output_tokens, sparse_prompt_embeddings], dim=1)
+        token_valid = None
+        if sparse_valid is not None:
+            token_valid = torch.cat(
+                [sparse_valid.new_ones((bs, output_tokens.shape[1])),
+                 sparse_valid.expand(bs, sparse_valid.shape[-1])], dim=1)
         src = torch.repeat_interleave(image_embeddings, bs, dim=0) \
             + dense_prompt_embeddings
         pos_src = torch.repeat_interleave(image_pe, bs, dim=0)
         b, h, w, c = src.shape
 
-        hs, src = self.transformer(src, pos_src, tokens)
+        hs, src = self.transformer(src, pos_src, tokens, token_valid)
         iou_token_out = hs[:, 0, :]
         mask_tokens_out = hs[:, 1:1 + self.num_mask_tokens, :]
 

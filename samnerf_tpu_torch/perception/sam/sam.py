@@ -68,16 +68,34 @@ class Sam(nn.Module):
 
     @torch.no_grad()
     def decode_masks(self, features: torch.Tensor, points=None, boxes=None,
-                     mask_input=None, multimask_output: bool = True):
+                     mask_input=None, multimask_output: bool = True,
+                     num_valid_points=None):
         """features [B, 64, 64, 256] NHWC -> (low-res masks [B, k, 256, 256],
         iou [B, k]).  Points padded with label -1 take the not-a-point
-        embedding, as in the reference."""
+        embedding, as in the reference.
+
+        ``num_valid_points`` (an int, or a 0-d or [B] int tensor on the
+        features' device; optional): how many of the points are real.  The
+        rest pad the prompt to a static bucket and are masked out of the
+        decoder's attention, so the masks are those of the n real points
+        with the reference's layout: n points and one not-a-point pad
+        without a box, n points and the two box corners with one.  ``None``
+        masks nothing."""
         sparse, dense = self.prompt_encoder(points=points, boxes=boxes,
                                             masks=mask_input)
+        sparse_valid = None
+        if num_valid_points is not None and points is not None:
+            nv = torch.as_tensor(num_valid_points, device=sparse.device).reshape(-1, 1)
+            n_pts = points[0].shape[1]
+            extra = 1 if boxes is None else 2    # the canonical pad, or the box corners
+            sparse_valid = torch.cat(
+                [torch.arange(n_pts, device=sparse.device)[None, :] < nv,
+                 torch.ones((nv.shape[0], extra), dtype=torch.bool, device=sparse.device)],
+                dim=1)
         return self.mask_decoder(
             image_embeddings=features, image_pe=self.get_dense_pe(),
             sparse_prompt_embeddings=sparse, dense_prompt_embeddings=dense,
-            multimask_output=multimask_output)
+            multimask_output=multimask_output, sparse_valid=sparse_valid)
 
     def forward(self, image: torch.Tensor, points=None, boxes=None,
                 mask_input=None, multimask_output: bool = True):

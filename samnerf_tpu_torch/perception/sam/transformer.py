@@ -3,11 +3,17 @@
 NHWC image embeddings as in the JAX package).  With ``compute_dtype`` the
 projections and MLPs run in that dtype, the logits are cast to f32 for the
 softmax and the weights back, and the LayerNorms compute and return f32
-(so the residual streams stay f32), as the JAX module does."""
+(so the residual streams stay f32), as the JAX module does.
+
+``token_valid`` ([B, N] bool, optional) marks which prompt tokens are
+real: the rest are the padding of a static prompt bucket, and every
+attention that reads the tokens as keys (the token self-attention and the
+image-to-token one) gives them zero weight, so the real tokens' outputs
+are those of the unpadded prompt.  ``None`` masks nothing."""
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -34,13 +40,17 @@ class Attention(nn.Module):
         b, n, c = x.shape
         return x.reshape(b, n, self.num_heads, c // self.num_heads).transpose(1, 2)
 
-    def forward(self, q, k, v):
+    def forward(self, q, k, v, key_valid: Optional[torch.Tensor] = None):
+        """``key_valid`` [B, Nk] bool: keys left out of the softmax."""
         dt = self.compute_dtype
         q = self._split(linear(q, self.q_proj, dt))
         k = self._split(linear(k, self.k_proj, dt))
         v = self._split(linear(v, self.v_proj, dt))
         attn = (q @ k.transpose(-2, -1)) / scalar(math.sqrt(q.shape[-1]), q.dtype)
-        out = torch.softmax(attn.float(), dim=-1).to(q.dtype) @ v
+        attn = attn.float()
+        if key_valid is not None:
+            attn = attn.masked_fill(~key_valid[:, None, None, :], -math.inf)
+        out = torch.softmax(attn, dim=-1).to(q.dtype) @ v
         b, h, n, d = out.shape
         return linear(out.transpose(1, 2).reshape(b, n, h * d), self.out_proj, dt)
 
@@ -69,13 +79,13 @@ class TwoWayAttentionBlock(nn.Module):
             device=device)
         self.skip_first_layer_pe = skip_first_layer_pe
 
-    def forward(self, queries, keys, query_pe, key_pe):
+    def forward(self, queries, keys, query_pe, key_pe, token_valid=None):
         dt = self.self_attn.compute_dtype
         if self.skip_first_layer_pe:
-            queries = self.self_attn(queries, queries, queries)
+            queries = self.self_attn(queries, queries, queries, token_valid)
         else:
             q = queries + query_pe
-            queries = queries + self.self_attn(q, q, queries)
+            queries = queries + self.self_attn(q, q, queries, token_valid)
         queries = layer_norm(queries, self.norm1, dt)
 
         q, k = queries + query_pe, keys + key_pe
@@ -84,7 +94,7 @@ class TwoWayAttentionBlock(nn.Module):
         queries = layer_norm(queries + self.mlp(queries), self.norm3, dt)
 
         q, k = queries + query_pe, keys + key_pe
-        keys = layer_norm(keys + self.cross_attn_image_to_token(k, q, queries),
+        keys = layer_norm(keys + self.cross_attn_image_to_token(k, q, queries, token_valid),
                           self.norm4, dt)
         return queries, keys
 
@@ -108,7 +118,8 @@ class TwoWayTransformer(nn.Module):
         self.norm_final_attn = nn.LayerNorm(embedding_dim, device=device)
 
     def forward(self, image_embedding: torch.Tensor, image_pe: torch.Tensor,
-                point_embedding: torch.Tensor
+                point_embedding: torch.Tensor,
+                token_valid: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """image_embedding / image_pe [B, h, w, C] -> (queries, keys)."""
         bs, h, w, c = image_embedding.shape
@@ -116,7 +127,7 @@ class TwoWayTransformer(nn.Module):
         image_pe = image_pe.reshape(image_pe.shape[0], h * w, c)
         queries = point_embedding
         for layer in self.layers:
-            queries, keys = layer(queries, keys, point_embedding, image_pe)
+            queries, keys = layer(queries, keys, point_embedding, image_pe, token_valid)
         q, k = queries + point_embedding, keys + image_pe
         queries = layer_norm(queries + self.final_attn_token_to_image(q, k, keys),
                              self.norm_final_attn,

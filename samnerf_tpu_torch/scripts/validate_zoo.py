@@ -15,7 +15,8 @@ Counterpart of ``scripts/validate_zoo.py``::
         [--methods name[:steps],...] [--out docs/ZOO_torch.md]
 
 ``--methods`` defaults to the whole zoo; ``name:steps`` gives a method its
-own budget.  The table is rewritten after each method, so an interrupted
+own budget, which the train entry rounds up to a multiple of the method's
+``dispatch_chunk`` (the table lists the steps run).  The table is rewritten after each method, so an interrupted
 sweep keeps its rows, and names the card and its power limit.  Scene,
 runs and per-method logs go under the system's temporary directory.  Runs
 on the card; exits 1 without one.
@@ -140,11 +141,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         name, _, s = entry.partition(":")
         methods.append(name)
         steps_of[name] = int(s) if s else args.steps
-    methods = methods or list(zoo_methods())
+    zoo = zoo_methods()
+    methods = methods or list(zoo)
     rows = []
     for name in methods:
         n_steps = steps_of.get(name, args.steps)
         p, dt, tail = run_method(name, scene, n_steps, args.rays, work, args.seed)
+        chunk = zoo[name].dispatch_chunk
+        n_steps = -(-n_steps // chunk) * chunk            # what the entry ran
         if p is None:
             print(f"  FAILED ({dt:.0f}s):\n   " + "\n   ".join(tail), flush=True)
         else:

@@ -77,12 +77,15 @@ def plain_encodes(on: bool, kernels=(hg.parity_hash_encode, hg.parity_hash_encod
 
 
 def entry_run(name: str, scene: Path, steps: int, rays: int, dev, work: Path) -> dict:
-    """``name`` through ``train.main`` on ``dev``."""
-    losses, runs = {}, []
+    """``name`` through ``train.main`` on ``dev``: the losses of the chunks
+    that reach each of ``LOSS_STEPS`` (the callback runs once a chunk, at
+    its last step) and of the last."""
+    losses, runs, last = {}, [], [0]
 
     def on_step(step, m):
-        if step in LOSS_STEPS or step == steps:
+        if any(last[0] < s <= step for s in LOSS_STEPS) or step >= steps:
             losses[step] = {k: float(v) for k, v in m.items()}
+        last[0] = step
 
     t0 = time.time()
     rc = T.main([name, "--data", str(scene), "--max-num-iterations", str(steps),

@@ -37,8 +37,11 @@ vanilla-nerf, mipnerf, instant-ngp, tensorf, depth-nerfacto,
 semantic-nerfw, nerfplayer-nerfacto, nerfplayer-ngp) trains through
 :func:`train_zoo` with the JAX ``train_zoo``'s options: an rgb loop (with
 the depth or semantic channel for depth-nerfacto and semantic-nerfw,
-read from ``depths/`` or ``semantics/`` beside ``images/``), the
-occupancy grid of the ngp methods, one checkpoint at the end
+read from ``depths/`` or ``semantics/`` beside ``images/``) in chunks
+of the method's ``dispatch_chunk`` steps (16, or 2 for the nerfplayer
+methods; on the card one CUDA graph replay a chunk), the iteration count
+rounded up to a whole chunk, the occupancy grid of the ngp methods, one
+checkpoint at the end
 (``<output_dir>/<scene>/<method>/<timestamp>/samnerf_tpu_torch_ckpts/``)
 and the PSNR of eval view 0.
 """
@@ -51,7 +54,7 @@ import random
 import sys
 import time
 from pathlib import Path
-from typing import Callable, List, Optional
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
@@ -223,14 +226,16 @@ OCC_WARMUP = 256
 OCC_EVERY = 16
 """The zoo's occupancy schedule (the JAX ``train_zoo``'s): a 64^3 grid,
 all ones until it is first updated, then an update with ``res**3 // 4``
-samples before each step s (counted from 1) with s > 256 and
-(s - 1) % 16 == 0."""
+samples before each chunk of steps from s (counted from 1) with s > 256
+and (s - 1) % 16 < the chunk's length: for chunks of 1, 2 or 16 steps,
+before each step s with s > 256 and (s - 1) % 16 == 0."""
 EVAL_CHUNK = 4096
 
 
-def occupancy_update_due(step: int) -> bool:
-    """Is the grid updated before ``step`` (counted from 1)?"""
-    return step > OCC_WARMUP and (step - 1) % OCC_EVERY == 0
+def occupancy_update_due(step: int, chunk: int = 1) -> bool:
+    """Is the grid updated before the ``chunk`` steps from ``step``
+    (counted from 1)?"""
+    return step > OCC_WARMUP and (step - 1) % OCC_EVERY < chunk
 
 
 @dataclasses.dataclass
@@ -247,6 +252,9 @@ class ZooRun:
     occupancy: Optional[torch.Tensor]
     psnr: Optional[float]
     eval_ms: Optional[float]
+    steps_by_dispatch: Optional[dict] = None
+    """The steps run eagerly, captured and replayed
+    (:func:`~samnerf_tpu_torch.configs.zoo.make_zoo_train_chunk`)."""
 
 
 def _zoo_datamanager(name: str, dm_cfg, seed: int):
@@ -276,43 +284,69 @@ def render_eval_rgb(model, cameras, image_index: int = 0, chunk: int = EVAL_CHUN
     return rgb[:h * w].reshape(h, w, 3)
 
 
-def train_zoo(name: str, argv: List[str], device="cuda",
-              step_callback: Optional[Callable[[int, dict], None]] = None) -> ZooRun:
-    """Train zoo method ``name`` end to end with the JAX ``train_zoo``'s
-    options (``argv``): one step after another (the JAX loop scans 16 or 2
-    at a time and rounds the count up to that), batches drawn on the
-    device, the occupancy grid on :data:`OCC_RES`'s schedule for the ngp
-    methods, a checkpoint at the end, the PSNR of eval view 0 rendered in
-    4096-ray chunks (with the grid), then the process's F32-ENC and
-    F32-ENC-BWD launches.  ``step_callback(step, metrics)``
-    runs after each step, with the grid's occupied share as
-    ``metrics["occupied"]`` on a step the grid was updated before."""
+def zoo_arg_parser(name: str):
+    """The JAX ``train_zoo``'s options."""
     import argparse
-
-    from samnerf_tpu_torch.configs.zoo import (init_zoo_params, make_zoo_train_step,
-                                               zoo_methods, zoo_optimizer)
-    from samnerf_tpu_torch.data.datamanager import DataManagerConfig
-    from samnerf_tpu_torch.data.dataparser import DataparserConfig
-    from samnerf_tpu_torch.data.device_data import build_device_dataset, sample_batch
-    from samnerf_tpu_torch.engine.trainer import CKPT_DIR
-    from samnerf_tpu_torch.ops import hash_grid as hg
-    from samnerf_tpu_torch.ops.occupancy import update_occupancy
-    from samnerf_tpu_torch.utils.metrics import psnr
 
     ap = argparse.ArgumentParser(prog=f"samnerf_tpu_torch.train {name}")
     ap.add_argument("--data", required=True)
-    ap.add_argument("--max-num-iterations", type=int, default=30000)
+    ap.add_argument("--max-num-iterations", type=int, default=30000,
+                    help="rounded up to a multiple of the method's dispatch chunk")
     ap.add_argument("--rays-per-batch", type=int, default=4096)
     ap.add_argument("--lr", type=float, default=None,
                     help="override the per-method default lr")
     ap.add_argument("--output-dir", default="outputs")
     ap.add_argument("--seed", type=int, default=42)
-    ap.add_argument("--log-every", type=int, default=100)
-    args = ap.parse_args(argv)
+    ap.add_argument("--log-every", type=int, default=100,
+                    help="quantized to the method's dispatch chunk")
+    return ap
+
+
+@dataclasses.dataclass
+class ZooSetup:
+    """A zoo method ready to train from its seed (:func:`setup_zoo`): the
+    model and its config, the datamanager, the cameras, the batch generator
+    and the optimizer on the device, ``sample()`` (a training batch drawn
+    on the device from the generator), ``run_chunk`` (the method's
+    :func:`~samnerf_tpu_torch.configs.zoo.make_zoo_train_chunk`), and for
+    the ngp methods the grid (the chunk's static input), its density EMA,
+    box and generator (:meth:`update_grid`)."""
+    method: Any
+    model: torch.nn.Module
+    config: Any
+    datamanager: Any
+    cameras: Any
+    generator: torch.Generator
+    optimizer: Any
+    sample: Callable
+    run_chunk: Callable
+    occupancy: Optional[torch.Tensor] = None
+    grid_density: Optional[torch.Tensor] = None
+    occ_aabb: Optional[torch.Tensor] = None
+    occ_generator: Optional[torch.Generator] = None
+
+    def update_grid(self) -> float:
+        """One grid update (eagerly, between chunks), written into the
+        grid in place; returns its occupied share."""
+        from samnerf_tpu_torch.ops.occupancy import update_occupancy
+
+        self.grid_density, grid = update_occupancy(
+            self.grid_density, self.model.density_fn, self.occ_aabb, self.occ_generator,
+            num_samples=OCC_RES ** 3 // 4)
+        self.occupancy.copy_(grid)
+        return float(self.occupancy.mean())
+
+
+def setup_zoo(name: str, args, device="cuda") -> ZooSetup:
+    """The model, data, optimizer, grid and chunk of :func:`train_zoo`,
+    from ``args`` (:func:`zoo_arg_parser`'s)."""
+    from samnerf_tpu_torch.configs.zoo import (init_zoo_params, make_zoo_train_chunk,
+                                               zoo_methods, zoo_optimizer)
+    from samnerf_tpu_torch.data.datamanager import DataManagerConfig
+    from samnerf_tpu_torch.data.dataparser import DataparserConfig
+    from samnerf_tpu_torch.data.device_data import build_device_dataset, sample_batch
 
     device = torch.device(device)
-    random.seed(args.seed)
-    np.random.seed(args.seed)
     method = zoo_methods()[name]
     model, cfg = method.build(device=device)
     model.load_state_dict(init_zoo_params(model, torch.Generator().manual_seed(args.seed),
@@ -328,31 +362,69 @@ def train_zoo(name: str, argv: List[str], device="cuda",
     hw = (dm.cameras.height, dm.cameras.width)
     generator = torch.Generator(device=device).manual_seed(args.seed + 1)
     optimizer = zoo_optimizer(model, args.lr if args.lr is not None else method.lr)
-    step_fn = make_zoo_train_step(method, model, cfg, optimizer)
-
-    occ_kw, updates = {}, []
+    occ = {}
     if method.use_occupancy:
-        grid_density = torch.zeros((OCC_RES ** 3,), device=device)
-        occ_kw["occupancy"] = torch.ones((OCC_RES,) * 3, device=device)
-        occ_aabb = (model.aabb if hasattr(model, "aabb") else torch.tensor(
-            [[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]], device=device))
-        occ_generator = torch.Generator(device=device).manual_seed(args.seed + 0x0CC)
+        occ = dict(occupancy=torch.ones((OCC_RES,) * 3, device=device),
+                   grid_density=torch.zeros((OCC_RES ** 3,), device=device),
+                   occ_aabb=(model.aabb if hasattr(model, "aabb") else torch.tensor(
+                       [[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]], device=device)),
+                   occ_generator=torch.Generator(device=device).manual_seed(
+                       args.seed + 0x0CC))
+    def sample():
+        return sample_batch(generator, device_data, args.rays_per_batch, 1, hw)
+
+    run_chunk = make_zoo_train_chunk(method, model, cfg, optimizer, cameras, sample, generator,
+                                     method.dispatch_chunk, occ.get("occupancy"))
+    return ZooSetup(method=method, model=model, config=cfg, datamanager=dm,
+                    cameras=cameras, generator=generator, optimizer=optimizer, sample=sample,
+                    run_chunk=run_chunk, **occ)
+
+
+def train_zoo(name: str, argv: List[str], device="cuda",
+              step_callback: Optional[Callable[[int, dict], None]] = None) -> ZooRun:
+    """Train zoo method ``name`` end to end with the JAX ``train_zoo``'s
+    options (``argv``) and loop: the iteration count rounded up to a
+    multiple of the method's ``dispatch_chunk``, then one dispatch per
+    chunk (:func:`make_zoo_train_chunk`: on the card one graph replay),
+    batches drawn on the device, the occupancy grid updated between
+    chunks on :data:`OCC_RES`'s schedule for the ngp methods, the loss
+    printed every ``--log-every`` steps quantized to the chunk, a
+    checkpoint at the end, the PSNR of eval view 0 rendered in 4096-ray
+    chunks (with the grid), then the process's F32-ENC and F32-ENC-BWD
+    launches (a capture counts once, a replay not at all).  ``step_callback(step, metrics)`` runs after
+    each chunk with its last step and that step's metrics, and the grid's
+    occupied share as ``metrics["occupied"]`` after a chunk the grid was
+    updated before."""
+    from samnerf_tpu_torch.engine.trainer import CKPT_DIR
+    from samnerf_tpu_torch.ops import hash_grid as hg
+    from samnerf_tpu_torch.utils.metrics import psnr
+
+    args = zoo_arg_parser(name).parse_args(argv)
+    device = torch.device(device)
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+    zs = setup_zoo(name, args, device)
+    model, optimizer, dm, data = zs.model, zs.optimizer, zs.datamanager, Path(args.data)
+    occ_kw = {} if zs.occupancy is None else {"occupancy": zs.occupancy}
+    chunk = zs.method.dispatch_chunk
+    n_chunks = -(-args.max_num_iterations // chunk)
+    num_steps = n_chunks * chunk
 
     t0 = time.time()
-    metrics = {}
-    for step in range(1, args.max_num_iterations + 1):
+    metrics, updates = {}, []
+    for c in range(n_chunks):
+        start = c * chunk + 1
         occupied = None
-        if method.use_occupancy and occupancy_update_due(step):
-            grid_density, occ_kw["occupancy"] = update_occupancy(
-                grid_density, model.density_fn, occ_aabb, occ_generator,
-                num_samples=OCC_RES ** 3 // 4)
-            occupied = float(occ_kw["occupancy"].mean())
-            updates.append((step, occupied))
-        batch = sample_batch(generator, device_data, args.rays_per_batch, 1, hw)
-        metrics = step_fn(cameras, batch, generator, occ_kw.get("occupancy"))
+        if zs.occupancy is not None and occupancy_update_due(start, chunk):
+            occupied = zs.update_grid()
+            updates.append((start, occupied))
+        metrics = zs.run_chunk()
+        step = start + chunk - 1
         if occupied is not None:
             metrics["occupied"] = occupied
-        if step % max(1, args.log_every) == 0 or step == args.max_num_iterations:
+        # JAX's cadence, quantized to the chunk: every log_every // chunk
+        # chunks, and the last
+        if (step // chunk) % max(1, args.log_every // chunk) == 0 or c == n_chunks - 1:
             print(f"step {step}: loss={float(metrics['total_loss']):.5f} "
                   f"({time.time() - t0:.0f}s)", flush=True)
         if step_callback is not None:
@@ -361,9 +433,9 @@ def train_zoo(name: str, argv: List[str], device="cuda",
     out = Path(args.output_dir) / data.name / name / time.strftime("%Y-%m-%d_%H%M%S")
     ckpt_dir = out / CKPT_DIR
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    checkpoint = ckpt_dir / f"step-{args.max_num_iterations:09d}.pt"
+    checkpoint = ckpt_dir / f"step-{num_steps:09d}.pt"
     torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                "step": args.max_num_iterations, "method": name, **occ_kw}, checkpoint)
+                "step": num_steps, "method": name, **occ_kw}, checkpoint)
 
     p = eval_ms = None
     if dm.eval_images is not None:
@@ -380,14 +452,14 @@ def train_zoo(name: str, argv: List[str], device="cuda",
     return ZooRun(model=model, out_dir=out, checkpoint=checkpoint,
                   metrics={k: float(v) for k, v in metrics.items()},
                   occupancy_updates=updates, occupancy=occ_kw.get("occupancy"), psnr=p,
-                  eval_ms=eval_ms)
+                  eval_ms=eval_ms, steps_by_dispatch=dict(zs.run_chunk.steps_by_dispatch))
 
 
 def main(argv=None, device="cuda",
          step_callback: Optional[Callable[[int, dict], None]] = None,
          run_callback: Optional[Callable[[ZooRun], None]] = None) -> int:
     """The command line, on ``device``: a zoo method runs :func:`train_zoo`
-    (``step_callback`` after each step, ``run_callback`` with its
+    (``step_callback`` after each chunk, ``run_callback`` with its
     :class:`ZooRun`), a preset :func:`train_loop` (``step_callback`` after
     each dispatch).  Returns 1 when ``device`` is a card and there is none."""
     from samnerf_tpu_torch.configs.zoo import zoo_methods

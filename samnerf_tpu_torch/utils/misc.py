@@ -3,13 +3,30 @@
 Counterpart of ``samnerf_tpu/utils/misc.py``: ``step_check``,
 ``intersect_aabb`` (the viewer's crop box in
 :func:`samnerf_tpu_torch.core.cameras.generate_rays`), ``safe_normalize``
-and ``scale_dict``.
+and ``scale_dict``; and ``device_constant``, a constant tensor a CUDA
+graph can read.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
+
+_CONSTANTS: Dict[tuple, torch.Tensor] = {}
+
+
+def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, made once per
+    (values, dtype, device) and kept: a CUDA graph cannot capture the host
+    to card copy that makes it, and the eager run before a capture has
+    made it already.  Read only."""
+    a = np.asarray(values)
+    key = (a.dtype.str, a.shape, a.tobytes(), dtype, torch.device(device))
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(a, dtype=dtype, device=device)
+    return t
 
 
 def step_check(step: int, step_size: int, run_at_zero: bool = False) -> bool:

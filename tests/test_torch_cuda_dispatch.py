@@ -23,6 +23,22 @@ a card and no JAX (``tests/conftest.py`` imports JAX)::
   frame's first call launches an eager frame and captures it, a replay
   launches nothing from Python, and its trace holds the eager frame's
   kernels.  Baking the tables again replaces the frame's graph.
+- ``SamPredictor`` with a small encoder (one global layer on FLASH-RELPOS)
+  against the same model with ``use_graphs=False``: each replayed
+  ``set_image`` gives the eager embedding bit for bit, launches nothing
+  from Python and runs one FLASH-RELPOS on the card; each replayed
+  ``predict`` (buckets 1 and 4, with and without a box, multimask on and
+  off) and ``predict_batched`` gives the eager masks, IoU and logits bit
+  for bit; an embedding taken before a later ``set_image`` stays.
+- Each zoo method at tiny widths: its first chunk runs eagerly and is
+  captured; from that state one replayed chunk against the same chunk run
+  eagerly three times (twice on the current stream, once on a side stream
+  as the capture's own eager run: the atomics' order depends on the
+  stream): parameters and moments within 4 times the eager runs' widest
+  pairwise spread (F32-ENC-BWD's atomics, TensoRF's scatters) or
+  ``TOL_REL``, at each of them, losses
+  within ``TOL_LOSS``; the replay launches nothing from Python and runs
+  on the card the hash kernels the eager chunk launched.
 """
 import copy
 import dataclasses
@@ -132,7 +148,7 @@ def test_a_block_replay_is_its_eager_steps(tmp_path):
                                   with_features=True, feature_long_side=16)
     graphed = _trainer(scene, tmp_path / "g", BLOCK, dev)
     graphed.run_block(BLOCK)                        # eager, then captured
-    assert graphed._graph is not None
+    assert list(graphed._graphs.graphs) == ["block"]
     snap = _snapshot(graphed)
     eager = []
     for k in range(2):
@@ -141,10 +157,10 @@ def test_a_block_replay_is_its_eager_steps(tmp_path):
         losses, steps = _launched(lambda: [float(tr.run_block(1)["total_loss"])
                                            for _ in range(2 * BLOCK)])
         eager.append((tr, losses))
-    graph = graphed._graph
+    graph = graphed._graphs.graphs["block"][1]
     (graph_losses, python), on_card = _on_card(lambda: _launched(
         lambda: [float(graphed.run_block(BLOCK)["total_loss"]) for _ in range(2)]))
-    assert graphed._graph is graph                  # replayed, not captured again
+    assert graphed._graphs.graphs["block"][1] is graph      # replayed, not captured again
     assert graphed.steps_by_dispatch == {"eager": BLOCK, "captured": BLOCK,
                                          "replayed": 2 * BLOCK}
     assert not any(python.values())
@@ -159,7 +175,8 @@ def test_a_block_replay_is_its_eager_steps(tmp_path):
     # a loaded optimizer state has new moments: the block is captured anew
     _restore(graphed, snap)
     graphed.run_block(BLOCK)
-    assert graphed._graph is not graph and graphed._graph_key == graphed._tensors_key()
+    held, new = graphed._graphs.graphs["block"]
+    assert new is not graph and held == graphed.optimizer.held()
 
 
 def _cameras(dev, i, size):
@@ -218,9 +235,131 @@ def test_a_serve_frame_replay_is_the_eager_frame(route):
     assert len(serve.graphs) == 1
     if route == "int8":
         # new table buffers: the frame is captured anew, in place of the old graph
-        old = serve.graphs[next(iter(serve.graphs))][2]
+        old = serve.graphs[next(iter(serve.graphs))][1]
         snr.bake_serve_tables()
         got = serve(cams, 0, click, return_mask=True)
-        assert len(serve.graphs) == 1 and serve.graphs[next(iter(serve.graphs))][2] is not old
+        assert len(serve.graphs) == 1 and serve.graphs[next(iter(serve.graphs))][1] is not old
         for g, w in zip(got, serve.eager(cams, 0, click, return_mask=True)):
             assert torch.equal(g, w)
+
+
+SMALL_ENCODER = dict(img_size=256, patch_size=16, embed_dim=160, depth=4, num_heads=2,
+                     mlp_ratio=4.0, out_chans=256, window_size=7, global_attn_indexes=(2,),
+                     flash_min_tokens=256)
+
+
+@pytest.mark.cuda
+def test_a_predictor_replay_is_the_eager_call():
+    from samnerf_tpu_torch.perception.sam.image_encoder import ImageEncoderViT
+    from samnerf_tpu_torch.perception.sam.predictor import SamPredictor
+    from samnerf_tpu_torch.perception.sam.sam import Sam
+    from samnerf_tpu_torch.utils.init import init_state
+
+    dev = _cuda()
+    sam = Sam(ImageEncoderViT(**SMALL_ENCODER, device=dev), device=dev)
+    sam.load_state_dict(init_state(Sam(ImageEncoderViT(**SMALL_ENCODER, device="meta"),
+                                       device="meta"), torch.Generator().manual_seed(4), dev))
+    graphed, eager = SamPredictor(sam), SamPredictor(sam, use_graphs=False)
+    rng = np.random.default_rng(0)
+    prompts = [dict(point_coords=np.array([[60.0, 80.0]]), point_labels=np.array([1])),
+               dict(point_coords=np.array([[60.0, 80.0], [100.0, 40.0], [10.0, 150.0]]),
+                    point_labels=np.array([1, 0, 1]), multimask_output=False),
+               dict(point_coords=np.array([[70.0, 90.0], [20.0, 30.0]]),
+                    point_labels=np.array([1, 1]), box=np.array([10.0, 20.0, 150.0, 170.0])),
+               dict(box=np.array([30.0, 10.0, 120.0, 160.0]))]
+    first = None
+    for i, shape in enumerate([(180, 240, 3), (256, 200, 3), (120, 256, 3)]):
+        img = rng.integers(0, 256, shape, dtype=np.uint8)
+        eager.set_image(img)
+        (_, python), on_card = _on_card(lambda: _launched(lambda: graphed.set_image(img)))
+        assert torch.equal(graphed.get_image_embedding(), eager.get_image_embedding())
+        if i == 0:      # eager, then captured
+            assert python["FLASH-RELPOS"] == 2
+            first = (graphed.get_image_embedding(), eager.get_image_embedding())
+        else:
+            assert not any(python.values()) and on_card["FLASH-RELPOS"] == 1
+        for kw in prompts:
+            for got, want in zip(graphed.predict(**kw), eager.predict(**kw)):
+                np.testing.assert_array_equal(got, want)
+        pts = rng.uniform(0, 256, (5, 1, 2)).astype(np.float32)
+        for got, want in zip(graphed.predict_batched(pts, np.ones((5, 1), np.int64)),
+                             eager.predict_batched(pts, np.ones((5, 1), np.int64))):
+            np.testing.assert_array_equal(got, want)
+    assert torch.equal(*first) and not torch.equal(first[0], graphed.get_image_embedding())
+    assert len(graphed._graphs.graphs) == 1 + len(prompts) + 1
+    assert graphed.calls["captured"] == 6 and graphed.calls["replayed"] == 2 * 6
+
+
+def _zoo_snapshot(zs):
+    return (copy.deepcopy(zs.model.state_dict()), copy.deepcopy(zs.optimizer.state_dict()),
+            zs.generator.get_state(),
+            None if zs.occupancy is None else zs.occupancy.clone())
+
+
+def _zoo_restore(zs, snap):
+    model, opt, gen, grid = snap
+    zs.model.load_state_dict(model)
+    zs.optimizer.load_state_dict(copy.deepcopy(opt))
+    zs.generator.set_state(gen)
+    if grid is not None:
+        zs.occupancy.copy_(grid)
+
+
+def _zoo_distance(a, b):
+    worst = max(_rel(p, q) for p, q in zip(a.model.parameters(), b.model.parameters()))
+    sa, sb = a.optimizer.state_dict(), b.optimizer.state_dict()
+    assert sa["count"] == sb["count"]
+    for name, s in sa["optimizer"]["state"].items():
+        t = sb["optimizer"]["state"][name]
+        worst = max(worst, _rel(s["exp_avg"], t["exp_avg"]),
+                    _rel(s["exp_avg_sq"], t["exp_avg_sq"]))
+    return worst
+
+
+ZOO_METHODS = ("vanilla-nerf", "mipnerf", "instant-ngp", "tensorf", "depth-nerfacto",
+               "semantic-nerfw", "nerfplayer-nerfacto", "nerfplayer-ngp")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ZOO_METHODS)
+def test_a_zoo_chunk_replay_is_its_eager_chunk(name, tmp_path, monkeypatch):
+    from samnerf_tpu_torch import train as ttrain
+
+    from torch_zoo_tiny import tiny_configs, write_extras
+
+    dev = _cuda()
+    tiny_configs(monkeypatch)
+    scene = synthetic.write_scene(tmp_path / "scene", num_train=3, num_test=1, h=32, w=32)
+    write_extras(scene, size=32)
+    args = ttrain.zoo_arg_parser(name).parse_args(
+        ["--data", str(scene), "--rays-per-batch", "256"])
+    graphed = ttrain.setup_zoo(name, args, dev)
+    chunk = graphed.method.dispatch_chunk
+    if graphed.occupancy is not None:
+        graphed.update_grid()
+    _, python = _launched(graphed.run_chunk)                  # eager, then captured
+    snap = _zoo_snapshot(graphed)
+    eager = []
+    for stream in (None, None, torch.cuda.Stream(dev)):
+        zs = ttrain.setup_zoo(name, args, dev)
+        _zoo_restore(zs, snap)
+        torch.cuda.synchronize()        # the side stream starts from the restored state
+        with torch.cuda.stream(stream):
+            metrics, launched = _launched(zs.run_chunk.eager)
+        torch.cuda.synchronize()
+        eager.append((zs, float(metrics["total_loss"]), launched))
+    (metrics, replay_python), on_card = _on_card(lambda: _launched(graphed.run_chunk))
+    assert graphed.run_chunk.steps_by_dispatch == {"eager": chunk, "captured": chunk,
+                                                   "replayed": chunk}
+    (e1, l1, launched), (e2, _, _), (e3, _, _) = eager
+    assert python == {k: 2 * v for k, v in launched.items()}
+    assert not any(replay_python.values()) and on_card == launched
+    if name in ("instant-ngp", "depth-nerfacto", "semantic-nerfw"):
+        assert launched["F32-ENC"] and launched["F32-ENC-BWD"]
+    # the eager chunks' spread: the widest of their three pairs; the replay
+    # against each of them
+    spread = max(_zoo_distance(a, b) for a, b in ((e1, e2), (e1, e3), (e2, e3)))
+    gap = max(_zoo_distance(graphed, e) for e in (e1, e2, e3))
+    print(f"{name}: chunk replay vs eager chunk {gap:.3e} (three eager chunks {spread:.3e})")
+    assert gap <= max(4 * spread, TOL_REL)
+    assert abs(float(metrics["total_loss"]) - l1) <= TOL_LOSS * abs(l1)

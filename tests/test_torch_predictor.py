@@ -8,9 +8,9 @@ and mask decoder at their shared widths with the weights of
 boundaries inside the frame.  One reference-layout state dict loads
 into the port and, through ``convert_torch_state_dict``, into JAX.
 
-The JAX predictor pads clicks to static buckets and masks the padding;
-the port passes exactly the n clicks and its prompt encoder adds the one
-not-a-point pad, as the reference does.  Tolerances: low-res logits and
+Both predictors pad clicks to the same static buckets and mask the
+padding (``tests/test_torch_predictor_dispatch.py`` holds the masked
+decode against the unpadded one).  Tolerances: low-res logits and
 IoU rtol 1e-4 / atol 1e-4 (f32 sums in another order through the encoder
 and the two-way transformer; logits are O(1-10)); masks exactly equal.
 """

@@ -7,13 +7,11 @@ against JAX's, and ``train.main`` for every zoo method end to end on a
 tiny synthetic scene with tiny model configs patched in (as the
 entry-point tests of earlier slices patch ``_VIT_SPECS``).
 """
-import functools
 import math
 
 import numpy as np
 import pytest
 import torch
-from PIL import Image
 
 from samnerf_tpu.configs import zoo as jzoo
 from samnerf_tpu.data import datamanagers_extra as jdme
@@ -27,28 +25,10 @@ from samnerf_tpu_torch.data.dataparser import DataparserConfig
 from samnerf_tpu_torch.data.device_data import build_device_dataset, gather_batch
 from samnerf_tpu_torch.utils.synthetic import write_scene
 
+from torch_zoo_tiny import NUM_CLASSES, SIZE, TINY_BASE, tiny_configs  # noqa: F401
+from torch_zoo_tiny import write_extras as _write_extras
+
 torch.set_num_threads(1)
-
-SIZE = 24
-NUM_CLASSES = 16
-
-
-def _write_extras(scene, depth_format="npy"):
-    """Seeded depths (``.npy`` metres or 16-bit ``.png`` millimetres) and
-    16-class semantic masks beside the scene's images."""
-    rng = np.random.default_rng(0)
-    (scene / "depths").mkdir(exist_ok=True)
-    (scene / "semantics").mkdir(exist_ok=True)
-    for img in sorted((scene / "images").glob("*.png")):
-        depth = rng.uniform(0.5, 3.0, (SIZE, SIZE)).astype(np.float32)
-        depth[0, :4] = 0.0                                    # pixels without depth
-        if depth_format == "npy":
-            np.save(scene / "depths" / f"{img.stem}.npy", depth)
-        else:
-            mm = np.round(depth * 1000).astype(np.uint16)
-            Image.fromarray(mm).save(scene / "depths" / f"{img.stem}.png")
-        classes = rng.integers(0, NUM_CLASSES, (SIZE, SIZE)).astype(np.uint8)
-        Image.fromarray(classes).save(scene / "semantics" / f"{img.stem}.png")
 
 
 @pytest.fixture(scope="module")
@@ -114,37 +94,6 @@ def test_variable_res_batches_match_jax(scene):
             np.testing.assert_array_equal(got[k], ref[k])
 
 
-TINY_BASE = dict(distill_sam=False, num_levels=2, max_res=32, log2_hashmap_size=10,
-                 num_proposal_samples_per_ray=(8,), num_nerf_samples_per_ray=8,
-                 proposal_net_args=({"hidden_dim": 8, "log2_hashmap_size": 10,
-                                     "num_levels": 2, "max_res": 32},))
-
-
-def tiny_configs(monkeypatch):
-    """Patch every zoo method's default config to a tiny one."""
-    from samnerf_tpu_torch.models import (depth_nerfacto, instant_ngp, mipnerf, nerfplayer,
-                                          semantic_nerfw, tensorf, vanilla_nerf)
-    from samnerf_tpu_torch.models.sam_model import SAMModelConfig
-    patches = [
-        (vanilla_nerf, "VanillaNerfConfig", dict(num_coarse_samples=4,
-                                                 num_importance_samples=4, hidden_dim=16)),
-        (mipnerf, "MipNerfConfig", dict(num_coarse_samples=4, num_importance_samples=4,
-                                        hidden_dim=16, pos_frequencies=4)),
-        (instant_ngp, "InstantNGPConfig", dict(num_samples=8, num_levels=2, max_res=32,
-                                               log2_hashmap_size=10)),
-        (tensorf, "TensoRFConfig", dict(num_uniform_samples=8, num_samples=4, resolution=8,
-                                        density_components=2, color_components=2,
-                                        appearance_dim=4)),
-        (depth_nerfacto, "DepthNerfactoConfig", dict(base=SAMModelConfig(**TINY_BASE))),
-        (semantic_nerfw, "SemanticNerfWConfig", dict(base=SAMModelConfig(**TINY_BASE))),
-        (nerfplayer, "NerfPlayerConfig", dict(num_samples=8, num_levels=2, max_res=32,
-                                              log2_hashmap_size=10, num_time_steps=2,
-                                              hidden_dim=8)),
-    ]
-    for mod, name, kw in patches:
-        monkeypatch.setattr(mod, name, functools.partial(getattr(mod, name), **kw))
-
-
 def _main(name, scene, out, steps, capsys, extra=()):
     runs, losses = [], []
     rc = ttrain.main([name, "--data", str(scene), "--max-num-iterations", str(steps),
@@ -158,16 +107,21 @@ def _main(name, scene, out, steps, capsys, extra=()):
 
 @pytest.mark.parametrize("name", list(jzoo.zoo_methods()))
 def test_main_trains_each_zoo_method(name, scene, tmp_path, monkeypatch, capsys):
+    """2 iterations round up to one chunk of the method's
+    ``dispatch_chunk`` steps (16, or 2 for the nerfplayer methods), run
+    eagerly on the CPU, with one callback and one log line a chunk."""
     tiny_configs(monkeypatch)
+    chunk = tzoo.zoo_methods()[name].dispatch_chunk
     run, losses, out = _main(name, scene, tmp_path / "out", 2, capsys)
-    assert len(losses) == 2 and all(math.isfinite(v) for v in losses)
+    assert len(losses) == 1 and all(math.isfinite(v) for v in losses)
+    assert run.steps_by_dispatch == {"eager": chunk, "captured": 0, "replayed": 0}
     assert run.out_dir.parent == tmp_path / "out" / scene.name / name
     ckpt = torch.load(run.checkpoint, weights_only=True)
-    assert ckpt["step"] == 2 and ckpt["method"] == name
+    assert ckpt["step"] == chunk and ckpt["method"] == name
     model, _ = tzoo.zoo_methods()[name].build(device="cpu")
     model.load_state_dict(ckpt["model"])
     assert run.psnr is not None and math.isfinite(run.psnr)
-    assert f"eval view 0 PSNR: {run.psnr:.2f}" in out and "step 2: loss=" in out
+    assert f"eval view 0 PSNR: {run.psnr:.2f}" in out and f"step {chunk}: loss=" in out
     extra = {"depth-nerfacto": "depth_loss", "semantic-nerfw": "semantics_loss"}.get(name)
     if extra:
         assert extra in run.metrics
@@ -202,4 +156,4 @@ def test_main_without_eval_images(tmp_path, monkeypatch, capsys):
     scene = write_scene(tmp_path / "scene", num_train=3, num_test=0, h=SIZE, w=SIZE)
     run, losses, out = _main("tensorf", scene, tmp_path / "out", 2, capsys)
     assert run.psnr is None and run.eval_ms is None and run.checkpoint.exists()
-    assert "no eval images, no PSNR" in out and len(losses) == 2
+    assert "no eval images, no PSNR" in out and len(losses) == 1      # one chunk
