@@ -150,11 +150,15 @@ which raises on failure:
    for a 16384-ray batch, card against CPU; the SE3 gradient at zero
    finite; a small model's pose gradient (F32-ENC, F32-ENC-BWD) card
    against CPU;
-   dist: a one-rank NCCL process group at a free local port: full-width
-   data-parallel ``Trainer`` steps (ms beside the train phase's, 6 + 6
-   launches per step, the gradient all-reduce's ms) and
-   ``build_sharded_frame_fn`` at 512x512 with baked int8 fused tables and
-   a click (19 FUSED-QMLP launches per frame, the frame against
+   dist: a one-rank NCCL process group at a free local port: the
+   full-width data-parallel ``Trainer`` in blocks of 20 steps, one graph
+   replay a block (its gradient all-reduce inside), a replay
+   against the same steps run eagerly within ``DISPATCH_SPREAD`` of two
+   eager runs' spread, 6 + 6 F32-ENC / F32-ENC-BWD per replayed step on
+   the card by name and none from Python, ms per step eager and replayed
+   beside the train phase's; ``build_sharded_frame_fn`` at 512x512 with baked
+   int8 fused tables and a click, one replay a frame (bit for bit the
+   eager frame, 19 FUSED-QMLP on the card by name, the frame against
    ``serve_frame_fn``'s); then ``torchrun --standalone --nproc-per-node 1
    -m samnerf_tpu_torch.train samnerf_distill`` for 3 steps;
    tools: the SAM decoder through ``torch.export`` (ms per call against
@@ -661,82 +665,26 @@ def _graph_pool_bytes(graphs) -> int:
                if tuple(seg.get("segment_pool_id", (0, 0))) in pools)
 
 
-class _CardTrace:
-    """The hash kernels and layout passes that ran on the card between
-    ``start()`` and ``stop()``, by name, from a profiler trace: CUDA graph
-    replays included, which the wrappers' counters do not see (they count
-    what Python launches, a capture once).  Also a context manager.
-    The profiler has lost device records (a trace of 80 replayed DINO
-    steps, about 70,000 records, came back 4 F32-ENC-BWD short; a zoo
-    chunk's trace, its first step's 3 F32-ENC), so a trace spans at most
-    one block of replayed steps or a few frames, and begins and ends with
-    a few no-op kernels and a sync around the work it counts; ``records``
-    is the number of device records it kept."""
-
-    def __init__(self, labels=HASH_KERNELS):
-        self._prof = None
-        self.labels = labels
-        self.counts = None
-        self.records = None
-
-    def start(self):
-        from torch.profiler import ProfilerActivity, profile
-        self._prof = profile(activities=[ProfilerActivity.CUDA])
-        self._prof.start()
-        # the tracer comes up after ``start`` returns: a zoo chunk replayed
-        # at once came back without its first step's three F32-ENC records;
-        # a few no-op kernels and a sync first
-        self._pad()
-        return self
-
-    @staticmethod
-    def _pad():
-        pad = torch.zeros(1, device=torch.cuda.current_device())
-        for _ in range(4):
-            pad.add_(1)
-        torch.cuda.synchronize()
-
-    def stop(self) -> dict:
-        from torch.autograd import DeviceType
-        torch.cuda.synchronize()
-        self._pad()
-        self._prof.stop()
-        names = [e.name() for e in self._prof.profiler.kineto_results.events()
-                 if e.device_type() == DeviceType.CUDA]
-        self.counts = _trace_launches(names, self.labels)
-        self.records = len(names)
-        self._prof = None
-        return self.counts
-
-    @property
-    def running(self) -> bool:
-        return self._prof is not None
-
-    def __enter__(self):
-        return self.start()
-
-    def __exit__(self, *exc):
-        self.stop()
+def _CardTrace(labels=HASH_KERNELS):
+    """``kernel_launches.CardTrace`` of the hash kernels and layout passes
+    (or ``labels``): what ran on the card, replays included, by name.  The
+    profiler has lost device records (a trace of 80 replayed DINO steps,
+    about 70,000 records, came back 4 F32-ENC-BWD short), so a trace spans
+    at most one block of replayed steps or a few frames."""
+    from samnerf_tpu_torch.ops import kernel_launches
+    return kernel_launches.CardTrace(labels)
 
 
-TRACE_TRIES = 3
-"""Traces per count of one more replay: the profiler drops a device
-record now and then (a replayed bf16 frame's trace once came back one
-Q-ENC short, a zoo chunk's without its first step's F32-ENC), while a
-graph replays a fixed kernel list, so a short trace is taken again."""
-
-
-def _trace_replay(fn, python) -> _CardTrace:
-    """``fn()``, one more replay, under a trace, taken again (at most
-    ``TRACE_TRIES`` times) while the trace's counts of ``python``'s labels
-    are not half of ``python`` (the launches of the eager run and the
-    capture); the callers' checks then hold the last trace."""
-    for _ in range(TRACE_TRIES):
-        with _CardTrace() as trace:
-            fn()
-        if all(2 * trace.counts[k] == v for k, v in python.items()):
-            break
-    return trace
+def _trace_replay(fn, python):
+    """``fn()``, one more replay, under a trace (``kernel_launches.traced``),
+    taken again while the trace's counts of ``python``'s labels are not half
+    of ``python`` (the launches of the eager run and the capture); the
+    callers' checks then hold the last trace, whose ``tries`` says how many
+    replays ran."""
+    from samnerf_tpu_torch.ops import kernel_launches
+    return kernel_launches.traced(
+        fn, HASH_KERNELS,
+        lambda _, counts: all(2 * counts[k] == v for k, v in python.items()))[1]
 
 
 def serve_phase(dev):
@@ -4979,7 +4927,7 @@ TOL_RAY = 1e-5                  # unit directions and origins, card vs CPU
 # the pose gradient sums over every ray with cancellation: rtol 2e-3 and 1 %
 # of the largest component (tests/test_torch_pose.py's tolerance)
 TOL_POSE_GRAD_RTOL, TOL_POSE_GRAD_MAX_SHARE = 2e-3, 1e-2
-DIST_WARMUP, DIST_STEPS, ALLREDUCE_STEPS = 2, 8, 3
+DIST_BLOCKS = 2                 # timed replays of the data-parallel block, the first held
 TORCHRUN_SCENE_SIZE = 128
 SHARDED_FRAMES = 3              # timed sharded frames after a warm-up
 DECODER_CALLS = 20              # timed calls of the exported decoder and decode_masks
@@ -5226,13 +5174,16 @@ def pose_phase(dev):
 
 def sharded_frame_check(dev, size=VIEW_SIZE, cfg=None):
     """``build_sharded_frame_fn`` with baked int8 fused tables and a click
-    on the process group that is up, against ``serve_frame_fn``'s frame:
-    ms per frame, FUSED-QMLP launches per frame, the overlay's difference
-    (bit for bit at one rank: the same chunking)."""
+    on the process group that is up: its first frame runs eagerly and is
+    captured (twice a frame's FUSED-QMLP from Python), a replay is the
+    eager frame (``frame.eager``) bit for bit, launches nothing from Python
+    and runs 19 FUSED-QMLP on the card (a profiler trace, by name); ms per
+    frame replayed and eager; the overlay against ``serve_frame_fn``'s and
+    the grids against ``render_image_device``'s (bit for bit at one rank:
+    the same chunking)."""
     from samnerf_tpu_torch.engine.eval_render import build_sharded_frame_fn
     from samnerf_tpu_torch.engine.render_pipeline import SamNerfRenderer
     from samnerf_tpu_torch.models.sam_model import SAMModel, SAMModelConfig, init_params
-    from samnerf_tpu_torch.ops import hash_grid as hg
     from samnerf_tpu_torch.parallel import mesh
     from samnerf_tpu_torch.perception.sam.sam import Sam, init_decoder_params
 
@@ -5254,16 +5205,28 @@ def sharded_frame_check(dev, size=VIEW_SIZE, cfg=None):
     labels = torch.full((1, 4), -1, dtype=torch.int32, device=dev)
     labels[0, 0] = 1
     cams = _cameras(dev, 1, H, W, 400.0)
-    frame(cams, 0, coords, labels)                               # warm-up
-    torch.cuda.synchronize()
+
+    def timed(fn):
+        times = []
+        for _ in range(SHARDED_FRAMES):
+            t0 = time.perf_counter()
+            out = fn(cams, 0, coords, labels)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, times
+
     _reset_encode_launches()
-    times = []
-    for _ in range(SHARDED_FRAMES):
-        t0 = time.perf_counter()
-        out = frame(cams, 0, coords, labels)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    launches = _encode_launches()
+    first = frame(cams, 0, coords, labels)                       # eager, then captured
+    torch.cuda.synchronize()
+    python = _encode_launches()
+    if len(frame.graphs) != 1:
+        raise AssertionError(f"the sharded frame holds {len(frame.graphs)} graphs, not 1")
+    eager, eager_times = timed(frame.eager)
+    _reset_encode_launches()
+    out, times = timed(frame)
+    replay_python = _encode_launches()
+    trace = _trace_replay(lambda: frame(cams, 0, coords, labels), python)
+    bits = all(torch.equal(o[k], eager[k]) for o in (first, out) for k in eager)
     mine = (torch.clamp(out["masked_rgb"], 0.0, 1.0) * 255.0).to(torch.uint8)
     ref = serve(cams, 0, click)
     diff = int((mine.int() - ref.int()).abs().max())
@@ -5271,18 +5234,27 @@ def sharded_frame_check(dev, size=VIEW_SIZE, cfg=None):
                                                 minimal=True)
     grid_err = max(float((out[k] - grid_ref[k]).abs().max()) for k in ("rgb", "sam", "clipseg"))
     result = dict(frame_ms=statistics.median(times), frame_ms_all=times,
-                  frames=SHARDED_FRAMES, launches=launches,
-                  launches_per_frame=launches["FUSED-QMLP"] / SHARDED_FRAMES,
-                  overlay_max_diff=diff, bits_equal=diff == 0 and grid_err == 0.0,
-                  grid_max_abs_err=grid_err)
-    print(f"sharded frame {H}x{W} int8 fused, {mesh.world_size()} rank(s): median "
-          f"{result['frame_ms']:.2f} ms over {SHARDED_FRAMES}; launches/frame "
-          + " ".join(f"{k}={v / SHARDED_FRAMES:g}" for k, v in launches.items())
+                  eager_frame_ms=statistics.median(eager_times), eager_frame_ms_all=eager_times,
+                  frames=SHARDED_FRAMES, launches=python, replays_python_launches=replay_python,
+                  replay_on_card=trace.counts, trace_records=trace.records,
+                  replay_is_eager=bits, overlay_max_diff=diff,
+                  bits_equal=diff == 0 and grid_err == 0.0, grid_max_abs_err=grid_err)
+    print(f"sharded frame {H}x{W} int8 fused, {mesh.world_size()} rank(s): replay median "
+          f"{result['frame_ms']:.2f} ms, eager {result['eager_frame_ms']:.2f} ms over "
+          f"{SHARDED_FRAMES}; replay bit for bit the eager frame: {bits}; on the card a replay "
+          + " ".join(f"{k}={v}" for k, v in trace.counts.items() if v)
+          + "; from Python: eager run and capture "
+          + " ".join(f"{k}={v}" for k, v in python.items())
+          + ", replays " + " ".join(f"{k}={v}" for k, v in replay_python.items())
           + f"; overlay vs serve_frame_fn max diff {diff}, grids max abs err {grid_err:.2e}",
           flush=True)
-    if launches != {"F32-ENC": 0, "Q-ENC": 0, "FUSED-QMLP": FUSED_PER_FRAME * SHARDED_FRAMES}:
-        raise AssertionError(f"the sharded frame launched {launches}, not "
-                             f"{FUSED_PER_FRAME} FUSED-QMLP per frame")
+    if python != {"F32-ENC": 0, "Q-ENC": 0, "FUSED-QMLP": 2 * FUSED_PER_FRAME} \
+            or any(replay_python.values()) or trace.counts["FUSED-QMLP"] != FUSED_PER_FRAME:
+        raise AssertionError(f"the sharded frame's eager run and capture launched {python}, "
+                             f"its replays {replay_python}, a replay ran {trace.counts} on "
+                             f"the card, not {FUSED_PER_FRAME} FUSED-QMLP a frame")
+    if not bits:
+        raise AssertionError("a sharded frame replay is not the eager frame bit for bit")
     if diff > 255 * TOL_FRAME or grid_err > TOL_FRAME:
         raise AssertionError(f"the sharded frame differs from serve_frame_fn's: {result}")
     return result
@@ -5290,76 +5262,115 @@ def sharded_frame_check(dev, size=VIEW_SIZE, cfg=None):
 
 def dist_phase(dev, scene: Path, root: Path, train_step_ms: float):
     """A process group of one rank (NCCL on the card, at a free local TCP
-    port, destroyed afterwards): full-width data-parallel ``Trainer`` steps
-    on ``scene`` (ms per step beside the train phase's, 6 + 6 launches per
-    step, the gradient all-reduce's ms); the sharded 512x512 frame;
-    then ``torchrun --standalone --nproc-per-node 1 -m
-    samnerf_tpu_torch.train samnerf_distill`` for 3 steps on a small
-    scene."""
+    port, destroyed afterwards): the full-width data-parallel ``Trainer``
+    on ``scene`` in its preset's blocks of ``DISPATCH_BLOCK`` steps runs
+    its first block eagerly and captures it (the gradient and metrics
+    all-reduces inside); from that state, put back in place each time, two
+    eager runs of the block's steps (blocks of one step, a sync a step)
+    and a replay (``profile_train.block_against_eager``) give the same step
+    counts, and parameters, Adam moments and losses within
+    ``DISPATCH_SPREAD`` times the eager runs' spread (or
+    ``DISPATCH_FLOOR``) and ``TOL_LOSS``; the replays launch nothing from
+    Python and a traced replay runs 6 F32-ENC and 6 F32-ENC-BWD a step on
+    the card (by name); ms per step eager and replayed beside the train
+    phase's; the sharded 512x512 frame (``sharded_frame_check``); then
+    ``torchrun --standalone --nproc-per-node 1 -m samnerf_tpu_torch.train
+    samnerf_distill`` for 3 steps on a small scene; the seconds of each
+    part."""
     import os
 
     import torch.distributed as dist
 
     from samnerf_tpu_torch.ops import hash_grid as hg
-    from samnerf_tpu_torch.parallel import mesh
-    from samnerf_tpu_torch.scripts.profile_train import build_trainer
+    from samnerf_tpu_torch.scripts.profile_train import block_against_eager, build_trainer
     from samnerf_tpu_torch.utils.synthetic import write_scene
 
+    def launches():
+        return {**_encode_launches(), **_pass_launches(),
+                "F32-ENC-BWD": hg.parity_hash_encode_bwd.launches}
+
+    seconds, t_part = {}, [time.perf_counter()]
+
+    def part(name):
+        now = time.perf_counter()
+        seconds[name] = now - t_part[0]
+        t_part[0] = now
+
+    n = DISPATCH_BLOCK
     backend = "nccl" if dev.type == "cuda" else "gloo"
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{_free_port()}",
                             world_size=1, rank=0)
     try:
         trainer = build_trainer(scene, root / "dist_out", dev)
-        if not trainer.distributed:
-            raise AssertionError("the Trainer did not take the data-parallel path")
-        times, losses, t_prev = [], [], [0.0]
-
-        def on_step(step, metrics):
-            losses.append({k: float(v) for k, v in metrics.items()})
-            torch.cuda.synchronize()
-            now = time.perf_counter()
-            if step == DIST_WARMUP:
-                _reset_encode_launches()
-            elif step > DIST_WARMUP:
-                times.append((now - t_prev[0]) * 1e3)
-            t_prev[0] = now
-
-        trainer.cfg.max_num_iterations = DIST_WARMUP + DIST_STEPS
-        trainer.train(step_callback=on_step)
-        launches = {"F32-ENC": hg.parity_hash_encode.launches,
-                    "F32-ENC-BWD": hg.parity_hash_encode_bwd.launches,
-                    "Q-ENC": hg.parity_hash_encode_q8.launches}
-        all_reduce = mesh.all_reduce_grads
-        ar_ms = []
-
-        def timed_all_reduce(params):
+        if not trainer.distributed or trainer.block != n:
+            raise AssertionError(f"the Trainer took {trainer.distributed=}, "
+                                 f"{trainer.block} steps a dispatch")
+        part("build")
+        _reset_encode_launches()
+        trainer.run_block(n)                                # eager, then captured
+        python = launches()
+        if list(trainer._graphs.graphs) != ["block"]:
+            raise AssertionError("the first data-parallel block was not captured")
+        graph = trainer._graphs.graphs["block"][1]
+        part("first_block")
+        _reset_encode_launches()
+        check = block_against_eager(trainer, n)             # two eager runs, one replay
+        check_python = launches()
+        part("eager_runs")
+        replay_times = [check["replay_step_ms"]]
+        _reset_encode_launches()
+        for _ in range(DIST_BLOCKS - 1):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            all_reduce(params)
+            trainer.run_block(n)
             torch.cuda.synchronize()
-            ar_ms.append((time.perf_counter() - t0) * 1e3)
-
-        mesh.all_reduce_grads = timed_all_reduce
-        try:
-            for i in range(ALLREDUCE_STEPS):
-                trainer.train_iteration(DIST_WARMUP + DIST_STEPS + i)
-        finally:
-            mesh.all_reduce_grads = all_reduce
-        grad_bytes = sum(p.numel() * p.element_size() for p in trainer.model.parameters())
-        del trainer
-        step_ms = statistics.median(times)
-        print(f"dist {backend} world size 1: data-parallel samnerf_distill step median "
-              f"{step_ms:.2f} ms over {DIST_STEPS} (the train phase's {train_step_ms:.2f} ms); "
-              f"gradient all-reduce median {statistics.median(ar_ms):.2f} ms for "
-              f"{grad_bytes / 2**20:.0f} MiB; launches/step "
-              + ", ".join(f"{k}={v / DIST_STEPS:g}" for k, v in launches.items()), flush=True)
-        if not all(math.isfinite(v) for m in losses for v in m.values()):
-            raise AssertionError(f"data-parallel losses {losses}")
-        if launches != {"F32-ENC": F32_PER_STEP * DIST_STEPS,
-                        "F32-ENC-BWD": F32_PER_STEP * DIST_STEPS, "Q-ENC": 0}:
-            raise AssertionError(f"the data-parallel step launched {launches} in "
-                                 f"{DIST_STEPS} steps")
+            replay_times.append((time.perf_counter() - t0) * 1e3 / n)
+        replay_python = launches()
+        trace = _trace_replay(lambda: trainer.run_block(n), python)
+        eager_steps = n + 2 * n
+        if trainer._graphs.graphs["block"][1] is not graph or trainer.steps_by_dispatch != {
+                "eager": eager_steps, "captured": n,
+                "replayed": n * (DIST_BLOCKS + trace.tries)}:
+            raise AssertionError(f"a block was captured again, not replayed: "
+                                 f"{trainer.steps_by_dispatch}")
+        spread, gap, loss_err = check["spread"], check["gap"], check["loss_rel_err"]
+        replay_loss, eager_loss = check["replay_loss"], check["eager_loss"]
+        eager_times = check["eager_step_ms_all"]
+        del trainer, graph
+        part("replays")
+        on_card = {k: v / n for k, v in trace.counts.items()}
+        step_ms, block_step_ms = statistics.median(eager_times), statistics.median(replay_times)
+        print(f"dist {backend} world size 1: data-parallel samnerf_distill blocks of {n}: "
+              f"a replay against {n} eager data-parallel steps from one state: params rel "
+              f"L2 {gap['params']:.3e}, moments {gap['moments']:.3e} (two eager runs: "
+              f"{spread['params']:.3e}, {spread['moments']:.3e}); loss {replay_loss} "
+              f"against {eager_loss} (rel err {loss_err:.2e}); step median eager {step_ms:.2f} ms "
+              f"(a sync a step, {len(eager_times)} steps), replayed {block_step_ms:.2f} ms "
+              f"(a sync a block, {DIST_BLOCKS} blocks; the train phase's {train_step_ms:.2f} "
+              f"ms); on the card a replayed step "
+              + " ".join(f"{k}={v:g}" for k, v in on_card.items() if v)
+              + "; from Python: the first block's eager run and capture "
+              + " ".join(f"{k}={v}" for k, v in python.items())
+              + ", the two eager runs and a replay "
+              + " ".join(f"{k}={v}" for k, v in check_python.items())
+              + ", the further replays " + " ".join(f"{k}={v}" for k, v in replay_python.items()),
+              flush=True)
+        if not (math.isfinite(replay_loss) and math.isfinite(eager_loss)):
+            raise AssertionError(f"data-parallel losses {replay_loss} {eager_loss}")
+        if max(gap.values()) > max(DISPATCH_SPREAD * max(spread.values()), DISPATCH_FLOOR) \
+                or loss_err > TOL_LOSS:
+            raise AssertionError(f"a data-parallel block replay is not its eager steps: "
+                                 f"{gap} against {spread}, loss rel err {loss_err}")
+        if any(replay_python.values()) or check_python != python \
+                or python["F32-ENC"] != F32_PER_STEP * 2 * n \
+                or python["F32-ENC-BWD"] != F32_PER_STEP * 2 * n \
+                or {k: 2 * v for k, v in trace.counts.items() if k in python} != python:
+            raise AssertionError(f"the data-parallel block's eager run and capture launched "
+                                 f"{python}, the eager runs and a replay {check_python}, "
+                                 f"the further replays {replay_python}; a replay ran "
+                                 f"{trace.counts} on the card ({trace.records} records)")
         frame = sharded_frame_check(dev)
+        part("sharded_frame")
     finally:
         dist.destroy_process_group()
 
@@ -5378,18 +5389,23 @@ def dist_phase(dev, scene: Path, root: Path, train_step_ms: float):
                           text=True, timeout=600,
                           env={**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)})
     torchrun_s = time.perf_counter() - t0
+    part("torchrun")
     ckpts = sorted(out.glob("*/samnerf_distill/*/samnerf_tpu_torch_ckpts/step-000000003.pt"))
     print(f"dist torchrun --nproc-per-node 1 train 3 steps: rc {proc.returncode} in "
           f"{torchrun_s:.1f} s; checkpoint {[c.name for c in ckpts]}", flush=True)
     if proc.returncode != 0 or len(ckpts) != 1:
         raise AssertionError(f"torchrun train failed ({proc.returncode}):\n"
                              f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    return dict(backend=backend, world_size=1, step_ms=step_ms, step_ms_all=times,
-                train_phase_step_ms=train_step_ms, steps=DIST_STEPS, launches=launches,
-                launches_per_step={k: v / DIST_STEPS for k, v in launches.items()},
-                all_reduce_ms=statistics.median(ar_ms), all_reduce_ms_all=ar_ms,
-                grad_bytes=grad_bytes, last_losses=losses[-1], sharded_frame=frame,
-                torchrun_s=torchrun_s, torchrun_tail=proc.stdout[-1000:])
+    return dict(backend=backend, world_size=1, block=n, step_ms=step_ms,
+                step_ms_all=eager_times, block_step_ms=block_step_ms,
+                block_step_ms_all=replay_times, train_phase_step_ms=train_step_ms,
+                spread=spread, gap=gap, replay_loss=replay_loss, eager_loss=eager_loss,
+                loss_rel_err=loss_err, launches=python, check_python_launches=check_python,
+                replays_python_launches=replay_python,
+                replay_on_card=trace.counts, trace_records=trace.records,
+                on_card_per_step=on_card,
+                sharded_frame=frame,
+                torchrun_s=torchrun_s, torchrun_tail=proc.stdout[-1000:], seconds=seconds)
 
 
 def tools_phase(dev, root: Path):
@@ -5660,6 +5676,7 @@ def main() -> int:
                 dispatch_serve[route]["launches_per_frame"][k["name"]]}
     kernels[0]["replay_on_card"]["dispatch_train_step"] = \
         dispatch_train["on_card_per_step"]["F32-ENC"]
+    kernels[0]["replay_on_card"]["dist_block_step"] = dist["on_card_per_step"]["F32-ENC"]
     kernels[0]["replay_on_card"].update(
         {f"zoo_{m}_step": zoo["methods"][m]["check"]["on_card_per_step"]["F32-ENC"]
          for m in ZOO_F32_PER_STEP})
@@ -5718,7 +5735,8 @@ def main() -> int:
                             serve["int8_fused"]["replay_on_card"]["FUSED-QMLP"],
                         **{f"dispatch_serve_{r}_frame":
                            dispatch_serve[r]["launches_per_frame"]["FUSED-QMLP"]
-                           for r in ("int8_fused", "culled")}},
+                           for r in ("int8_fused", "culled")},
+                        "sharded_frame": dist["sharded_frame"]["replay_on_card"]["FUSED-QMLP"]},
                     "max_abs_err": max(r["max_abs_err"] for r in qmlp_rows),
                     "ms": rep["ms"], "plain_ms": rep["plain_ms"],
                     "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
@@ -5746,6 +5764,7 @@ def main() -> int:
                         "dist_train": dist["launches"]["F32-ENC-BWD"]},
                     "replay_on_card": {
                         "dispatch_train_step": dispatch_train["on_card_per_step"]["F32-ENC-BWD"],
+                        "dist_block_step": dist["on_card_per_step"]["F32-ENC-BWD"],
                         **{f"zoo_{m}_step":
                            zoo["methods"][m]["check"]["on_card_per_step"]["F32-ENC-BWD"]
                            for m in ZOO_F32_PER_STEP}},

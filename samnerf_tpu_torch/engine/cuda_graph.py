@@ -6,7 +6,8 @@ The JAX package runs ``steps_per_dispatch`` training steps as one
 port captures the same work once as a CUDA graph and replays it.  A graph
 holds its kernels' arguments, so what changes from one replay to the next
 (the per-step schedule values, a frame's camera and click) lives in
-static device tensors that the caller refills before each replay, and a
+static device tensors refilled before each replay (a frame's through
+:meth:`KeyedGraphs.call`), and a
 ``torch.Generator`` the work draws from is registered with the graph, so
 that each replay draws what the eager run would draw next.
 
@@ -19,6 +20,7 @@ A failed capture raises; nothing falls back to the eager path.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 from typing import Any, Callable, Dict, Hashable, Sequence
 
@@ -86,6 +88,7 @@ class KeyedGraphs:
         self.stream = torch.cuda.Stream(device)
         self.pool = torch.cuda.graph_pool_handle() if share_pool else None
         self.graphs: Dict[Hashable, tuple] = {}     # key -> (held, CapturedGraph)
+        self.statics: Dict[Hashable, tuple] = {}    # key -> :meth:`call`'s inputs
 
     @contextlib.contextmanager
     def on_stream(self):
@@ -113,3 +116,47 @@ class KeyedGraphs:
         outputs = fn()
         self.graphs[key] = (held(), capture(fn, self.stream, generators, self.pool))
         return outputs, "captured"
+
+    def call(self, key: Hashable, fn: Callable[..., Any], held: Callable[[], tuple],
+             *inputs):
+        """``fn(*inputs)`` through :meth:`run`, on the graph's own copies of
+        ``inputs`` (tensors, dataclasses of tensors such as cameras, ints as
+        0-d int64 tensors), made at a key's first call and refilled from
+        ``inputs`` before each: ``(outputs, how)``, the outputs (a dict or a
+        sequence of tensors) copied out of the graph's memory and ordered on
+        the current stream."""
+        device = self.stream.device
+        current = torch.cuda.current_stream(device)
+        with self.on_stream():
+            if key not in self.statics:
+                self.statics[key] = tuple(_static_copy(x, device) for x in inputs)
+            static = self.statics[key]
+            for dst, src in zip(static, inputs):
+                _refill(dst, src)
+            out, how = self.run(key, lambda: fn(*static), held)
+            out = ({k: v.clone() for k, v in out.items()} if isinstance(out, dict)
+                   else tuple(v.clone() for v in out))
+        for v in (out.values() if isinstance(out, dict) else out):
+            v.record_stream(current)
+        return out, how
+
+
+def _static_copy(x, device):
+    if isinstance(x, int):
+        return torch.tensor(x, dtype=torch.int64, device=device)
+    if isinstance(x, torch.Tensor):
+        return x.to(device, copy=True)
+    return dataclasses.replace(x, **{
+        f.name: getattr(x, f.name).clone() for f in dataclasses.fields(x)
+        if isinstance(getattr(x, f.name), torch.Tensor)})
+
+
+def _refill(dst, src) -> None:
+    if isinstance(src, int):
+        dst.fill_(src)
+    elif isinstance(src, torch.Tensor):
+        dst.copy_(src)
+    else:
+        for f in dataclasses.fields(src):
+            if isinstance(getattr(src, f.name), torch.Tensor):
+                getattr(dst, f.name).copy_(getattr(src, f.name))

@@ -10,6 +10,7 @@ grid (``occ``; :func:`bake_occupancy`) culls empty space in every chunk.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional, Tuple
 
@@ -276,6 +277,13 @@ def bake_occupancy(model: SAMModel, res: int = 0, threshold: float = 0.01,
                                 device=model.fields.encoding.table.device)
 
 
+def cameras_key(cameras: Cameras) -> tuple:
+    """The cameras' shapes and size: a frame graph's key, as ``jax.jit``
+    keys a trace by its arguments' shapes and static values."""
+    fields = (getattr(cameras, f.name) for f in dataclasses.fields(cameras))
+    return tuple(t.shape if isinstance(t, torch.Tensor) else t for t in fields)
+
+
 def build_sharded_frame_fn(renderer: ImageRenderer, h: int, w: int,
                            features: Tuple[str, ...] = (), sam=None, max_points: int = 4):
     """An interactive frame rendered in shares over the process group of
@@ -297,11 +305,23 @@ def build_sharded_frame_fn(renderer: ImageRenderer, h: int, w: int,
     cam_idx, coords, labels)`` that also decodes a mask on the rendered
     embedding (padded to 64 x 64) from coords [1, max_points, 2] in the
     1024 frame, padded with label -1 in labels [1, max_points], and adds
-    the red overlay ``masked_rgb`` [h, w, 3] in [0, 1]."""
+    the red overlay ``masked_rgb`` [h, w, 3] in [0, 1].
+
+    On the card a frame is one dispatch on every rank, as JAX's jitted
+    frame: one replay of a CUDA graph of the whole frame, its
+    ``all_gather`` calls included, kept per key (the cameras' shapes and
+    size, and the prompt's) and captured after a key's first frame runs
+    eagerly, by every rank at the same call (:func:`mesh.barrier` follows
+    the capture).  The camera, camera index, coords and labels are copied
+    into the graph's static inputs before each replay; the outputs
+    returned are copies.  Elsewhere the frame runs eagerly.
+    ``frame.eager`` is the same frame run eagerly on any device."""
+    from samnerf_tpu_torch.engine import cuda_graph
     from samnerf_tpu_torch.parallel import mesh
 
     cfg, chunk, model = renderer.cfg, renderer.chunk, renderer.model
     world, rank = mesh.world_size(), mesh.rank()
+    device = model.fields.encoding.table.device
 
     def gather(x):
         return mesh.all_gather_rows(x) if world > 1 else x
@@ -311,8 +331,9 @@ def build_sharded_frame_fn(renderer: ImageRenderer, h: int, w: int,
         return torch.cat([x, x[-group:].repeat(pad // group, *([1] * (x.dim() - 1)))]) \
             if pad else x
 
+    # this rank's shares on the device once: a capture cannot copy from the host
     rgb_np, rgb_unflatten = _blocked_coords(h, w, chunk)
-    rgb_coords = pad_rows(torch.as_tensor(rgb_np), 1)
+    rgb_coords = mesh.shard(pad_rows(torch.as_tensor(rgb_np), 1), rank, world).to(device)
     want_sam = "sam" in features and cfg.distill_sam
     want_clipseg = "clipseg" in features and cfg.distill_sam and cfg.use_clipseg_feature
     fuse = want_sam or want_clipseg
@@ -322,8 +343,8 @@ def build_sharded_frame_fn(renderer: ImageRenderer, h: int, w: int,
     def fused_grid(grid_np, group):
         px = np.rint(grid_np).astype(np.int64)
         idx = idx_of(px[:, 0], px[:, 1])
-        return (pad_rows(torch.as_tensor(px.astype(np.float32)), group),
-                pad_rows(torch.as_tensor(np.asarray(idx, np.int64)), group))
+        return tuple(mesh.shard(pad_rows(torch.as_tensor(t), group), rank, world).to(device)
+                     for t in (px.astype(np.float32), np.asarray(idx, np.int64)))
 
     grids = {}
     if want_sam:
@@ -335,19 +356,15 @@ def build_sharded_frame_fn(renderer: ImageRenderer, h: int, w: int,
                              indexing="ij")
         grids["clipseg"] = (*fused_grid(np.stack([hh, ww], -1).reshape(-1, 2), 1), 1)
 
-    @torch.no_grad()
-    def render_all(cameras: Cameras, cam_idx: int) -> Dict[str, torch.Tensor]:
-        device = cameras.camera_to_worlds.device
+    def render_all(cameras: Cameras, cam_idx) -> Dict[str, torch.Tensor]:
         outs = []
-        for c in mesh.shard(rgb_coords, rank, world).to(device):
-            rb = generate_rays(cameras, torch.full((c.shape[0],), cam_idx, device=device), c)
+        for c in rgb_coords:
+            rb = generate_rays(cameras, camera_indices(cam_idx, c.shape[0], device), c)
             outs.append(model(rb, return_topk=fuse))
         keys = ("rgb", "depth", "accumulation") + (("topk_w", "topk_mid") if fuse else ())
         out = {k: gather(torch.cat([o[k] for o in outs])) for k in keys}
         res = {k: rgb_unflatten(out[k]) for k in ("rgb", "depth", "accumulation")}
-        for name, (px, idx, group) in grids.items():
-            px_loc = mesh.shard(px, rank, world).to(device)
-            idx_loc = mesh.shard(idx, rank, world).to(device)
+        for name, (px_loc, idx_loc, group) in grids.items():
             m_loc = px_loc.shape[0]
             rpc = (min(max(chunk // group, 1) * group, m_loc) if name == "sam"
                    else min(1024, m_loc))
@@ -359,14 +376,10 @@ def build_sharded_frame_fn(renderer: ImageRenderer, h: int, w: int,
                          else feats[:1024].reshape(32, 32, -1))
         return res
 
-    if sam is None:
-        return render_all
+    def with_mask(cameras: Cameras, cam_idx, coords: torch.Tensor,
+                  labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+        from samnerf_tpu_torch.perception.sam.sam import postprocess_masks
 
-    from samnerf_tpu_torch.perception.sam.sam import postprocess_masks
-
-    @torch.no_grad()
-    def frame(cameras: Cameras, cam_idx: int, coords: torch.Tensor,
-              labels: torch.Tensor) -> Dict[str, torch.Tensor]:
         out = render_all(cameras, cam_idx)
         feat = out["sam"]
         feat = torch.nn.functional.pad(feat, (0, 0, 0, 64 - feat.shape[1],
@@ -375,9 +388,33 @@ def build_sharded_frame_fn(renderer: ImageRenderer, h: int, w: int,
         masks = postprocess_masks(low_res, (1024, 1024), (h, w), sam.img_size)
         mask = masks[0, 0] > 0.0
         rgb = out["rgb"]
-        red = torch.tensor([1.0, 0.0, 0.0], device=rgb.device)
+        red = (torch.arange(3, device=device) == 0).to(rgb.dtype)     # [1, 0, 0]
         out["masked_rgb"] = torch.clamp(
             torch.where(mask[..., None], 0.5 * rgb + 0.5 * red, rgb), 0.0, 1.0)
         return out
 
+    work = render_all if sam is None else with_mask
+    graphs = cuda_graph.KeyedGraphs(device) if device.type == "cuda" else None
+    modules = (model,) if sam is None else (model, sam)
+
+    def held():
+        return tuple((t.data_ptr(), t.shape) for m in modules
+                     for t in (*m.parameters(), *m.buffers()))
+
+    @torch.no_grad()
+    def eager(cameras: Cameras, cam_idx, *prompt) -> Dict[str, torch.Tensor]:
+        return work(cameras, cam_idx, *prompt)
+
+    @torch.no_grad()
+    def frame(cameras: Cameras, cam_idx, *prompt) -> Dict[str, torch.Tensor]:
+        if graphs is None:
+            return work(cameras, cam_idx, *prompt)
+        key = (cameras_key(cameras), *((t.shape, t.dtype) for t in prompt))
+        out, how = graphs.call(key, work, held, cameras, int(cam_idx), *prompt)
+        if how == "captured":
+            mesh.barrier()
+        return out
+
+    frame.eager = eager
+    frame.graphs = graphs.graphs if graphs is not None else {}
     return frame

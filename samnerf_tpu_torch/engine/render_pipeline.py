@@ -23,7 +23,8 @@ import torch
 
 from samnerf_tpu_torch.core.cameras import Cameras
 from samnerf_tpu_torch.engine import cuda_graph
-from samnerf_tpu_torch.engine.eval_render import ImageRenderer, bake_occupancy
+from samnerf_tpu_torch.engine.eval_render import (ImageRenderer, bake_occupancy,
+                                                  cameras_key)
 from samnerf_tpu_torch.fields.hash_encoding import ParityHashEncoding
 from samnerf_tpu_torch.models.sam_model import SAMModel
 from samnerf_tpu_torch.ops.hash_grid import bake_quantized_tables
@@ -149,19 +150,6 @@ def draw_pins(image: np.ndarray, pins: np.ndarray, radius: int = 4,
     return img
 
 
-def _clone_cameras(cameras: Cameras) -> Cameras:
-    """A copy of ``cameras`` in tensors of its own (a graph's static input)."""
-    return dataclasses.replace(cameras, **{
-        f.name: getattr(cameras, f.name).clone() for f in dataclasses.fields(cameras)
-        if isinstance(getattr(cameras, f.name), torch.Tensor)})
-
-
-def _copy_cameras(dst: Cameras, src: Cameras) -> None:
-    for f in dataclasses.fields(src):
-        if isinstance(getattr(src, f.name), torch.Tensor):
-            getattr(dst, f.name).copy_(getattr(src, f.name))
-
-
 def cameras_from_intrin_c2w(intrin: np.ndarray, c2w: np.ndarray, height: int,
                             width: int, device="cuda") -> Cameras:
     """One camera from a viewer camera message: intrin [3, 3], c2w [3|4, 4]."""
@@ -276,7 +264,6 @@ class SamNerfRenderer:
                  else ("sam",) if cfg.distill_sam else ())
         graphs = (cuda_graph.KeyedGraphs(self.device) if self.device.type == "cuda"
                   else None)
-        statics: Dict[tuple, tuple] = {}    # key -> the graph's static inputs
 
         def prompt(click_xy):
             # click -> 1024-frame coords (ResizeLongestSide convention)
@@ -308,36 +295,16 @@ class SamNerfRenderer:
             img, mask = frame(cameras, cam_idx, pts.to(device), labels.to(device))
             return (img, mask) if return_mask else img
 
-        def key_of(cameras: Cameras):
-            fields = (getattr(cameras, f.name) for f in dataclasses.fields(cameras))
-            return tuple(t.shape if isinstance(t, torch.Tensor) else t for t in fields)
-
         def held():
             return tuple((t.data_ptr(), t.shape) for m in (renderer.model, sam)
                          for t in (*m.parameters(), *m.buffers()))
 
         @torch.no_grad()
         def serve(cameras: Cameras, cam_idx: int, click_xy, return_mask: bool = False):
-            device = cameras.camera_to_worlds.device
-            if device.type != "cuda":
+            if cameras.camera_to_worlds.device.type != "cuda":
                 return eager(cameras, cam_idx, click_xy, return_mask)
-            current = torch.cuda.current_stream(device)
-            key = key_of(cameras)
-            pts, labels = prompt(click_xy)
-            with graphs.on_stream():
-                if key not in statics:
-                    statics[key] = (_clone_cameras(cameras),
-                                    torch.tensor(cam_idx, dtype=torch.int64, device=device),
-                                    pts.to(device), labels.to(device))
-                static = cams, idx, pts_d, labels_d = statics[key]
-                _copy_cameras(cams, cameras)
-                idx.fill_(int(cam_idx))
-                pts_d.copy_(pts)
-                labels_d.copy_(labels)
-                out, _ = graphs.run(key, lambda: frame(*static), held)
-                img, mask = (t.clone() for t in out)
-            img.record_stream(current)
-            mask.record_stream(current)
+            (img, mask), _ = graphs.call(cameras_key(cameras), frame, held, cameras,
+                                         int(cam_idx), *prompt(click_xy))
             return (img, mask) if return_mask else img
 
         serve.eager = eager

@@ -30,14 +30,17 @@ Data parallelism (the JAX trainer's mesh) runs over the process group of
 draws the same global batch and stratification jitter from identically
 seeded generators and keeps its contiguous share (whole patches), takes
 the mean loss of its share (a masked feature loss divided by the group's
-count of valid targets over the world size), and averages the gradients
-over the group before the optimizer step, so the step is the unsharded
-step.  Only the main process evaluates
-(from a generator of its own, so the ranks' batch draws stay in step) and
-writes checkpoints.  The data-parallel step stays eager, one step a
-block: its per-tensor gradient all-reduce would have to be captured by
-every rank in lockstep, and a bucketed all-reduce that a graph could hold
-is queued (ROADMAP).
+count of valid targets over the world size), averages the gradients over
+the group (:func:`mesh.all_reduce_grads`, one all-reduce a gradient)
+before the update and the metrics in one all-reduce, so the step is the
+unsharded step.  Its blocks are the single card's: on each rank one replay
+a block, the collectives inside the graph.  Every rank runs the first
+block eagerly (which also sets up the communicator, as a capture cannot)
+and captures it at the same step, then waits at :func:`mesh.barrier`, so
+that a rank whose capture failed ends every rank with the group's timeout
+error instead of leaving their replays waiting for it.  Only the main process
+evaluates, between blocks (from a generator of its own, so the ranks'
+batch draws stay in step), and writes checkpoints.
 """
 from __future__ import annotations
 
@@ -158,14 +161,18 @@ def make_train_step(model: SAMModel, cfg: SAMModelConfig, optimizer: GroupedAdam
         state.step += 1
         state.steps_since_update = 0 if gate > 0 else state.steps_since_update + 1
         metrics = step_metrics(loss_dict, total)
-        if distributed:
-            names = sorted(metrics)
-            mean = (mesh_lib.all_reduce_sum(torch.stack([metrics[k] for k in names]))
-                    / mesh_lib.world_size())
-            metrics = dict(zip(names, mean))
-        return add_psnr(metrics)
+        return add_psnr(group_mean(metrics) if distributed else metrics)
 
     return train_step
+
+
+def group_mean(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Each of ``metrics`` averaged over the process group, in one
+    all-reduce of their stack (by sorted name)."""
+    names = sorted(metrics)
+    mean = (mesh_lib.all_reduce_sum(torch.stack([metrics[k] for k in names]))
+            / mesh_lib.world_size())
+    return dict(zip(names, mean))
 
 
 def step_metrics(loss_dict: Dict[str, torch.Tensor],
@@ -213,8 +220,7 @@ def shard_step_inputs(model: SAMModel, batch: Dict[str, torch.Tensor],
 
 class Trainer:
     """The training loop on one device (``cuda`` unless ``device`` says
-    otherwise); with a process group up, data-parallel over its ranks,
-    one eager step a block."""
+    otherwise); with a process group up, data-parallel over its ranks."""
 
     def __init__(self, model_cfg: SAMModelConfig, trainer_cfg: TrainerConfig,
                  optimizer_groups: Dict[str, OptimizerGroupConfig], datamanager,
@@ -256,7 +262,7 @@ class Trainer:
             raise ValueError(f"steps_per_dispatch must be >= 1, got "
                              f"{trainer_cfg.steps_per_dispatch}")
         # blocks of steps_per_dispatch steps (module docstring), else the eager step
-        self.block = 1 if self.distributed else trainer_cfg.steps_per_dispatch
+        self.block = trainer_cfg.steps_per_dispatch
         self._scalars: Optional[torch.Tensor] = None    # the graph's [block, C] input
         self._graphs = (cuda_graph.KeyedGraphs(self.device) if self.device.type == "cuda"
                         and self.block > 1 else None)
@@ -298,14 +304,23 @@ class Trainer:
     def _block_step(self, row: torch.Tensor) -> Dict[str, torch.Tensor]:
         """One step of a block from ``row`` (a row of :func:`dispatch_scalars`
         on the device): no host sync and no host state changed, so a graph
-        can hold it."""
-        batch = self._sample_batch()
+        can hold it.  Data-parallel, the eager step's: this rank's share of
+        the global batch and jitter, the gradients and metrics averaged over
+        the group."""
+        batch, generator, jitter = self._sample_batch(), self.generator, None
+        if self.distributed:
+            batch, jitter = shard_step_inputs(self.model, batch, generator, self.rank,
+                                              self.world)
+            generator = None
         self.optimizer.zero_grad()
         loss_dict, total, _ = loss_and_grads(
             self.model, self.model_cfg, None, self.cameras, batch, self.get_features,
-            self.generator, scalars=(row[0], row[1]))
+            generator, jitter, self.distributed, scalars=(row[0], row[1]))
+        if self.distributed:
+            mesh_lib.all_reduce_grads(self.model.parameters())
         self.optimizer.device_step(row[2:].reshape(len(self.optimizer.names), 2))
-        return add_psnr(step_metrics(loss_dict, total))
+        metrics = step_metrics(loss_dict, total)
+        return add_psnr(group_mean(metrics) if self.distributed else metrics)
 
     def _block(self, rows: torch.Tensor) -> Dict[str, torch.Tensor]:
         metrics = None
@@ -335,6 +350,7 @@ class Trainer:
     def _run_block_on_card(self, rows: np.ndarray) -> Dict[str, torch.Tensor]:
         current = torch.cuda.current_stream(self.device)
         n = rows.shape[0]
+        how = "eager"
         with self._graphs.on_stream():
             if n != self.block:
                 metrics = self._block(torch.from_numpy(rows).to(self.device))
@@ -352,6 +368,8 @@ class Trainer:
             metrics = {k: v.clone() for k, v in metrics.items()}
         for v in metrics.values():
             v.record_stream(current)
+        if how == "captured":
+            mesh_lib.barrier()
         return metrics
 
     @staticmethod

@@ -7,7 +7,10 @@ group, with one process per card (started by ``torchrun``, or by
 the whole model and draws the same global batch; :func:`shard` takes the
 rank's contiguous share of a leading axis, :func:`all_reduce_grads`
 averages the gradients, and :func:`all_gather_rows` reassembles a leading
-axis that the ranks computed in shares.
+axis that the ranks computed in shares.  None of these reads a value back
+to the host, so a CUDA graph can hold them (``engine/trainer.py``'s
+blocks, ``engine/eval_render.py``'s sharded frame); :func:`barrier`
+follows a capture of such collectives.
 """
 from __future__ import annotations
 
@@ -103,6 +106,18 @@ def all_reduce_sum(values: torch.Tensor) -> torch.Tensor:
     out = values.clone()
     dist.all_reduce(out)
     return out
+
+
+def barrier() -> None:
+    """Wait for every rank of the group (none without one).  Called after
+    a rank captures a graph that holds collectives: a rank whose capture
+    failed has raised instead, and the others wait here, in a collective
+    that the process group's watchdog ends with an error after the
+    group's timeout (``init_process_group``'s ``timeout``: torch's default,
+    10 minutes for NCCL), where a replay of collectives that no peer joins
+    would hang unseen."""
+    if is_initialized():
+        dist.barrier()
 
 
 def all_gather_rows(x: torch.Tensor) -> torch.Tensor:

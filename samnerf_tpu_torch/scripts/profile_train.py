@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import copy
 import dataclasses
 import json
 import subprocess
@@ -65,6 +66,86 @@ def build_synthetic_trainer(root: Path, device, seed: int = 0,
                         with_features=True, feature_long_side=64)
     return build_trainer(scene, root / "out", device, seed,
                          steps_per_dispatch=steps_per_dispatch)
+
+
+def train_snapshot(trainer: Trainer):
+    """A copy of the trainer's parameters, optimizer state, step state and
+    batch generator."""
+    return (copy.deepcopy(trainer.model.state_dict()),
+            copy.deepcopy(trainer.optimizer.state_dict()),
+            dataclasses.replace(trainer.state), trainer.generator.get_state())
+
+
+def restore_in_place(trainer: Trainer, snap) -> None:
+    """``snap`` back into the trainer's own tensors, so that the graph of
+    its block, which holds their addresses, stays valid."""
+    model, opt, state, gen = snap
+    trainer.model.load_state_dict(model)
+    live = trainer.optimizer.state_dict()["optimizer"]["state"]
+    for name, s in opt["optimizer"]["state"].items():
+        for k, v in s.items():
+            live[name][k].copy_(v)
+    trainer.optimizer.count = opt["count"]
+    trainer.state = dataclasses.replace(state)
+    trainer.generator.set_state(gen)
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.detach().double(), b.detach().double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def snapshot_distance(a, b, names) -> dict:
+    """The worst relative L2 distance of the parameters ``names`` and of the
+    Adam moments of two :func:`train_snapshot`s; raises unless their step
+    counts agree."""
+    (ma, sa, ta, _), (mb, sb, tb, _) = a, b
+    if sa["count"] != sb["count"] or ta != tb:
+        raise AssertionError(f"step counts differ: {sa['count']} {ta} against "
+                             f"{sb['count']} {tb}")
+    moments = max(max(_rel_l2(s["exp_avg"], sb["optimizer"]["state"][k]["exp_avg"]),
+                      _rel_l2(s["exp_avg_sq"], sb["optimizer"]["state"][k]["exp_avg_sq"]))
+                  for k, s in sa["optimizer"]["state"].items())
+    return dict(params=max(_rel_l2(ma[k], mb[k]) for k in names), moments=moments)
+
+
+def block_against_eager(trainer: Trainer, n: int) -> dict:
+    """The trainer's captured block of ``n`` steps (its first block already
+    run eagerly and captured) against the same steps run eagerly: from the
+    state the trainer is in, put back in place each time, two eager runs of
+    the ``n`` steps (blocks of one step, a sync a step) and one replay.
+    ``gap``: the replay's distance from the first eager run
+    (:func:`snapshot_distance`); ``spread``: the two eager runs' (F32-ENC-BWD
+    sums table gradients with f32 atomics in a run-to-run order, so they
+    differ); the last step's losses and their relative error; ms per step
+    of the eager steps and of the replay.  The trainer is left in the
+    replay's state."""
+    def sync():
+        if trainer.device.type == "cuda":
+            torch.cuda.synchronize(trainer.device)
+
+    names = [k for k, _ in trainer.model.named_parameters()]
+    start = train_snapshot(trainer)
+    runs, eager_ms = [], []
+    for _ in range(2):
+        restore_in_place(trainer, start)
+        for _ in range(n):
+            sync()
+            t0 = time.perf_counter()
+            loss = float(trainer.run_block(1)["total_loss"])
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+        runs.append((train_snapshot(trainer), loss))
+    restore_in_place(trainer, start)
+    sync()
+    t0 = time.perf_counter()
+    replay_loss = float(trainer.run_block(n)["total_loss"])
+    replay_ms = (time.perf_counter() - t0) * 1e3 / n
+    (e0, eager_loss), (e1, _) = runs
+    return dict(gap=snapshot_distance(train_snapshot(trainer), e0, names),
+                spread=snapshot_distance(e1, e0, names), replay_loss=replay_loss,
+                eager_loss=eager_loss,
+                loss_rel_err=abs(replay_loss - eager_loss) / abs(eager_loss),
+                eager_step_ms_all=eager_ms, replay_step_ms=replay_ms)
 
 
 def capture_step_encodes(device, warmup: int = 2):

@@ -14,15 +14,22 @@ a card and no JAX (``tests/conftest.py`` imports JAX)::
   eager runs of the eight steps differ from each other (F32-ENC-BWD sums
   table gradients with atomics, in a run-to-run order), within a floor of
   ``TOL_REL`` (relative L2 per tensor; losses ``TOL_LOSS`` relative).  The
-  replays make no launch from Python, and a profiler trace of them holds
-  the kernels the eight eager steps launched, by name; a loaded optimizer
-  state is captured anew.
+  replays make no launch from Python, and a profiler trace of a further
+  replay holds per step the kernels the eager steps launched, by name; a
+  loaded optimizer state is captured anew.
 - ``serve_frame_fn`` of a small model with f32, int8 and fused int8
   tables, and culled by an occupancy grid: each graphed frame's image and
   mask equal the eager frame's bit for bit on three cameras and clicks; a
   frame's first call launches an eager frame and captures it, a replay
   launches nothing from Python, and its trace holds the eager frame's
   kernels.  Baking the tables again replaces the frame's graph.
+- The same block and the sharded frame (``build_sharded_frame_fn`` with
+  fused int8 tables, with and without a SAM decode) on a process group
+  of one NCCL rank: the data-parallel block as the single card's, its
+  gradient all-reduce inside the graph; each sharded frame replay equals
+  the eager sharded frame bit for bit on three cameras and clicks, its
+  first call launches an eager frame and captures it, a replay launches
+  nothing from Python and its trace holds the eager frame's kernels.
 - ``SamPredictor`` with a small encoder (one global layer on FLASH-RELPOS)
   against the same model with ``use_graphs=False``: each replayed
   ``set_image`` gives the eager embedding bit for bit, launches nothing
@@ -37,8 +44,11 @@ a card and no JAX (``tests/conftest.py`` imports JAX)::
   stream): parameters and moments within 4 times the eager runs' widest
   pairwise spread (F32-ENC-BWD's atomics, TensoRF's scatters) or
   ``TOL_REL``, at each of them, losses
-  within ``TOL_LOSS``; the replay launches nothing from Python and runs
-  on the card the hash kernels the eager chunk launched.
+  within ``TOL_LOSS``; the replay launches nothing from Python and a
+  further one runs on the card the hash kernels the eager chunk launched.
+
+A trace that comes back short of what ran is taken again (``_on_card``,
+``kernel_launches.TRACE_TRIES``), each try held exactly.
 """
 import copy
 import dataclasses
@@ -97,18 +107,15 @@ def _launched(fn):
     return out, kernel_launches.counts()
 
 
-def _on_card(fn):
+def _on_card(fn, whole=None):
     """``fn()`` under the profiler: its result and the registered kernels
-    that ran on the card, by name (graph replays included)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    return out, kernel_launches.trace_counts(
-        e.name() for e in prof.profiler.kineto_results.events()
-        if e.device_type() == DeviceType.CUDA)
+    that ran on the card, by name (graph replays included).  ``whole(out,
+    counts)``: whether the trace holds what ``fn`` ran; while it says no,
+    ``fn`` (then idempotent) runs again under a new trace, at most
+    ``kernel_launches.TRACE_TRIES`` times, and the caller holds the last
+    trace exactly."""
+    out, trace = kernel_launches.traced(fn, whole=whole)
+    return out, trace.counts
 
 
 def _snapshot(tr):
@@ -141,9 +148,7 @@ def _distance(a, b):
     return worst
 
 
-@pytest.mark.cuda
-def test_a_block_replay_is_its_eager_steps(tmp_path):
-    dev = _cuda()
+def _block_replay_is_its_eager_steps(tmp_path, dev):
     scene = synthetic.write_scene(tmp_path / "scene", num_train=6, num_test=1, h=64, w=64,
                                   with_features=True, feature_long_side=16)
     graphed = _trainer(scene, tmp_path / "g", BLOCK, dev)
@@ -158,13 +163,12 @@ def test_a_block_replay_is_its_eager_steps(tmp_path):
                                            for _ in range(2 * BLOCK)])
         eager.append((tr, losses))
     graph = graphed._graphs.graphs["block"][1]
-    (graph_losses, python), on_card = _on_card(lambda: _launched(
-        lambda: [float(graphed.run_block(BLOCK)["total_loss"]) for _ in range(2)]))
+    graph_losses, python = _launched(
+        lambda: [float(graphed.run_block(BLOCK)["total_loss"]) for _ in range(2)])
     assert graphed._graphs.graphs["block"][1] is graph      # replayed, not captured again
     assert graphed.steps_by_dispatch == {"eager": BLOCK, "captured": BLOCK,
                                          "replayed": 2 * BLOCK}
     assert not any(python.values())
-    assert on_card == steps and steps["F32-ENC"] and steps["F32-ENC-BWD"]
     (e1, l1), (e2, l2) = eager
     spread = _distance(e1, e2)
     gap = _distance(graphed, e1)
@@ -172,11 +176,47 @@ def test_a_block_replay_is_its_eager_steps(tmp_path):
     assert gap <= max(4 * spread, TOL_REL)
     for got, want in zip(graph_losses, (l1[BLOCK - 1], l1[-1])):
         assert abs(got - want) <= TOL_LOSS * abs(want)
+    # a further replay runs on the card the kernels of a block's eager steps
+    _, on_card = _on_card(lambda: graphed.run_block(BLOCK),
+                          lambda _, c: {k: 2 * v for k, v in c.items()} == steps)
+    assert {k: 2 * v for k, v in on_card.items()} == steps
+    assert steps["F32-ENC"] and steps["F32-ENC-BWD"]
     # a loaded optimizer state has new moments: the block is captured anew
     _restore(graphed, snap)
     graphed.run_block(BLOCK)
     held, new = graphed._graphs.graphs["block"]
     assert new is not graph and held == graphed.optimizer.held()
+    return graphed
+
+
+@pytest.mark.cuda
+def test_a_block_replay_is_its_eager_steps(tmp_path):
+    _block_replay_is_its_eager_steps(tmp_path, _cuda())
+
+
+@pytest.fixture
+def nccl_group():
+    """A process group of one NCCL rank at a free local port."""
+    import socket
+
+    import torch.distributed as dist
+
+    dev = _cuda()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                            rank=0)
+    try:
+        yield dev
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_a_data_parallel_block_replay_is_its_eager_steps(tmp_path, nccl_group):
+    graphed = _block_replay_is_its_eager_steps(tmp_path, nccl_group)
+    assert graphed.distributed
 
 
 def _cameras(dev, i, size):
@@ -221,14 +261,16 @@ def test_a_serve_frame_replay_is_the_eager_frame(route):
     for i, click in enumerate([(20.0, 40.0), (32.0, 32.0), (50.0, 10.0)]):
         cams = _cameras(dev, i, size)
         (want, eager), eager_on_card = _on_card(
-            lambda: _launched(lambda: serve.eager(cams, 0, click, return_mask=True)))
+            lambda: _launched(lambda: serve.eager(cams, 0, click, return_mask=True)),
+            lambda out, c: c == out[1])
         assert eager_on_card == eager and any(eager.values())
         if i == 0:      # the first call runs one eager frame, then captures it
             got, python = _launched(lambda: serve(cams, 0, click, return_mask=True))
             assert python == {k: 2 * n for k, n in eager.items()}
         else:
             (got, python), on_card = _on_card(
-                lambda: _launched(lambda: serve(cams, 0, click, return_mask=True)))
+                lambda: _launched(lambda: serve(cams, 0, click, return_mask=True)),
+                lambda _, c: c == eager)
             assert not any(python.values()) and on_card == eager
         for g, w in zip(got, want):
             assert g.dtype == w.dtype and torch.equal(g, w)
@@ -241,6 +283,50 @@ def test_a_serve_frame_replay_is_the_eager_frame(route):
         assert len(serve.graphs) == 1 and serve.graphs[next(iter(serve.graphs))][1] is not old
         for g, w in zip(got, serve.eager(cams, 0, click, return_mask=True)):
             assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_a_sharded_frame_replay_is_the_eager_frame(nccl_group):
+    from samnerf_tpu_torch.engine.eval_render import build_sharded_frame_fn
+    from samnerf_tpu_torch.engine.render_pipeline import SamNerfRenderer
+    from samnerf_tpu_torch.models.sam_model import SAMModel
+    from samnerf_tpu_torch.perception.sam.sam import Sam, init_decoder_params
+    from samnerf_tpu_torch.utils.init import init_state
+
+    dev, size = nccl_group, 64
+    cfg = dataclasses.replace(SMALL, hash_q8_serve=True, serve_fuse_mlp=True)
+    model = SAMModel(cfg, device=dev)
+    model.load_state_dict(init_state(SAMModel(cfg, device="meta"),
+                                     torch.Generator().manual_seed(1), device=dev,
+                                     table_scale=0.5))
+    sam = Sam(device=dev)
+    sam.load_state_dict(init_decoder_params(torch.Generator().manual_seed(2), dev))
+    snr = SamNerfRenderer(model, chunk=1024, serve_preset="static")
+    snr.bake_serve_tables()
+    frame = build_sharded_frame_fn(snr.renderer, size, size, ("sam", "clipseg"), sam=sam)
+    grids = build_sharded_frame_fn(snr.renderer, size, size, ("sam", "clipseg"))
+    for i, click in enumerate([(20.0, 40.0), (32.0, 32.0), (50.0, 10.0)]):
+        cams = _cameras(dev, i, size)
+        coords = torch.zeros((1, 4, 2), device=dev)
+        coords[0, 0] = torch.tensor(click) * 1024.0 / size
+        labels = torch.full((1, 4), -1, dtype=torch.int32, device=dev)
+        labels[0, 0] = 1
+        for fn, args in ((frame, (coords, labels)), (grids, ())):
+            (want, eager), eager_on_card = _on_card(
+                lambda: _launched(lambda: fn.eager(cams, 0, *args)),
+                lambda out, c: c == out[1])
+            assert eager_on_card == eager and eager["FUSED-QMLP"]
+            if i == 0:      # the first call runs one eager frame, then captures it
+                got, python = _launched(lambda: fn(cams, 0, *args))
+                assert python == {k: 2 * n for k, n in eager.items()}
+            else:
+                (got, python), on_card = _on_card(lambda: _launched(lambda: fn(cams, 0, *args)),
+                                                  lambda _, c: c == eager)
+                assert not any(python.values()) and on_card == eager
+            assert got.keys() == want.keys()
+            for k in want:
+                assert torch.equal(got[k], want[k]), k
+    assert len(frame.graphs) == len(grids.graphs) == 1
 
 
 SMALL_ENCODER = dict(img_size=256, patch_size=16, embed_dim=160, depth=4, num_heads=2,
@@ -271,7 +357,9 @@ def test_a_predictor_replay_is_the_eager_call():
     for i, shape in enumerate([(180, 240, 3), (256, 200, 3), (120, 256, 3)]):
         img = rng.integers(0, 256, shape, dtype=np.uint8)
         eager.set_image(img)
-        (_, python), on_card = _on_card(lambda: _launched(lambda: graphed.set_image(img)))
+        (_, python), on_card = _on_card(
+            lambda: _launched(lambda: graphed.set_image(img)),
+            None if i == 0 else lambda _, c: c["FLASH-RELPOS"] == 1)
         assert torch.equal(graphed.get_image_embedding(), eager.get_image_embedding())
         if i == 0:      # eager, then captured
             assert python["FLASH-RELPOS"] == 2
@@ -348,12 +436,12 @@ def test_a_zoo_chunk_replay_is_its_eager_chunk(name, tmp_path, monkeypatch):
             metrics, launched = _launched(zs.run_chunk.eager)
         torch.cuda.synchronize()
         eager.append((zs, float(metrics["total_loss"]), launched))
-    (metrics, replay_python), on_card = _on_card(lambda: _launched(graphed.run_chunk))
+    metrics, replay_python = _launched(graphed.run_chunk)
     assert graphed.run_chunk.steps_by_dispatch == {"eager": chunk, "captured": chunk,
                                                    "replayed": chunk}
     (e1, l1, launched), (e2, _, _), (e3, _, _) = eager
     assert python == {k: 2 * v for k, v in launched.items()}
-    assert not any(replay_python.values()) and on_card == launched
+    assert not any(replay_python.values())
     if name in ("instant-ngp", "depth-nerfacto", "semantic-nerfw"):
         assert launched["F32-ENC"] and launched["F32-ENC-BWD"]
     # the eager chunks' spread: the widest of their three pairs; the replay
@@ -363,3 +451,6 @@ def test_a_zoo_chunk_replay_is_its_eager_chunk(name, tmp_path, monkeypatch):
     print(f"{name}: chunk replay vs eager chunk {gap:.3e} (three eager chunks {spread:.3e})")
     assert gap <= max(4 * spread, TOL_REL)
     assert abs(float(metrics["total_loss"]) - l1) <= TOL_LOSS * abs(l1)
+    # a further replay runs on the card the hash kernels the eager chunk launched
+    _, on_card = _on_card(graphed.run_chunk, lambda _, c: c == launched)
+    assert on_card == launched

@@ -122,7 +122,8 @@ def test_generate_on_the_card_matches_the_cpu():
               stability_score_thresh=0.0, box_nms_thresh=1.0)
     before = ta.flash_attention_relpos.launches
     card = SamAutomaticMaskGenerator(SamPredictor(small_sam(dev)), **kw).generate(image)
-    assert ta.flash_attention_relpos.launches == before + 1
+    # one encode: the encode graph's eager run and its capture (one global layer)
+    assert ta.flash_attention_relpos.launches == before + 2
     cpu = SamAutomaticMaskGenerator(SamPredictor(small_sam("cpu")), **kw).generate(image)
     assert len(card) == 16 * 3
     worst_iou, worst_box = match_annotations(card, cpu)

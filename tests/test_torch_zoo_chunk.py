@@ -1,9 +1,11 @@
 """The zoo's scan chunks in the port, on the CPU (the card replays each
 chunk as a CUDA graph; here the same steps run eagerly):
 
-- a hash method (depth-nerfacto), a plain one (vanilla-nerf) and two
-  with the occupancy grid (instant-ngp in chunks of 16, nerfplayer-ngp in
-  chunks of 2, the grid updated between chunks): ``dispatch_chunk`` chunks
+- every zoo method: the hash ones (depth-nerfacto, semantic-nerfw), the
+  plain ones (vanilla-nerf, mipnerf, tensorf), nerfplayer-nerfacto (in
+  chunks of 2) and two with the occupancy grid (instant-ngp in chunks of
+  16, nerfplayer-ngp in chunks of 2, the grid updated between chunks):
+  ``dispatch_chunk`` chunks
   of ``make_zoo_train_chunk`` against the same steps run one by one
   through ``make_zoo_train_step`` with ``device_step`` scalars, from one
   seed: parameters, Adam moments, metrics and the grid bit for bit;
@@ -63,7 +65,8 @@ def _assert_same_state(a, b):
 
 
 @pytest.mark.parametrize("name", ["depth-nerfacto", "vanilla-nerf", "instant-ngp",
-                                  "nerfplayer-ngp"])
+                                  "nerfplayer-ngp", "semantic-nerfw", "tensorf", "mipnerf",
+                                  "nerfplayer-nerfacto"])
 def test_chunks_equal_the_steps_one_by_one(name, scene, monkeypatch):
     """Two chunks against as many single steps, the grid warm-up cut so
     that the grid is updated before step 17 (chunks of 16) or step 1

@@ -150,3 +150,92 @@ def sharded_frame(payload):
     out = frame(cams, 0, torch.from_numpy(payload["coords"]),
                 torch.from_numpy(payload["labels"]))
     return _numpy(out)
+
+
+def all_reduce_grads(payload):
+    """This rank's seeded gradients (parameter ``payload["no_grad"]``
+    without one) before and after ``mesh.all_reduce_grads``."""
+    from samnerf_tpu_torch.parallel import mesh
+
+    gen = torch.Generator().manual_seed(100 + mesh.rank())
+    shapes = payload["shapes"]
+    grads = [torch.randn(s, generator=gen) * 10.0 ** torch.randint(-8, 3, s, generator=gen)
+             for s in shapes]
+    params = [torch.nn.Parameter(torch.zeros(s)) for s in shapes]
+    for i, (p, g) in enumerate(zip(params, grads)):
+        if i != payload["no_grad"]:
+            p.grad = g.clone()
+    mesh.all_reduce_grads(params)
+    return {"mine": [g.numpy().copy() for g in grads],
+            "averaged": [None if p.grad is None else p.grad.numpy().copy() for p in params]}
+
+
+def _recorded(trainer, events):
+    """``trainer`` with its callbacks, log rows, eval batches, eval images
+    and the checkpoints it wrote recorded by step in ``events``; returns
+    the callback."""
+    pipe = trainer._pipeline()
+    eval_loss, eval_image, save = (pipe.get_eval_loss_dict,
+                                   pipe.get_eval_image_metrics_and_images,
+                                   trainer.save_checkpoint)
+
+    def get_eval_loss_dict(step, generator):
+        events["eval_batch"].append(step)
+        return eval_loss(step, generator)
+
+    def get_eval_image_metrics_and_images(idx):
+        events["eval_image"].append(trainer.state.step)
+        return eval_image(idx)
+
+    def save_checkpoint(step):
+        path = save(step)
+        if path is not None:
+            events["save"].append(step)
+        return path
+
+    pipe.get_eval_loss_dict = get_eval_loss_dict
+    pipe.get_eval_image_metrics_and_images = get_eval_image_metrics_and_images
+    trainer.save_checkpoint = save_checkpoint
+    return lambda step, metrics: events["callback"].append(
+        (step, {k: float(v) for k, v in metrics.items()}))
+
+
+def dp_blocks(payload):
+    """``Trainer`` with ``steps_per_dispatch`` of each of ``payload["blocks"]``
+    on this rank (data-parallel under a group), the eager step (a dispatch
+    of 1) updating through ``GroupedAdam.device_step`` as a block does: per
+    run, the callbacks' steps and metrics, the log rows', eval batches',
+    eval images' and checkpoints' steps, the final parameters and Adam
+    moments, the step counts and ``steps_by_dispatch``."""
+    from pathlib import Path
+
+    from samnerf_tpu_torch.data.datamanager import DataManager
+    from samnerf_tpu_torch.engine.trainer import Trainer, TrainerConfig
+    from samnerf_tpu_torch.parallel import mesh
+
+    runs = {}
+    for block in payload["blocks"]:
+        out = Path(payload["out"]) / f"block{block}_rank{mesh.rank()}"
+        trainer = Trainer(payload["cfg"], TrainerConfig(
+            output_dir=out, steps_per_dispatch=block, save_final=False,
+            **payload["cadences"]), payload["groups"], DataManager(payload["dm"]),
+            device="cpu")
+        opt = trainer.optimizer
+        if block == 1:
+            def step(opt=opt):
+                opt.device_step(torch.from_numpy(opt.block_scalars(1)[0]))
+                opt.advance(1)
+
+            opt.step = step
+        events = {"callback": [], "eval_batch": [], "eval_image": [], "save": []}
+        trainer.train(step_callback=_recorded(trainer, events))
+        state = opt.state_dict()
+        runs[block] = dict(
+            events, log=[s for s, m in trainer.metrics_history if "total_loss" in m],
+            params=_numpy(trainer.model.state_dict()),
+            moments={n: (s["exp_avg"].numpy().copy(), s["exp_avg_sq"].numpy().copy())
+                     for n, s in state["optimizer"]["state"].items()},
+            count=state["count"], step=trainer.state.step,
+            steps_since_update=trainer.state.steps_since_update,
+            steps_by_dispatch=dict(trainer.steps_by_dispatch))
+    return runs
